@@ -1,0 +1,148 @@
+"""Inference CLI of the PyTorch port (JAX ``cli/infer.py``).
+
+Runs the cascade on .p (virtual) or .pcd (real) clouds, one at a time, and
+writes the JAX CLI's prediction pickle under ``--no-eval``:
+  {points, colors, scores, grasp_stage2, grasp_stage3_stage2,
+   grasp_stage3, grasp_stage3_score}
+next to the input, with ``_data`` replaced by ``_data_predict`` in the path.
+
+Usage:
+  python -m regnet_for_3d_grasping_torch.cli.infer --no-eval \\
+      --folder-name /path/to/virtual_data \\
+      --checkpoint weights/r5_real_e100.npz
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="REGNet inference (PyTorch)")
+    p.add_argument("--folder-name", type=str, default="")
+    p.add_argument("--file-name", type=str, default="")
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="weights npz (weights/*.npz); random init if empty")
+    p.add_argument("--center-num", type=int, default=4000)
+    p.add_argument("--all-points-num", type=int, default=25600)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--no-eval", action="store_true",
+                   help="skip the collision filter (raw grasp sets); "
+                        "required until the evaluator is ported")
+    p.add_argument("--accept-margin", type=float, default=0.0)
+    p.add_argument("--num-refine", type=int, default=1)
+    p.add_argument("--refine-pose", default="full",
+                   choices=["full", "center", "off"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch versions of the kernels)")
+    return p
+
+
+def load_cloud(pc_path: str, all_points_num: int,
+               rng: np.random.RandomState):
+    """Load one cloud and resample it as the JAX CLI does (the same
+    RandomState draws give the same points)."""
+    from regnet_for_3d_grasping_torch.utils import pcd as pcdio
+
+    real = pc_path.endswith(".pcd")
+    if real:
+        pts, colors = pcdio.read_pcd(pc_path)
+        pts = pcdio.transform_points(pcdio.camera_to_global_transform(), pts)
+        pc = np.c_[pts, colors]
+        pc = pc[(pc[:, 0] < 0.26) & (pc[:, 0] > -0.4) & (pc[:, 2] < 1)
+                & (pc[:, 1] < 0.65) & (pc[:, 1] > 0.2)]
+    else:
+        with open(pc_path, "rb") as f:
+            data = pickle.load(f)
+        pc = np.c_[data["view_cloud"].astype(np.float32),
+                   data["view_cloud_color"].astype(np.float32)]
+    pc_back, color_back = pc[:, :3].copy(), pc[:, 3:6].copy()
+    pc = pc.copy()
+    pc[:, 3:6] *= (1 - rng.rand(3) / 5)     # color noise
+    sel = rng.choice(len(pc), all_points_num,
+                     replace=len(pc) < all_points_num)
+    return pc[sel].astype(np.float32), pc_back, color_back, real
+
+
+def main(argv=None) -> list:
+    """Returns one record per cloud: path, forward seconds (synchronized
+    on the device) and the model output."""
+    args = build_parser().parse_args(argv)
+    if not args.no_eval:
+        raise NotImplementedError(
+            "the geometric evaluator is not ported yet (ROADMAP.md queue A "
+            "item 10); run with --no-eval")
+
+    from regnet_for_3d_grasping_torch.config import infer_config
+    from regnet_for_3d_grasping_torch.models.regnet import build_regnet
+    from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
+
+    cfg = infer_config(**{
+        "region.center_num": args.center_num,
+        "region.accept_margin": args.accept_margin,
+        "region.refine_iters": args.num_refine,
+        "region.refine_pose": args.refine_pose,
+    })
+    torch.manual_seed(args.seed)          # random init without weights
+    model = build_regnet(cfg, args.checkpoint or None, args.device)
+    device = next(model.parameters()).device
+    if args.checkpoint:
+        print(f"loaded weights from {args.checkpoint}")
+
+    if args.file_name:
+        paths = [os.path.join(args.folder_name, args.file_name)]
+    else:
+        paths = sorted(glob.glob(os.path.join(args.folder_name, "*.p"))
+                       + glob.glob(os.path.join(args.folder_name, "*.pcd")))
+    if not paths:
+        raise SystemExit(f"no input clouds under {args.folder_name!r}")
+
+    rng = np.random.RandomState(args.seed)
+    gen = torch.Generator().manual_seed(args.seed)
+    records = []
+    for pc_path in paths:
+        pc, pc_back, color_back, real = load_cloud(
+            pc_path, args.all_points_num, rng)
+        x = torch.from_numpy(pc)[None].to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = model(x, generator=gen)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        sets = extract_grasp_sets(out)[0]
+        print(f"{pc_path}: forward {dt:.4f}s, "
+              f"{len(sets['grasp_stage2'])} stage2 / "
+              f"{len(sets['grasp_stage3'])} stage3 grasps")
+        out_path = pc_path.replace("_data", "_data_predict")
+        if real:
+            out_path = out_path.replace(".pcd", ".p")
+        if out_path == pc_path:     # never overwrite the input
+            out_path = os.path.splitext(pc_path)[0] + "_predict.p"
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                    exist_ok=True)
+        with open(out_path, "wb") as f:
+            pickle.dump({"points": pc_back, "colors": color_back,
+                         "scores": out.score[0].cpu().numpy().reshape(-1, 1),
+                         **{k: np.asarray(v, np.float32)
+                            for k, v in sets.items()}}, f)
+        print(f"  -> {out_path}")
+        records.append({"path": pc_path, "forward_s": dt, "out": out,
+                        "sets": sets})
+    return records
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,113 @@
+"""Configuration tree of the PyTorch port.
+
+Its own copy of the JAX package's ``utils/config.py`` dataclasses, cut to
+the fields that single-cloud inference reads.  The values and presets
+(``infer_config``, ``tiny_config``) are those of the JAX package, so one
+override dict configures both packages alike.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class GripperConfig:
+    """Two-finger parallel gripper geometry (meters)."""
+
+    width: float = 0.08    # max opening between fingers (y extent)
+    height: float = 0.010  # hand thickness (z extent)
+    depth: float = 0.06    # finger length along approach axis (x extent)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Network architecture (PointNet++ backbone plus the two heads)."""
+
+    input_channels: int = 6          # xyz + rgb
+    num_centroids: Tuple[int, ...] = (5120, 1024, 256)
+    radii: Tuple[float, ...] = (0.02, 0.08, 0.32)
+    num_neighbours: Tuple[int, ...] = (64, 64, 64)
+    sa_channels: Tuple[Tuple[int, ...], ...] = (
+        (128, 128, 256), (256, 256, 512), (512, 512, 1024))
+    fp_channels: Tuple[Tuple[int, ...], ...] = (
+        (1024, 1024), (512, 512), (256, 256, 256))
+    num_fp_neighbours: Tuple[int, ...] = (3, 3, 3)
+    seg_channels: Tuple[int, ...] = (512, 256, 256, 128)
+    num_anchors: int = 4
+    reg_channels: int = 10
+    feature_channels: int = 256
+    refine_group_channels: int = 128
+    # stratified approximate FPS at SA1; only the exact 1 is ported yet
+    fps_groups: int = 1
+    compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionConfig:
+    """Proposal-region pipeline constants."""
+
+    center_num: int = 64         # 4000 at inference
+    score_thre: float = 0.5
+    group_num: int = 256
+    r_time_group: float = 0.1    # radius = max(gripper dims) * r_time
+    gripper_num: int = 64
+    min_region_points: int = 5
+    grasp_score_thre: float = 0.5
+    accept_margin: float = 0.0
+    refine_iters: int = 1
+    refine_pose: str = "full"    # "full" | "center" | "off"
+    # serving knobs that later slices port (see ROADMAP.md queue A)
+    center_min_z: float | None = None
+    pose_search_k: int = 0
+    refine_guard: bool = False
+    center_fps_groups: int = 1
+    center_select: str = "fps"
+    slab_cell: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    gripper: GripperConfig = dataclasses.field(default_factory=GripperConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    region: RegionConfig = dataclasses.field(default_factory=RegionConfig)
+
+    @property
+    def group_radius(self) -> float:
+        g = self.gripper
+        return max(g.width, g.height, g.depth) * self.region.r_time_group
+
+
+def infer_config(**overrides) -> PipelineConfig:
+    """Inference preset: 4000 centers."""
+    cfg = PipelineConfig(region=RegionConfig(center_num=4000))
+    return _override(cfg, overrides)
+
+
+def tiny_config(**overrides) -> PipelineConfig:
+    """Small shapes for unit tests."""
+    cfg = PipelineConfig(
+        model=ModelConfig(num_centroids=(128, 32, 16),
+                          num_neighbours=(8, 8, 8),
+                          sa_channels=((16, 16, 32), (32, 32, 64),
+                                       (64, 64, 128)),
+                          fp_channels=((128, 128), (64, 64), (32, 32, 32)),
+                          seg_channels=(32, 32, 32, 32),
+                          feature_channels=32,
+                          refine_group_channels=16),
+        region=RegionConfig(center_num=8, group_num=16, gripper_num=16),
+    )
+    return _override(cfg, overrides)
+
+
+def _override(cfg: PipelineConfig, overrides: dict) -> PipelineConfig:
+    """Apply {'region.center_num': 4000}-style overrides."""
+    for key, val in overrides.items():
+        section, _, field = key.partition(".")
+        try:
+            sub = dataclasses.replace(getattr(cfg, section), **{field: val})
+        except (AttributeError, TypeError) as e:
+            raise KeyError(f"unknown config override {key!r}") from e
+        cfg = dataclasses.replace(cfg, **{section: sub})
+    return cfg

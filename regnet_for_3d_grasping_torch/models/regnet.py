@@ -1,0 +1,179 @@
+"""REGNet, the three-stage cascade (JAX ``models/regnet.py``), inference.
+
+ScoreNet scores every point; masked FPS picks the grasp centers; radius
+groups around them are max-pooled (kernel K4) into the TwoStageHead, whose
+anchor residuals decode into stage-2 proposals; the closing region of each
+proposal is cropped (kernel K5), pooled again and refined by the
+RefineHead.  Proposals stay on a fixed [B, center_num] grid with masks.
+
+The selection seeds are u32 values: passed in (the tests pass the values
+the JAX package derives from its keys), or drawn from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+from torch import nn
+
+from regnet_for_3d_grasping_torch.config import PipelineConfig
+from regnet_for_3d_grasping_torch.geometry.codec import anchor_templates
+from regnet_for_3d_grasping_torch.geometry.region import (
+    closing_region_crop_dense, crop_seed_count, group_chunks, group_regions,
+    select_score_centers)
+from regnet_for_3d_grasping_torch.models.heads import RefineHead, TwoStageHead
+from regnet_for_3d_grasping_torch.models.score_net import ScoreNet
+from regnet_for_3d_grasping_torch.ops.pooling import gather_max
+from regnet_for_3d_grasping_torch.runtime import resolve_device
+from regnet_for_3d_grasping_torch.weights import load_into
+
+
+class REGNetOutput(NamedTuple):
+    """Shapes: B batch, N points, NC centers, A anchors, R reg channels."""
+
+    score: torch.Tensor           # [B, N] per-point graspability
+    centers: torch.Tensor         # [B, NC, 6] candidate centers
+    center_index: torch.Tensor    # [B, NC]
+    region_valid: torch.Tensor    # [B, NC] proposal region non-empty
+    cls_logits: torch.Tensor      # [B, NC, A]
+    reg: torch.Tensor             # [B, NC, A, R]
+    anchor_index: torch.Tensor    # [B, NC]
+    proposals: torch.Tensor       # [B, NC, R] stage-2 grasps
+    crop_valid: torch.Tensor      # [B, NC] closing region had > min points
+    refine_logits: torch.Tensor   # [B, NC, 2]
+    refine_reg: torch.Tensor      # [B, NC, R]
+    final_grasps: torch.Tensor    # [B, NC, R] stage-3 grasps
+    refine_accept: torch.Tensor   # [B, NC]
+    score_accept: torch.Tensor    # [B, NC] accepted and score > threshold
+
+
+def decode_proposals(reg: torch.Tensor, anchor_idx: torch.Tensor,
+                     center_xyz: torch.Tensor, radius: float) -> torch.Tensor:
+    """reg [B,NC,A,R], anchor_idx [B,NC], center_xyz [B,NC,3] -> [B,NC,R]
+    (center, unit axis_y, theta, scores...)."""
+    R = reg.shape[-1]
+    sel = torch.gather(reg, -2, anchor_idx[..., None, None].expand(
+        *anchor_idx.shape, 1, R))[..., 0, :]
+    t = anchor_templates(reg.device)[anchor_idx]
+    center = sel[..., :3] * radius + center_xyz
+    r_raw = sel[..., 3:6] + t[..., :3]
+    axis_y = r_raw / torch.sqrt((r_raw * r_raw).sum(-1, keepdim=True)
+                                + 1e-12)
+    theta = math.pi * (sel[..., 6:7] + t[..., 3:4])
+    return torch.cat([center, axis_y, theta, sel[..., 7:]], -1)
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    r, m = cfg.region, cfg.model
+    later = [
+        (r.slab_cell > 0.0, "slab_cell > 0 (sorted-slab kernels)", "A11"),
+        (m.fps_groups > 1 or r.center_fps_groups > 1,
+         "fps_groups > 1 (stratified FPS)", "A11"),
+        (m.compute_dtype != "float32", "a bf16 compute dtype", "A11"),
+        (r.center_select != "fps", 'center_select="bucket"', "A9"),
+        (r.pose_search_k > 0, "pose_search_k", "A9"),
+        (r.refine_guard, "refine_guard", "A9"),
+        (r.center_min_z is not None, "center_min_z", "A9"),
+    ]
+    for bad, what, item in later:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported yet: ROADMAP.md queue A item {item}")
+    if r.refine_pose not in ("full", "center", "off"):
+        raise ValueError(f"unknown refine_pose {r.refine_pose!r}")
+
+
+def _draw(generator: torch.Generator, n: int) -> list:
+    return torch.randint(0, 1 << 32, (n,), generator=generator,
+                         dtype=torch.int64).tolist()
+
+
+class REGNet(nn.Module):
+    """ScoreNet + GRN + RefineNet; module names follow the JAX variables
+    (``score_net``, ``grn_head``, ``refine_head``)."""
+
+    def __init__(self, cfg: PipelineConfig):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.score_net = ScoreNet(cfg.model)
+        self.grn_head = TwoStageHead(cfg.model)
+        self.refine_head = RefineHead(cfg.model)
+
+    @torch.no_grad()
+    def forward(self, pc: torch.Tensor,
+                generator: torch.Generator | None = None,
+                group_seeds: Sequence[int] | None = None,
+                crop_seeds: Sequence[Sequence[int]] | None = None
+                ) -> REGNetOutput:
+        """pc [B, N, 6] -> REGNetOutput.
+
+        `group_seeds`: one u32 per 1024-center chunk; `crop_seeds`: per
+        refine iteration, the seeds `closing_region_crop_dense` takes.
+        Seeds not passed are drawn from `generator`."""
+        cfg, region = self.cfg, self.cfg.region
+        B, N, _ = pc.shape
+        NC = region.center_num
+        iters = max(region.refine_iters, 1)
+        if (group_seeds is None or crop_seeds is None) and generator is None:
+            raise ValueError("pass a torch.Generator or all the seeds")
+        if group_seeds is None:
+            group_seeds = _draw(generator, group_chunks(NC))
+        if crop_seeds is None:
+            n_crop = crop_seed_count(NC, N, region.gripper_num)
+            crop_seeds = [_draw(generator, n_crop) for _ in range(iters)]
+
+        feature, score = self.score_net(pc)
+        centers, center_idx = select_score_centers(
+            pc, score, NC, region.score_thre)
+        groups = group_regions(group_seeds, pc, centers, region.group_num,
+                               cfg.group_radius)
+        pooled = gather_max(feature, groups.index)
+        cls_logits, reg = self.grn_head(pooled)
+        anchor_idx = torch.argmax(cls_logits, dim=-1)
+        proposals = decode_proposals(reg, anchor_idx, centers[..., :3],
+                                     cfg.gripper.depth)
+
+        cur = proposals
+        crop_valid = torch.ones(B, NC, dtype=torch.bool, device=pc.device)
+        for it in range(iters):
+            crop = closing_region_crop_dense(
+                crop_seeds[it], pc, cur, cfg.gripper, region.gripper_num,
+                region.min_region_points)
+            pooled_grip = gather_max(feature, crop.index_in_all)
+            refine_logits, refine_reg = self.refine_head(pooled_grip, pooled)
+            nxt = torch.cat(
+                [cur[..., :3] + refine_reg[..., :3] * cfg.gripper.depth,
+                 cur[..., 3:] + refine_reg[..., 3:]], -1)
+            if region.refine_pose == "center":
+                nxt = torch.cat([nxt[..., :3], cur[..., 3:7], nxt[..., 7:]],
+                                -1)
+            elif region.refine_pose == "off":
+                nxt = torch.cat([cur[..., :7], nxt[..., 7:]], -1)
+            crop_valid = crop_valid & crop.valid
+            cur = nxt
+        refine_accept = ((refine_logits[..., 1] - refine_logits[..., 0]
+                          > region.accept_margin) & crop_valid)
+        score_accept = refine_accept & (cur[..., 7] > region.grasp_score_thre)
+        return REGNetOutput(
+            score=score, centers=centers, center_index=center_idx,
+            region_valid=groups.valid, cls_logits=cls_logits, reg=reg,
+            anchor_index=anchor_idx, proposals=proposals,
+            crop_valid=crop_valid, refine_logits=refine_logits,
+            refine_reg=refine_reg, final_grasps=cur,
+            refine_accept=refine_accept, score_accept=score_accept)
+
+
+def build_regnet(cfg: PipelineConfig, weights=None,
+                 device: str | torch.device | None = None) -> REGNet:
+    """Entry point: an eval-mode REGNet on `device` (``cuda`` unless the
+    caller asks for another), with `weights` (an npz path or the JAX
+    variable arrays, see `weights.jax_to_state_dict`) when given."""
+    dev = resolve_device(device)
+    model = REGNet(cfg)
+    if weights is not None:
+        load_into(model, weights)
+    return model.to(dev).eval()

@@ -1,0 +1,21 @@
+"""Stage 1 — per-point graspability (JAX ``models/score_net.py``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from regnet_for_3d_grasping_torch.config import ModelConfig
+from regnet_for_3d_grasping_torch.models.backbone import PointNet2Seg
+
+
+class ScoreNet(nn.Module):
+    """The backbone under the name ``backbone``, so the weights keep the
+    JAX package's paths; returns (feature [B,N,C], score [B,N])."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.backbone = PointNet2Seg(cfg)
+
+    def forward(self, points: torch.Tensor):
+        return self.backbone(points)

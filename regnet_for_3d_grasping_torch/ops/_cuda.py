@@ -1,0 +1,150 @@
+"""Build, load and launch the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  On first use all of
+them are compiled together, one ``nvcc`` process per source, into
+``csrc/build/`` (named by a hash of source and flags, so an edit
+rebuilds), and loaded with ``ctypes``.  Nothing is built or imported at
+module import time: this module is imported on machines without a card.
+
+Every launch goes through `launch`, which adds one to ``launches[name]``
+and raises if the C entry point reports a CUDA error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+# -fmad=false: no FMA contraction, so every distance is rounded exactly as
+# the JAX reference rounds it (the selections compare those distances)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+
+_P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_uint32)
+# kernel name -> (C entry point, argtypes); every entry point returns the
+# cudaGetLastError() after its launch, and takes the stream last
+SIGNATURES = {
+    "fps": ("regnet_fps", (_P, _P, _P, _I, _I, _I, _P)),
+    "ball_query": ("regnet_ball_query",
+                   (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    "three_nn": ("regnet_three_nn", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "gather_max": ("regnet_gather_max",
+                   (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "crop": ("regnet_crop", (_P, _P, _P, _U, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _F, _F, _F, _P)),
+}
+KERNELS = tuple(SIGNATURES)
+
+launches = dict.fromkeys(KERNELS, 0)
+
+_fns: dict = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build() -> dict:
+    """Compile the kernels that are not built yet, all in parallel.
+    Returns {name: seconds spent}, empty when everything was built."""
+    todo = [n for n in KERNELS if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = []
+    t0 = time.perf_counter()
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        procs.append((n, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    spent, errors = {}, []
+    for n, tmp, p in procs:
+        out, _ = p.communicate()
+        spent[n] = time.perf_counter() - t0
+        if p.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed for {n}.cu:\n{out.decode()}")
+        else:
+            os.replace(tmp, _lib_path(n))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return spent
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        with _lock:
+            build()
+            for n in KERNELS:
+                sym, argtypes = SIGNATURES[n]
+                f = getattr(ctypes.CDLL(str(_lib_path(n))), sym)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+                _fns[n] = f
+        fn = _fns[name]
+    return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream with `args`
+    (tensors are passed as device pointers)."""
+    fn = _fn(name)
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*cargs, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    launches[name] += 1
+
+
+def check(t: torch.Tensor, what: str, dtype: torch.dtype,
+          shape: tuple) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and
+    `shape` (None in `shape` matches any size)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{what}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")

@@ -1,0 +1,99 @@
+"""Radius neighbourhood query with fixed output shape (JAX
+``ops/ball_query.py`` + ``ops/ball_query_pallas.py``).
+
+Two paths choose different points, so the port dispatches as the JAX
+package does on the TPU: kernel K2 (``csrc/ball_query.cu``, buckets of
+`pallas_bucket_stride` = 512 at SA1) where `use_kernel` holds, else the
+plain bucket path (buckets of ``ceil(N/K)``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from regnet_for_3d_grasping_torch.ops import _cuda
+from regnet_for_3d_grasping_torch.ops.distances import bpdist2
+from regnet_for_3d_grasping_torch.ops.sampling import (bucket_choice,
+                                                       fill_empty_buckets,
+                                                       pallas_bucket_stride)
+
+# M*N at or above which the JAX package runs the Pallas ball query
+# (regnet_for_3d_grasping_tpu/ops/ball_query.py:75); K must be a multiple
+# of 8 (ball_query.py:79-80)
+KERNEL_MIN_WORK = 1 << 25
+
+
+def use_kernel(m: int, n: int, k: int) -> bool:
+    return m * n >= KERNEL_MIN_WORK and k % 8 == 0
+
+
+def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
+               num_neighbours: int, chunk: int = 4096):
+    """xyz [B, N, 3], centers [B, M, 3] -> (index [B, M, K] int32, short
+    rows padded with the first hit, 0 when no hit; count [B, M] int32
+    capped at K)."""
+    xyz = xyz.float().contiguous()
+    centers = centers.float().contiguous()
+    r2 = float(np.float32(radius * radius))
+    M, N = centers.shape[1], xyz.shape[1]
+    if use_kernel(M, N, num_neighbours):
+        return ball_query_bucketed(xyz, centers, r2, num_neighbours,
+                                   pallas_bucket_stride(N, num_neighbours))
+    return _ball_query_bucket(xyz, centers, r2, num_neighbours, chunk)
+
+
+def _ball_query_bucket(xyz, centers, r2, K, chunk):
+    """The plain bucket path (JAX ``ball_query.py:88-113``): expansion-form
+    distances, ``d2 < r2``, smallest in-radius index per bucket."""
+    idx, cnt = [], []
+    for c in torch.split(centers, chunk, dim=1):
+        mask = bpdist2(c, xyz) < r2
+        i, any_valid, count = bucket_choice(mask, K)
+        idx.append(torch.where(any_valid[..., None], i, 0))
+        cnt.append(torch.clamp(count, max=K))
+    return torch.cat(idx, 1), torch.cat(cnt, 1)
+
+
+def ball_query_bucketed(xyz: torch.Tensor, centers: torch.Tensor, r2: float,
+                        K: int, L: int):
+    """Kernel K2: bucket k of each center holds its smallest in-radius
+    point index in [k*L, (k+1)*L); count = min(in-radius total, K).  CPU
+    tensors take `ball_query_bucketed_plain`."""
+    if xyz.device.type == "cpu":
+        return ball_query_bucketed_plain(xyz, centers, r2, K, L)
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    _cuda.check(xyz, "ball_query xyz", torch.float32, (B, N, 3))
+    _cuda.check(centers, "ball_query centers", torch.float32, (B, M, 3))
+    if K * L < N or M == 0:
+        raise ValueError(f"ball_query: K*L={K * L} must cover N={N}")
+    idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
+    count = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
+    _cuda.launch("ball_query", xyz.device, xyz, centers, idx, count, B, N, M,
+                 K, L, r2)
+    return idx, count
+
+
+def _bucket_winners(mask: torch.Tensor, K: int, L: int):
+    """mask [B, m, N] -> per-bucket first True index [B, m, K], empty
+    buckets filled by `fill_empty_buckets`."""
+    B, m, N = mask.shape
+    mp = torch.nn.functional.pad(mask, (0, K * L - N)).reshape(B, m, K, L)
+    any_b = mp.any(-1)
+    col = torch.argmax(mp.to(torch.uint8), dim=-1)
+    win = torch.where(any_b, torch.arange(K, device=mask.device) * L + col,
+                      -1)
+    return fill_empty_buckets(win, any_b)
+
+
+def ball_query_bucketed_plain(xyz, centers, r2, K, L, chunk=512):
+    """Plain PyTorch version of K2: diff-square distances summed as
+    ((dx^2 + dy^2) + dz^2), ``d2 < r2``."""
+    idx, cnt = [], []
+    for c in torch.split(centers, chunk, dim=1):
+        d = [xyz[:, None, :, i] - c[:, :, None, i] for i in range(3)]
+        mask = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2] < r2
+        idx.append(_bucket_winners(mask, K, L))
+        cnt.append(torch.clamp(mask.sum(-1, dtype=torch.int32), max=K))
+    return torch.cat(idx, 1), torch.cat(cnt, 1)

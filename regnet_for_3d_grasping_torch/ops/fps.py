@@ -1,0 +1,83 @@
+"""Farthest point sampling (JAX ``ops/fps.py`` + ``ops/fps_pallas.py``).
+
+Every call goes to kernel K1 (``csrc/fps.cu``) on a CUDA tensor and to its
+plain version `fps_plain` on a CPU tensor.  The JAX scan path and its
+Pallas kernel agree bit for bit (``fps_pallas.py:80-82``), so this routes
+every size through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from regnet_for_3d_grasping_torch.ops import _cuda
+
+_INF = 1e10
+# shared memory a block can use on the H100, less the kernel's static part
+_MAX_SMEM_POINTS = (232448 - 1024) // 4
+
+
+def dist_init(xyz: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Sentinel field: 1e10 for selectable points, -1 for masked ones (JAX
+    ``fps.py:50-66``).  Rows with no valid point fall back to all-valid;
+    NaN points are never selectable."""
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=xyz.device)
+    if mask is not None:
+        valid = torch.where(mask.any(dim=1, keepdim=True), mask, valid)
+    valid = valid & ~torch.isnan(xyz[..., 0])
+    return torch.where(valid, torch.tensor(_INF, device=xyz.device),
+                       torch.tensor(-1.0, device=xyz.device))
+
+
+def farthest_point_sample(xyz: torch.Tensor, num_samples: int,
+                          mask: torch.Tensor | None = None,
+                          groups: int = 1) -> torch.Tensor:
+    """xyz [B, N, 3], optional mask [B, N] -> [B, num_samples] int32.
+
+    The first pick is the first valid point; masked points are picked only
+    once every valid point has been (JAX ``fps.py:69-149``)."""
+    if groups != 1:
+        raise NotImplementedError(
+            "stratified FPS (fps_groups > 1) is ROADMAP.md item A11")
+    xyz = xyz.float().contiguous()
+    return fps(xyz, dist_init(xyz, mask), num_samples)
+
+
+def fps(xyz: torch.Tensor, dist: torch.Tensor,
+        num_samples: int) -> torch.Tensor:
+    """Kernel K1: xyz [B, N, 3] f32, dist [B, N] sentinel field ->
+    [B, S] int32.  CPU tensors take `fps_plain`."""
+    if xyz.device.type == "cpu":
+        return fps_plain(xyz, dist, num_samples)
+    B, N, _ = xyz.shape
+    _cuda.check(xyz, "fps xyz", torch.float32, (B, N, 3))
+    _cuda.check(dist, "fps dist", torch.float32, (B, N))
+    if not 0 < N <= _MAX_SMEM_POINTS or num_samples < 1:
+        raise ValueError(f"fps: N={N} must be in (0, {_MAX_SMEM_POINTS}] "
+                         f"and S={num_samples} positive")
+    out = torch.empty(B, num_samples, dtype=torch.int32, device=xyz.device)
+    _cuda.launch("fps", xyz.device, xyz, dist, out, B, N, num_samples)
+    return out
+
+
+def fps_plain(xyz: torch.Tensor, dist: torch.Tensor,
+              num_samples: int) -> torch.Tensor:
+    """Plain PyTorch version of K1, step for step the JAX scan
+    (``fps.py:138-149``): diff-square distances summed as
+    ((dx^2 + dy^2) + dz^2), running min over unmasked points, first-index
+    argmax."""
+    B = xyz.shape[0]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    rows = torch.arange(B, device=xyz.device)
+    far = torch.argmax(dist, dim=1)
+    out = torch.empty(B, num_samples, dtype=torch.int64, device=xyz.device)
+    for s in range(num_samples):
+        out[:, s] = far
+        c = xyz[rows, far]
+        dx = x - c[:, 0:1]
+        dy = y - c[:, 1:2]
+        dz = z - c[:, 2:3]
+        d = (dx * dx + dy * dy) + dz * dz
+        dist = torch.where(dist < 0, dist, torch.minimum(dist, d))
+        far = torch.argmax(dist, dim=1)
+    return out.to(torch.int32)
