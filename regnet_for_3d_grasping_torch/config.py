@@ -39,8 +39,10 @@ class ModelConfig:
     reg_channels: int = 10
     feature_channels: int = 256
     refine_group_channels: int = 128
-    # stratified approximate FPS at SA1; only the exact 1 is ported yet
+    # > 1: stratified approximate FPS at SA1 (ops/fps.py)
     fps_groups: int = 1
+    # x-bound of the last FP's slab 3-NN, in the cloud's units (meters)
+    fp3_nn_bound: float = 0.06
     compute_dtype: str = "float32"
 
 

@@ -1,7 +1,9 @@
-// K1 — masked iterative farthest point sampling.
+// K1 — masked iterative farthest point sampling, and K10 — its grouped
+// (stratified) form.
 //
 // Replaces: regnet_for_3d_grasping_tpu/ops/fps_pallas.py, fps_pallas
-//   (_fps_kernel_v2, dispatched from ops/fps.py:134).
+//   (_fps_kernel_v2, dispatched from ops/fps.py:134) and fps_pallas_grouped
+//   (_fps_kernel_grouped, fps_pallas.py:211, dispatched from ops/fps.py:119).
 // Bound on the H100: latency.  The S steps depend on each other; each is a
 //   pass over the N-point distance field plus a block-wide argmax, so the
 //   work is tiny (about 10 flops per point and step) but runs on one SM per
@@ -16,6 +18,12 @@
 //   JAX order, so every pick is bit-identical to the reference.
 //   Using one SM is the known weakness (a later change can split the field
 //   across a cluster).
+//   Grouped: G independent exact runs of S/G samples over the G contiguous
+//   slices of N/G points.  The TPU kernel advances all slices in one program
+//   because a TPU core runs one program at a time; here each (batch, slice)
+//   is a thread block of its own running the same loop on its slice, so the
+//   slices run on G SMs at once and the dependent steps drop from S to S/G.
+//   Indices come out slice-major with the slice's offset g*N/G added.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -60,13 +68,15 @@ __device__ int block_argmax(float v, int i, float* sv, int* si, int* sout) {
 
 __global__ void __launch_bounds__(kThreads)
 fps_kernel(const float* __restrict__ xyz, const float* __restrict__ dist_init,
-           int32_t* __restrict__ out, int n, int s_total) {
+           int32_t* __restrict__ out, int n, int s_total, int groups) {
   extern __shared__ float dist[];
   __shared__ float sv[32];
   __shared__ int si[32];
   __shared__ int sfar;
 
+  // block = (batch element, slice): a slice is n points, s_total samples
   const int b = blockIdx.x;
+  const int offset = (b % groups) * n;
   xyz += (size_t)b * n * 3;
   dist_init += (size_t)b * n;
   out += (size_t)b * s_total;
@@ -85,7 +95,7 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ dist_init,
   int far = block_argmax(bv, bi, sv, si, &sfar);
 
   for (int s = 0; s < s_total; ++s) {
-    if (threadIdx.x == 0) out[s] = far;
+    if (threadIdx.x == 0) out[s] = far + offset;
     if (s + 1 == s_total) break;
     const float cx = xyz[3 * far], cy = xyz[3 * far + 1],
                 cz = xyz[3 * far + 2];
@@ -111,17 +121,32 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ dist_init,
   }
 }
 
+int launch(const float* xyz, const float* dist_init, int32_t* out, int blocks,
+           int n, int s_total, int groups, cudaStream_t stream) {
+  const size_t smem = (size_t)n * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fps_kernel<<<blocks, kThreads, smem, stream>>>(xyz, dist_init, out, n,
+                                                 s_total, groups);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xyz [B, N, 3] f32, dist_init [B, N] f32 -> out [B, S] int32.
 extern "C" int regnet_fps(const float* xyz, const float* dist_init,
                           int32_t* out, int batch, int n, int s_total,
                           cudaStream_t stream) {
-  const size_t smem = (size_t)n * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fps_kernel<<<batch, kThreads, smem, stream>>>(xyz, dist_init, out, n,
-                                                s_total);
-  return (int)cudaGetLastError();
+  return launch(xyz, dist_init, out, batch, n, s_total, 1, stream);
+}
+
+// Grouped: xyz [B, N, 3], dist_init [B, N] (each slice's own sentinel
+// field), N and S multiples of `groups` -> out [B, S] int32, slice-major:
+// out[b, g*S/G + i] = g*N/G + (i-th pick of slice g).
+extern "C" int regnet_fps_grouped(const float* xyz, const float* dist_init,
+                                  int32_t* out, int batch, int n, int s_total,
+                                  int groups, cudaStream_t stream) {
+  return launch(xyz, dist_init, out, batch * groups, n / groups,
+                s_total / groups, groups, stream);
 }

@@ -1,10 +1,15 @@
-"""Proposal regions (JAX ``geometry/region.py``), full-scan paths.
+"""Proposal regions (JAX ``geometry/region.py``): center selection, radius
+grouping and the closing-region crop, on the full-scan paths and, given a
+`SortedCloud`, on the sorted-slab kernels (``ops/slab.py``) where the
+shapes qualify (`_use_slab_group`, `_use_slab_crop`, `use_slab_backbone`).
 
 Randomness enters as u32 seeds, the values the JAX package reads from its
-keys: `group_regions` takes one seed per center chunk
-(``key_data(split(k_group, n_chunks))[:, -1]``); `closing_region_crop_dense`
-takes one seed on the kernel path (``key_data(k_it)[-1]``) and one per
-proposal chunk on the plain path.  `crop_seed_count` says which.
+keys.  On the full-scan paths `group_regions` takes one seed per center
+chunk (``key_data(split(k_group, n_chunks))[:, -1]``) and
+`closing_region_crop_dense` one seed on the kernel path
+(``key_data(k_it)[-1]``) or one per proposal chunk on the plain path; on
+the slab paths each takes one (``key_data(key)[-1]``).  `group_seed_count`
+and `crop_seed_count` say which.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from regnet_for_3d_grasping_torch.config import GripperConfig
 from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
 from regnet_for_3d_grasping_torch.ops import crop as crop_ops
+from regnet_for_3d_grasping_torch.ops import slab
 from regnet_for_3d_grasping_torch.ops.distances import bpdist2
 from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
 from regnet_for_3d_grasping_torch.ops.grouping import gather_points
@@ -39,22 +45,56 @@ def use_crop_kernel(m: int, n: int, gripper_num: int) -> bool:
     return m * n >= CROP_KERNEL_MIN_WORK and gripper_num % 8 == 0
 
 
+def _use_slab_group(n: int, group_num: int) -> bool:
+    return (group_num % 64 == 0
+            and slab.group_span_blocks(group_num) <= slab.n_scan_blocks(n))
+
+
+def use_slab_backbone(n: int, sa1_neighbours: int) -> bool:
+    """Can SA1's ball query and the last FP's 3-NN run the slab kernels?
+    SA1 selects with win 256 / spw 2: 16 slots per scan block.  The model
+    sorts the cloud before the backbone when this holds, after it
+    otherwise."""
+    return (sa1_neighbours % 16 == 0
+            and slab.span_blocks_for(sa1_neighbours, slab.BALL_WIN,
+                                     slab.BALL_SPW) <= slab.n_scan_blocks(n))
+
+
+def _use_slab_crop(n: int, gripper_num: int) -> bool:
+    return (gripper_num % 8 == 0
+            and slab.crop_span_blocks(gripper_num) <= slab.n_scan_blocks(n))
+
+
 def select_score_centers(pc: torch.Tensor, score: torch.Tensor,
-                         center_num: int, score_thre: float):
+                         center_num: int, score_thre: float,
+                         groups: int = 1):
     """Masked FPS over the points scoring above `score_thre` (all points
-    when none does) -> (centers [B, NC, C], index [B, NC] int32)."""
+    when none does), stratified over `groups` slices -> (centers
+    [B, NC, C], index [B, NC] int32)."""
     idx = farthest_point_sample(pc[..., :3], center_num,
-                                mask=score > score_thre)
+                                mask=score > score_thre, groups=groups)
     return gather_points(pc, idx), idx
 
 
 class RegionGroups(NamedTuple):
     index: torch.Tensor   # [B, NC, G] indices into N
     valid: torch.Tensor   # [B, NC] bool, region had >= 1 point in radius
+    # selection-span origins [B, T] when the slab kernel made `index`
+    # (what `slab.gather_max_slab` pools over); None on the full-scan path
+    slab_off: torch.Tensor | None = None
 
 
 def group_chunks(nc: int) -> int:
     return -(-nc // min(GROUP_CENTER_CHUNK, nc))
+
+
+def group_seed_count(nc: int, n: int, group_num: int,
+                     sorted_cloud: bool = False) -> int:
+    """Seeds `group_regions` takes: 1 on the slab path, one per center
+    chunk on the full-scan path."""
+    if sorted_cloud and _use_slab_group(n, group_num):
+        return 1
+    return group_chunks(nc)
 
 
 def group_stride(nc: int, n: int, group_num: int) -> int:
@@ -71,20 +111,32 @@ def dense_crop_stride(nc: int, n: int, gripper_num: int) -> int:
 
 def group_regions(seeds: Sequence[int], pc: torch.Tensor,
                   centers: torch.Tensor, group_num: int,
-                  radius: float) -> RegionGroups:
+                  radius: float, sorted_cloud: slab.SortedCloud | None = None,
+                  cell: float = 0.0) -> RegionGroups:
     """Stratified pick of `group_num` points with ``d2 <= r2`` around each
     center, random tiebreak from `hash_uniform` (JAX ``region.py:160-185``).
     Centers are processed in chunks of 1024, padded with far centers, one
-    seed per chunk."""
+    seed per chunk.
+
+    With `sorted_cloud` (over the same rows as `pc`) and qualifying shapes,
+    kernel K6 scans only each center tile's slab and the picks are
+    stratified over the slab's windows; counts and validity stay exact."""
     B, N, _ = pc.shape
     NC = centers.shape[1]
     chunk = min(GROUP_CENTER_CHUNK, NC)
-    if len(seeds) != group_chunks(NC):
-        raise ValueError(f"group_regions: {len(seeds)} seeds for "
-                         f"{group_chunks(NC)} chunks")
-    r2 = float(np.float32(radius * radius))
+    want = group_seed_count(NC, N, group_num, sorted_cloud is not None)
+    if len(seeds) != want:
+        raise ValueError(f"group_regions: {len(seeds)} seeds, expected "
+                         f"{want}")
     xyz = pc[..., :3].float()
     cxyz = centers[..., :3].float()
+    if sorted_cloud is not None and _use_slab_group(N, group_num):
+        idx, count, sel_any, off = slab.group_slab(
+            sorted_cloud, cxyz, seeds[0], radius, group_num, cell)
+        valid = (count > 0) & sel_any
+        return RegionGroups(torch.where(valid[..., None], idx, 0), valid,
+                            off)
+    r2 = float(np.float32(radius * radius))
     pad = (-NC) % chunk
     if pad:
         cxyz = torch.cat([cxyz, torch.full((B, pad, 3), 1e10,
@@ -102,11 +154,15 @@ def group_regions(seeds: Sequence[int], pc: torch.Tensor,
 class ClosingRegion(NamedTuple):
     index_in_all: torch.Tensor   # [B, NC, K] indices into the cloud
     valid: torch.Tensor          # [B, NC] bool, > min_points inside
+    slab_off: torch.Tensor | None = None   # see RegionGroups.slab_off
 
 
-def crop_seed_count(nc: int, n: int, gripper_num: int) -> int:
-    """Seeds `closing_region_crop_dense` takes: 1 on the kernel path, one
-    per proposal chunk on the plain path."""
+def crop_seed_count(nc: int, n: int, gripper_num: int,
+                    sorted_cloud: bool = False) -> int:
+    """Seeds `closing_region_crop_dense` takes: 1 on the slab and kernel
+    paths, one per proposal chunk on the plain path."""
+    if sorted_cloud and _use_slab_crop(n, gripper_num):
+        return 1
     if use_crop_kernel(nc, n, gripper_num):
         return 1
     return -(-nc // min(CROP_PROPOSAL_CHUNK, nc))
@@ -114,19 +170,30 @@ def crop_seed_count(nc: int, n: int, gripper_num: int) -> int:
 
 def closing_region_crop_dense(seeds: Sequence[int], pc: torch.Tensor,
                               grasp: torch.Tensor, gripper: GripperConfig,
-                              gripper_num: int,
-                              min_points: int = 5) -> ClosingRegion:
+                              gripper_num: int, min_points: int = 5,
+                              sorted_cloud: slab.SortedCloud | None = None,
+                              cell: float = 0.0) -> ClosingRegion:
     """Crop the cloud points inside each proposal's closing box, tested
     against the full cloud (JAX ``region.py:365-442``): x in
-    (0, depth/2), |y| < width/2, |z| < height/2 in the gripper frame."""
+    (0, depth/2), |y| < width/2, |z| < height/2 in the gripper frame.
+    With `sorted_cloud` and qualifying shapes, kernel K7 scans only each
+    proposal tile's slab."""
     B, N, _ = pc.shape
     NC = grasp.shape[1]
-    if len(seeds) != crop_seed_count(NC, N, gripper_num):
+    want = crop_seed_count(NC, N, gripper_num, sorted_cloud is not None)
+    if len(seeds) != want:
         raise ValueError(f"closing_region_crop_dense: {len(seeds)} seeds, "
-                         f"expected {crop_seed_count(NC, N, gripper_num)}")
+                         f"expected {want}")
     frame, center = grasps_to_frames(grasp.float())
     xyz = pc[..., :3].float().contiguous()
     box = (0.0, gripper.depth / 2, gripper.width / 2, gripper.height / 2)
+
+    if sorted_cloud is not None and _use_slab_crop(N, gripper_num):
+        idx, count, sel_any, off = slab.crop_slab(
+            sorted_cloud, frame, center, seeds[0], box, gripper_num, cell)
+        valid = (count > min_points) & sel_any
+        return ClosingRegion(torch.where(sel_any[..., None], idx, 0), valid,
+                             off)
 
     if use_crop_kernel(NC, N, gripper_num):
         idx, count = crop_ops.closing_region_crop(

@@ -1,5 +1,9 @@
-"""PointNet++ segmentation backbone (JAX ``models/backbone.py``), the
-full-scan (non-slab) paths, inference only."""
+"""PointNet++ segmentation backbone (JAX ``models/backbone.py``),
+inference only.  Given a `SortedCloud` over its input rows and a slab
+cell, SA1's ball query (kernel K6) and the last FP's 3-NN (kernel K8, with
+its exactness certificate and full-scan fallback) run the sorted-slab
+kernels; every other layer, and every layer without them, runs the
+full-scan paths."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ from torch import nn
 
 from regnet_for_3d_grasping_torch.config import ModelConfig
 from regnet_for_3d_grasping_torch.nn.layers import BatchNorm, SharedMLP
+from regnet_for_3d_grasping_torch.ops import _cuda, slab
 from regnet_for_3d_grasping_torch.ops.ball_query import ball_query
 from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
 from regnet_for_3d_grasping_torch.ops.grouping import (gather_points,
@@ -22,41 +27,91 @@ class SetAbstraction(nn.Module):
     """FPS -> ball-query grouping -> shared MLP -> max over neighbours."""
 
     def __init__(self, in_channels: int, num_centroids: int, radius: float,
-                 num_neighbours: int, mlp_channels: Sequence[int]):
+                 num_neighbours: int, mlp_channels: Sequence[int],
+                 fps_groups: int = 1):
         super().__init__()
         self.num_centroids = num_centroids
         self.radius = radius
         self.num_neighbours = num_neighbours
+        self.fps_groups = fps_groups
         self.mlp = SharedMLP(in_channels + 3, mlp_channels)
 
-    def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None):
-        """xyz [B,N,3], feature [B,N,C] -> (new_xyz [B,S,3], [B,S,C'])."""
-        idx = farthest_point_sample(xyz, self.num_centroids)
+    def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None,
+                sc: slab.SortedCloud | None = None, slab_cell: float = 0.0,
+                seed: int = 0x5A1B):
+        """xyz [B,N,3], feature [B,N,C] -> (new_xyz [B,S,3], [B,S,C']).
+        `sc` (over the same rows as `xyz`) with ``slab_cell > 0`` switches
+        the ball query to the slab kernel, seeded by the u32 `seed`."""
+        idx = farthest_point_sample(xyz, self.num_centroids,
+                                    groups=self.fps_groups)
         new_xyz = gather_points(xyz, idx)
-        nidx, _ = ball_query(xyz, new_xyz, self.radius, self.num_neighbours)
+        if sc is not None and slab_cell > 0.0:
+            nidx = self._slab_ball_query(sc, new_xyz, slab_cell, seed)
+        else:
+            nidx, _ = ball_query(xyz, new_xyz, self.radius,
+                                 self.num_neighbours)
         group_feat = group_points(xyz, nidx) - new_xyz[:, :, None, :]
         if feature is not None:
             group_feat = torch.cat([group_feat, group_points(feature, nidx)],
                                    -1)
         return new_xyz, self.mlp(group_feat).amax(dim=2)
 
+    def _slab_ball_query(self, sc, new_xyz, slab_cell, seed):
+        """x-sort the centroids for tile locality (stably: FPS repeats
+        picks, so equal x occur), query, and restore FPS order on the
+        returned rows: the deeper layers' bucketed selection needs a
+        spatially mixed index order."""
+        c_ord = torch.sort(new_xyz[..., 0], dim=-1, stable=True).indices
+        c_sorted = gather_points(new_xyz, c_ord)
+        nidx_s, _ = slab.ball_query_slab(sc, c_sorted, seed, self.radius,
+                                         self.num_neighbours, slab_cell)
+        inv = torch.sort(c_ord, dim=-1, stable=True).indices
+        return gather_points(nidx_s, inv)
+
 
 class FeaturePropagation(nn.Module):
     """3-NN inverse-distance interpolation -> concat skip -> shared MLP."""
 
     def __init__(self, in_channels: int, mlp_channels: Sequence[int],
-                 num_neighbours: int = 3):
+                 num_neighbours: int = 3, nn_bound: float = 0.06):
         super().__init__()
         self.num_neighbours = num_neighbours
+        self.nn_bound = nn_bound
         self.mlp = SharedMLP(in_channels, mlp_channels)
 
-    def forward(self, dense_xyz, sparse_xyz, dense_feature, sparse_feature):
-        idx, d2 = three_nn(dense_xyz, sparse_xyz, self.num_neighbours)
+    def forward(self, dense_xyz, sparse_xyz, dense_feature, sparse_feature,
+                use_slab: bool = False):
+        """`use_slab` (only when `dense_xyz` is in slab order) takes the
+        3-NN from the slab kernel."""
+        if use_slab and self.num_neighbours == 3:
+            idx, d2, sparse_feature = self._slab_three_nn(
+                dense_xyz, sparse_xyz, sparse_feature)
+        else:
+            idx, d2 = three_nn(dense_xyz, sparse_xyz, self.num_neighbours)
         interp = three_interpolate(sparse_feature, idx,
                                    interpolation_weights(d2))
         if dense_feature is not None:
             interp = torch.cat([interp, dense_feature], -1)
         return self.mlp(interp)
+
+    def _slab_three_nn(self, dense_xyz, sparse_xyz, sparse_feature):
+        """x-sort the keys (stably), search the slab, and keep the result
+        when its certificate holds for every query; else run the full scan
+        over the sorted keys, so the result is always the exact 3-NN.  The
+        indices address the sorted keys, and `sparse_feature` is permuted to
+        match.  Reading ``proven.all()`` is one device-to-host copy per
+        forward; a forward that falls back adds one to
+        ``_cuda.fallbacks["fp3_slab"]`` (a count that keeps growing means
+        `nn_bound` is mis-scaled for the cloud's units)."""
+        k_ord = torch.sort(sparse_xyz[..., 0], dim=-1, stable=True).indices
+        key_sorted = gather_points(sparse_xyz, k_ord)
+        feat_sorted = gather_points(sparse_feature, k_ord)
+        idx, d2, proven = slab.three_nn_slab(dense_xyz, key_sorted,
+                                             bound=self.nn_bound)
+        if not bool(proven.all()):
+            _cuda.fallbacks["fp3_slab"] += 1
+            idx, d2 = three_nn(dense_xyz, key_sorted, 3)
+        return idx, d2, feat_sorted
 
 
 class PointNet2Seg(nn.Module):
@@ -70,13 +125,16 @@ class PointNet2Seg(nn.Module):
         for i, (s, r, k, ch) in enumerate(zip(
                 cfg.num_centroids, cfg.radii, cfg.num_neighbours,
                 cfg.sa_channels)):
-            self.add_module(f"sa{i}", SetAbstraction(c_in, s, r, k, ch))
+            # SA1 holds nearly all of the FPS work; the deeper layers' inputs
+            # are FPS-ordered, not random, and stay exact
+            self.add_module(f"sa{i}", SetAbstraction(
+                c_in, s, r, k, ch, cfg.fps_groups if i == 0 else 1))
             c_in = ch[-1]
             skip.append(c_in)
         for i, (ch, k) in enumerate(zip(cfg.fp_channels,
                                         cfg.num_fp_neighbours)):
             self.add_module(f"fp{i}", FeaturePropagation(
-                c_in + skip[-2 - i], ch, k))
+                c_in + skip[-2 - i], ch, k, cfg.fp3_nn_bound))
             c_in = ch[-1]
         self.seg_mlp = SharedMLP(c_in, cfg.seg_channels)
         self.score_dense = nn.Linear(cfg.seg_channels[-1], 1, bias=False)
@@ -84,21 +142,32 @@ class PointNet2Seg(nn.Module):
         self.n_sa = len(cfg.num_centroids)
         self.n_fp = len(cfg.fp_channels)
 
-    def forward(self, points: torch.Tensor):
+    def forward(self, points: torch.Tensor,
+                sc: slab.SortedCloud | None = None, slab_cell: float = 0.0,
+                sa1_seed: int = 0x5A1B):
+        """`sc` (over the same rows as `points`) with ``slab_cell > 0``
+        switches SA1's ball query and the last FP's 3-NN to the slab
+        kernels: only SA1's point set is the sorted cloud, and only the
+        last FP's dense level is."""
+        use_slab = sc is not None and slab_cell > 0.0
         xyz = points[..., :3]
         feature = points[..., 3:self.input_channels]
         if feature.shape[-1] == 0:
             feature = None
         inter_xyz, inter_feat = [xyz], [feature]
         for i in range(self.n_sa):
-            xyz, feature = getattr(self, f"sa{i}")(xyz, feature)
+            if use_slab and i == 0:
+                xyz, feature = self.sa0(xyz, feature, sc, slab_cell, sa1_seed)
+            else:
+                xyz, feature = getattr(self, f"sa{i}")(xyz, feature)
             inter_xyz.append(xyz)
             inter_feat.append(feature)
         sparse_xyz, sparse_feat = xyz, feature
         for i in range(self.n_fp):
             dense_xyz = inter_xyz[-2 - i]
             sparse_feat = getattr(self, f"fp{i}")(
-                dense_xyz, sparse_xyz, inter_feat[-2 - i], sparse_feat)
+                dense_xyz, sparse_xyz, inter_feat[-2 - i], sparse_feat,
+                use_slab and i == self.n_fp - 1)
             sparse_xyz = dense_xyz
         x = self.score_bn(self.score_dense(self.seg_mlp(sparse_feat)))
         return sparse_feat, torch.sigmoid(x)[..., 0]

@@ -6,9 +6,15 @@ anchor residuals decode into stage-2 proposals; the closing region of each
 proposal is cropped (kernel K5), pooled again and refined by the
 RefineHead.  Proposals stay on a fixed [B, center_num] grid with masks.
 
-The selection seeds are u32 values: passed in (the tests pass the values
-the JAX package derives from its keys), or drawn from an explicit
-``torch.Generator``.
+With ``region.slab_cell > 0`` the cloud is put into slab order once
+(`ops/slab.sort_cloud`), and grouping, crop, both pools and, where SA1's
+shape qualifies, the backbone's SA1 ball query and last 3-NN run the
+sorted-slab kernels K6-K9.  Per-point outputs then come out in slab order,
+and `point_order` gives each row's original row.
+
+The randomness is explicit: u32 selection seeds and the sort noise `u` are
+passed in (the tests pass the values the JAX package derives from its
+keys), or drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ from torch import nn
 from regnet_for_3d_grasping_torch.config import PipelineConfig
 from regnet_for_3d_grasping_torch.geometry.codec import anchor_templates
 from regnet_for_3d_grasping_torch.geometry.region import (
-    closing_region_crop_dense, crop_seed_count, group_chunks, group_regions,
-    select_score_centers)
+    closing_region_crop_dense, crop_seed_count, group_regions,
+    group_seed_count, select_score_centers, use_slab_backbone)
 from regnet_for_3d_grasping_torch.models.heads import RefineHead, TwoStageHead
 from regnet_for_3d_grasping_torch.models.score_net import ScoreNet
+from regnet_for_3d_grasping_torch.ops import slab
+from regnet_for_3d_grasping_torch.ops.grouping import gather_points
 from regnet_for_3d_grasping_torch.ops.pooling import gather_max
 from regnet_for_3d_grasping_torch.runtime import resolve_device
 from regnet_for_3d_grasping_torch.weights import load_into
@@ -48,6 +56,9 @@ class REGNetOutput(NamedTuple):
     final_grasps: torch.Tensor    # [B, NC, R] stage-3 grasps
     refine_accept: torch.Tensor   # [B, NC]
     score_accept: torch.Tensor    # [B, NC] accepted and score > threshold
+    # slab mode only: original row of each output row ([B, N], else None);
+    # `score` is in slab order, everything else is addressed by value
+    point_order: torch.Tensor | None = None
 
 
 def decode_proposals(reg: torch.Tensor, anchor_idx: torch.Tensor,
@@ -69,9 +80,6 @@ def decode_proposals(reg: torch.Tensor, anchor_idx: torch.Tensor,
 def _check_supported(cfg: PipelineConfig) -> None:
     r, m = cfg.region, cfg.model
     later = [
-        (r.slab_cell > 0.0, "slab_cell > 0 (sorted-slab kernels)", "A11"),
-        (m.fps_groups > 1 or r.center_fps_groups > 1,
-         "fps_groups > 1 (stratified FPS)", "A11"),
         (m.compute_dtype != "float32", "a bf16 compute dtype", "A11"),
         (r.center_select != "fps", 'center_select="bucket"', "A9"),
         (r.pose_search_k > 0, "pose_search_k", "A9"),
@@ -86,9 +94,21 @@ def _check_supported(cfg: PipelineConfig) -> None:
         raise ValueError(f"unknown refine_pose {r.refine_pose!r}")
 
 
-def _draw(generator: torch.Generator, n: int) -> list:
+def _draw(generator: torch.Generator | None, n: int) -> list:
+    if generator is None:
+        raise ValueError("pass a torch.Generator or all the randomness")
     return torch.randint(0, 1 << 32, (n,), generator=generator,
                          dtype=torch.int64).tolist()
+
+
+def _pool(feature, index, valid, slab_off, win, spw):
+    """Max over each row's gathered features: K4, or K9 where the slab
+    kernels made `index`, whose rows without a pick are zeroed as the JAX
+    model zeroes them."""
+    if slab_off is None:
+        return gather_max(feature, index)
+    pooled = slab.gather_max_slab(feature, index, slab_off, win, spw)
+    return torch.where(valid[..., None], pooled, torch.zeros_like(pooled))
 
 
 class REGNet(nn.Module):
@@ -107,31 +127,61 @@ class REGNet(nn.Module):
     def forward(self, pc: torch.Tensor,
                 generator: torch.Generator | None = None,
                 group_seeds: Sequence[int] | None = None,
-                crop_seeds: Sequence[Sequence[int]] | None = None
-                ) -> REGNetOutput:
+                crop_seeds: Sequence[Sequence[int]] | None = None,
+                sort_u: torch.Tensor | None = None,
+                sa1_seed: int | None = None) -> REGNetOutput:
         """pc [B, N, 6] -> REGNetOutput.
 
-        `group_seeds`: one u32 per 1024-center chunk; `crop_seeds`: per
-        refine iteration, the seeds `closing_region_crop_dense` takes.
-        Seeds not passed are drawn from `generator`."""
+        `group_seeds`: the u32 seeds `group_regions` takes
+        (`group_seed_count`); `crop_seeds`: per refine iteration, the seeds
+        `closing_region_crop_dense` takes (`crop_seed_count`).  Slab mode
+        only: `sort_u` [B, N] f32 in [0, 1), the within-cell sort noise,
+        and `sa1_seed`, the u32 seed of SA1's slab ball query.  What is not
+        passed is drawn from `generator`."""
         cfg, region = self.cfg, self.cfg.region
         B, N, _ = pc.shape
         NC = region.center_num
         iters = max(region.refine_iters, 1)
-        if (group_seeds is None or crop_seeds is None) and generator is None:
-            raise ValueError("pass a torch.Generator or all the seeds")
+        cell = region.slab_cell
+        slab_mode = cell > 0.0
         if group_seeds is None:
-            group_seeds = _draw(generator, group_chunks(NC))
+            group_seeds = _draw(generator, group_seed_count(
+                NC, N, region.group_num, slab_mode))
         if crop_seeds is None:
-            n_crop = crop_seed_count(NC, N, region.gripper_num)
+            n_crop = crop_seed_count(NC, N, region.gripper_num, slab_mode)
             crop_seeds = [_draw(generator, n_crop) for _ in range(iters)]
 
-        feature, score = self.score_net(pc)
+        # slab mode: one sort by (x-cell, noise).  Where SA1's shape
+        # qualifies, the sort comes before the backbone, which then runs its
+        # slab kernels (with stratified FPS, SA1's slices are contiguous
+        # ranges of the sorted cloud); otherwise the backbone sees the cloud
+        # as given and its outputs are brought into slab order
+        sc = None
+        if not slab_mode:
+            feature, score = self.score_net(pc)
+        elif use_slab_backbone(N, cfg.model.num_neighbours[0]):
+            if sa1_seed is None:
+                sa1_seed = _draw(generator, 1)[0]
+            pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
+            feature, score = self.score_net(pc, sc, cell, sa1_seed)
+        else:
+            feature, score = self.score_net(pc)
+            pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
+            feature = gather_points(feature, sc.order)
+            score = torch.gather(score, 1, sc.order.long())
+
         centers, center_idx = select_score_centers(
-            pc, score, NC, region.score_thre)
+            pc, score, NC, region.score_thre, region.center_fps_groups)
+        if sc is not None:
+            # x-sort the centers (stably: masked FPS repeats picks) so that
+            # each tile of 128 spans a narrow slab
+            c_ord = torch.sort(centers[..., 0], dim=-1, stable=True).indices
+            centers = gather_points(centers, c_ord)
+            center_idx = torch.gather(center_idx, 1, c_ord)
         groups = group_regions(group_seeds, pc, centers, region.group_num,
-                               cfg.group_radius)
-        pooled = gather_max(feature, groups.index)
+                               cfg.group_radius, sc, cell)
+        pooled = _pool(feature, groups.index, groups.valid, groups.slab_off,
+                       slab.GROUP_WIN, slab.GROUP_SPW)
         cls_logits, reg = self.grn_head(pooled)
         anchor_idx = torch.argmax(cls_logits, dim=-1)
         proposals = decode_proposals(reg, anchor_idx, centers[..., :3],
@@ -142,8 +192,9 @@ class REGNet(nn.Module):
         for it in range(iters):
             crop = closing_region_crop_dense(
                 crop_seeds[it], pc, cur, cfg.gripper, region.gripper_num,
-                region.min_region_points)
-            pooled_grip = gather_max(feature, crop.index_in_all)
+                region.min_region_points, sc, cell)
+            pooled_grip = _pool(feature, crop.index_in_all, crop.valid,
+                                crop.slab_off, slab.CROP_WIN, slab.CROP_SPW)
             refine_logits, refine_reg = self.refine_head(pooled_grip, pooled)
             nxt = torch.cat(
                 [cur[..., :3] + refine_reg[..., :3] * cfg.gripper.depth,
@@ -164,7 +215,8 @@ class REGNet(nn.Module):
             anchor_index=anchor_idx, proposals=proposals,
             crop_valid=crop_valid, refine_logits=refine_logits,
             refine_reg=refine_reg, final_grasps=cur,
-            refine_accept=refine_accept, score_accept=score_accept)
+            refine_accept=refine_accept, score_accept=score_accept,
+            point_order=None if sc is None else sc.order)
 
 
 def build_regnet(cfg: PipelineConfig, weights=None,

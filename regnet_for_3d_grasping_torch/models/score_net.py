@@ -17,5 +17,6 @@ class ScoreNet(nn.Module):
         super().__init__()
         self.backbone = PointNet2Seg(cfg)
 
-    def forward(self, points: torch.Tensor):
-        return self.backbone(points)
+    def forward(self, points: torch.Tensor, sc=None, slab_cell: float = 0.0,
+                sa1_seed: int = 0x5A1B):
+        return self.backbone(points, sc, slab_cell, sa1_seed)

@@ -1,13 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  On first use all of
-them are compiled together, one ``nvcc`` process per source, into
-``csrc/build/`` (named by a hash of source and flags, so an edit
-rebuilds), and loaded with ``ctypes``.  Nothing is built or imported at
-module import time: this module is imported on machines without a card.
+Each ``csrc/<source>.cu`` has a plain C interface with one entry point per
+kernel.  On first use all of them are compiled together, one ``nvcc``
+process per source, into ``csrc/build/`` (named by a hash of source and
+flags, so an edit rebuilds), and loaded with ``ctypes``.  Nothing is built
+or imported at module import time: this module is imported on machines
+without a card.
 
 Every launch goes through `launch`, which adds one to ``launches[name]``
-and raises if the C entry point reports a CUDA error.
+and raises if the C entry point reports a CUDA error.  ``fallbacks`` counts
+the forwards in which the slab 3-NN's certificate failed and the full scan
+ran instead.
 """
 
 from __future__ import annotations
@@ -33,29 +36,45 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint32)
-# kernel name -> (C entry point, argtypes); every entry point returns the
-# cudaGetLastError() after its launch, and takes the stream last
+# kernel name -> (source, C entry point, argtypes); every entry point
+# returns the cudaGetLastError() after its launch, and takes the stream last
 SIGNATURES = {
-    "fps": ("regnet_fps", (_P, _P, _P, _I, _I, _I, _P)),
-    "ball_query": ("regnet_ball_query",
+    "fps": ("fps", "regnet_fps", (_P, _P, _P, _I, _I, _I, _P)),
+    "fps_grouped": ("fps", "regnet_fps_grouped",
+                    (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "ball_query": ("ball_query", "regnet_ball_query",
                    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
-    "three_nn": ("regnet_three_nn", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "gather_max": ("regnet_gather_max",
+    "three_nn": ("three_nn", "regnet_three_nn",
+                 (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "gather_max": ("gather_max", "regnet_gather_max",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "crop": ("regnet_crop", (_P, _P, _P, _U, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _F, _F, _F, _P)),
+    "crop": ("crop", "regnet_crop", (_P, _P, _P, _U, _P, _P, _I, _I, _I, _I,
+                                     _I, _F, _F, _F, _F, _P)),
+    "group_slab": ("slab_select", "regnet_group_slab",
+                   (_P, _P, _P, _U, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _F, _P)),
+    "crop_slab": ("slab_select", "regnet_crop_slab",
+                  (_P, _P, _P, _P, _U, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                   _F, _F, _F, _P)),
+    "three_nn_slab": ("three_nn_slab", "regnet_three_nn_slab",
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "gather_max_slab": ("gather_max_slab", "regnet_gather_max_slab",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 KERNELS = tuple(SIGNATURES)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 launches = dict.fromkeys(KERNELS, 0)
+fallbacks = {"fp3_slab": 0}
 
 _fns: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, fallbacks):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc() -> str:
@@ -68,16 +87,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{source}.cu").read_bytes()
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    return BUILD_DIR / f"lib{source}-{h}.so"
 
 
 def build() -> dict:
-    """Compile the kernels that are not built yet, all in parallel.
-    Returns {name: seconds spent}, empty when everything was built."""
-    todo = [n for n in KERNELS if not _lib_path(n).exists()]
+    """Compile the sources that are not built yet, all in parallel.
+    Returns {source: seconds spent}, empty when everything was built."""
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -109,9 +128,9 @@ def _fn(name: str):
     if fn is None:
         with _lock:
             build()
-            for n in KERNELS:
-                sym, argtypes = SIGNATURES[n]
-                f = getattr(ctypes.CDLL(str(_lib_path(n))), sym)
+            libs = {src: ctypes.CDLL(str(_lib_path(src))) for src in SOURCES}
+            for n, (src, sym, argtypes) in SIGNATURES.items():
+                f = getattr(libs[src], sym)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
                 _fns[n] = f

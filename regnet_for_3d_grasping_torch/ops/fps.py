@@ -1,9 +1,10 @@
 """Farthest point sampling (JAX ``ops/fps.py`` + ``ops/fps_pallas.py``).
 
-Every call goes to kernel K1 (``csrc/fps.cu``) on a CUDA tensor and to its
+Every call goes to a kernel of ``csrc/fps.cu`` on a CUDA tensor (K1 `fps`,
+or K10 `fps_grouped` for the stratified ``groups > 1`` form) and to the
 plain version `fps_plain` on a CPU tensor.  The JAX scan path and its
-Pallas kernel agree bit for bit (``fps_pallas.py:80-82``), so this routes
-every size through the kernel.
+Pallas kernels agree bit for bit (``fps_pallas.py:80-82``, ``:189-191``),
+so this routes every size through the kernels.
 """
 
 from __future__ import annotations
@@ -35,12 +36,23 @@ def farthest_point_sample(xyz: torch.Tensor, num_samples: int,
     """xyz [B, N, 3], optional mask [B, N] -> [B, num_samples] int32.
 
     The first pick is the first valid point; masked points are picked only
-    once every valid point has been (JAX ``fps.py:69-149``)."""
-    if groups != 1:
-        raise NotImplementedError(
-            "stratified FPS (fps_groups > 1) is ROADMAP.md item A11")
+    once every valid point has been (JAX ``fps.py:69-149``).
+
+    ``groups = G > 1`` is the stratified form: exact FPS of S/G samples in
+    each of the G contiguous slices of N/G points, independently, so a
+    slice with no valid point falls back to all-valid on its own.  The
+    indices come out slice-major."""
     xyz = xyz.float().contiguous()
-    return fps(xyz, dist_init(xyz, mask), num_samples)
+    if groups == 1:
+        return fps(xyz, dist_init(xyz, mask), num_samples)
+    B, N, _ = xyz.shape
+    if N % groups or num_samples % groups:
+        raise ValueError(f"fps: N={N} and S={num_samples} must be multiples "
+                         f"of groups={groups}")
+    L = N // groups
+    mg = None if mask is None else mask.reshape(B * groups, L)
+    dist = dist_init(xyz.reshape(B * groups, L, 3), mg)
+    return fps_grouped(xyz, dist.reshape(B, N), num_samples, groups)
 
 
 def fps(xyz: torch.Tensor, dist: torch.Tensor,
@@ -58,6 +70,40 @@ def fps(xyz: torch.Tensor, dist: torch.Tensor,
     out = torch.empty(B, num_samples, dtype=torch.int32, device=xyz.device)
     _cuda.launch("fps", xyz.device, xyz, dist, out, B, N, num_samples)
     return out
+
+
+def fps_grouped(xyz: torch.Tensor, dist: torch.Tensor, num_samples: int,
+                groups: int) -> torch.Tensor:
+    """Kernel K10: xyz [B, N, 3] f32, dist [B, N] (each slice's own
+    sentinel field) -> [B, S] int32, slice-major with the slice offsets
+    added.  CPU tensors take `fps_grouped_plain`."""
+    B, N, _ = xyz.shape
+    L, s_per = N // groups, num_samples // groups
+    if xyz.device.type == "cpu":
+        return fps_grouped_plain(xyz, dist, num_samples, groups)
+    _cuda.check(xyz, "fps_grouped xyz", torch.float32, (B, N, 3))
+    _cuda.check(dist, "fps_grouped dist", torch.float32, (B, N))
+    if (N % groups or num_samples % groups or s_per < 1
+            or not 0 < L <= _MAX_SMEM_POINTS):
+        raise ValueError(f"fps_grouped: N={N}, S={num_samples} must be "
+                         f"positive multiples of groups={groups}")
+    out = torch.empty(B, num_samples, dtype=torch.int32, device=xyz.device)
+    _cuda.launch("fps_grouped", xyz.device, xyz, dist, out, B, N,
+                 num_samples, groups)
+    return out
+
+
+def fps_grouped_plain(xyz: torch.Tensor, dist: torch.Tensor,
+                      num_samples: int, groups: int) -> torch.Tensor:
+    """Plain PyTorch version of K10: `fps_plain` over the [B*G, N/G] view,
+    slice offsets added."""
+    B, N, _ = xyz.shape
+    L = N // groups
+    idx = fps_plain(xyz.reshape(B * groups, L, 3),
+                    dist.reshape(B * groups, L), num_samples // groups)
+    offs = torch.arange(groups, dtype=torch.int32, device=xyz.device) * L
+    return (idx.reshape(B, groups, -1)
+            + offs[None, :, None]).reshape(B, num_samples)
 
 
 def fps_plain(xyz: torch.Tensor, dist: torch.Tensor,

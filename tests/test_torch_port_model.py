@@ -142,7 +142,8 @@ def slice_run(tiny_variables):
     jmodel = JREGNet(cfg)
 
     seeds = {"group": [], "crop": []}
-    n_chunks = region.group_chunks(cfg.region.center_num)
+    n_chunks = region.group_seed_count(
+        cfg.region.center_num, cfg.region.num_points, cfg.region.group_num)
 
     def group_spy(key, *a, **kw):
         def keep(kd):
@@ -226,8 +227,8 @@ def test_slice_grasp_sets(slice_run):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"region.slab_cell": 0.04}, "A11"),
-    ({"model.fps_groups": 8}, "A11"),
+    ({"model.compute_dtype": "bfloat16"}, "A11"),
+    ({"region.slab_cell": 0.04, "model.compute_dtype": "bfloat16"}, "A11"),
     ({"region.center_select": "bucket"}, "A9"),
     ({"region.pose_search_k": 8}, "A9"),
     ({"region.refine_guard": True}, "A9"),
