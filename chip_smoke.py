@@ -12,8 +12,11 @@ result unless every phase passed):
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
    slab-sorted cloud), with their median times, a bound computed from the
-   shapes (for the slab kernels from the pairs their span tables scan), and
-   a library call where one computes the same function; and once, on a
+   shapes (for the slab kernels from the pairs their span tables scan and
+   the pairs that pass), and a library call where one computes the same
+   function.  K6-K8 are timed, like their plain versions, on a span table
+   computed beforehand, which is the work the bound counts; the whole call
+   with its span table, fill and certificate is ``wrapper_ms``.  And once, on a
    cloud scaled past the slab 3-NN's bound, the refused certificate and the
    FP layer's fallback to the full scan (``--kernels-only`` stops here);
 4. the full-scan path: the port's infer CLI on 3 tabletop clouds with the
@@ -145,7 +148,9 @@ def slab_kernels(dev, xyz, record) -> None:
 
     # K6: the SA1 ball query (5,120 x-sorted centroids, r 0.02, K 64, win
     # 256, spw 2, distinct) and the region grouping (4,000 x-sorted centers,
-    # r 0.008, K 256, win 128, spw 4)
+    # r 0.008, K 256, win 128, spw 4).  Operations: the radius test (9) on
+    # every scanned pair; the hash (8) and its place in the window's argmax
+    # (2) only on the pairs that pass, which `count` sums exactly
     def k6(centers, seed, radius, K, win, spw, distinct, label):
         ss = slab.select_spans(sc, centers, radius, SLAB_CELL, K, win, spw)
         r2 = float(np.float32(float(radius) ** 2))
@@ -155,33 +160,42 @@ def slab_kernels(dev, xyz, record) -> None:
                 sx, centers, ss, seed, r2, K, win, spw, distinct), ss)
 
         def kernel():
+            return slab.finish_select(*slab.group_slab_spans(
+                sx, centers, ss, seed, r2, K, win, spw, distinct), ss)
+
+        def wrapper():
             return slab.group_slab(sc, centers, seed, radius, K, SLAB_CELL,
                                    win, spw, distinct)
 
         got, ref = kernel(), plain()
-        check(all_equal(got, ref), f"K6 group_slab differs ({label})")
+        check(all_equal(got, ref) and all_equal(wrapper(), ref),
+              f"K6 group_slab differs ({label})")
         pairs = scanned_pairs(ss, centers.shape[1], 128, 2048, N_POINTS)
+        passing = int(got[1].sum())
         print(f"group_slab {label}: {pairs} pairs scanned of "
-              f"{centers.shape[1] * N_POINTS}, "
+              f"{centers.shape[1] * N_POINTS}, {passing} in radius, "
               f"{int(got[2].sum())} rows with a pick")
         return (got, max_err(got[:2], ref[:2]), cuda_ms(kernel, 20),
-                cuda_ms(plain, 3), nbytes(sx, centers, ss, *got), pairs * 25)
+                cuda_ms(plain, 3), nbytes(sx, centers, ss, *got),
+                pairs * 9 + passing * 10, cuda_ms(wrapper, 20))
 
     centroids = x_sorted(sx[:, sa1[0].long()])
     c4000 = x_sorted(sx[:, got_m[0].long()])
-    _, err_b, ms_b, plain_b, bytes_b, ops_b = k6(
+    _, err_b, ms_b, plain_b, bytes_b, ops_b, wrap_b = k6(
         centroids, 0x5A1B, 0.02, 64, slab.BALL_WIN, slab.BALL_SPW, True,
         "SA1 geometry")
-    groups, err, ms, plain_ms, bytes_, ops = k6(
+    groups, err, ms, plain_ms, bytes_, ops, wrap = k6(
         c4000, 21, 0.008, 256, slab.GROUP_WIN, slab.GROUP_SPW, False,
         "region geometry")
     record("group_slab", src, JAX_OPS + "slab.py:425", err, ms, plain_ms,
-           bytes_, ops, also=[{
+           bytes_, ops, wrapper_ms=wrap, also=[{
                "shape": "SA1 ball query: 5120 centroids, K=64, distinct",
                "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-               "bound_ms": bound(bytes_b, ops_b)[0]}])
+               "bound_ms": bound(bytes_b, ops_b)[0], "wrapper_ms": wrap_b}])
 
-    # K7: crop of 4,000 proposals around those centers
+    # K7: crop of 4,000 proposals around those centers.  Operations: the
+    # frame transform and box test (22) on every scanned pair, hash and
+    # argmax (10) on the pairs inside the box
     gen = torch.Generator().manual_seed(8)
     axis = torch.nn.functional.normalize(
         torch.randn(1, N_CENTERS, 3, generator=gen), dim=-1).to(dev)
@@ -200,18 +214,25 @@ def slab_kernels(dev, xyz, record) -> None:
             sx, f9, bases, ss, 12345, box32, 64), ss)
 
     def crop_kernel():
+        return slab.finish_select(*slab.crop_slab_spans(
+            sx, f9, bases, ss, 12345, box32, 64), ss)
+
+    def crop_wrapper():
         return slab.crop_slab(sc, frames, bases, 12345, box, 64, SLAB_CELL)
 
     crops, ref = crop_kernel(), crop_plain()
-    check(all_equal(crops, ref), "K7 crop_slab differs")
+    check(all_equal(crops, ref) and all_equal(crop_wrapper(), ref),
+          "K7 crop_slab differs")
     pairs = scanned_pairs(ss, N_CENTERS, 128, 2048, N_POINTS)
+    inside = int(crops[1].sum())
     print(f"crop_slab: {pairs} pairs scanned of {N_CENTERS * N_POINTS}, "
-          f"{int(crops[1].sum())} inside points, "
+          f"{inside} inside points, "
           f"{int(((crops[1] > 5) & crops[2]).sum())} valid proposals")
     record("crop_slab", src, JAX_OPS + "slab.py:425", max_err(crops[:2],
                                                               ref[:2]),
            cuda_ms(crop_kernel, 20), cuda_ms(crop_plain, 3),
-           nbytes(sx, frames, bases, ss, *crops), pairs * 35)
+           nbytes(sx, frames, bases, ss, *crops), pairs * 22 + inside * 10,
+           wrapper_ms=cuda_ms(crop_wrapper, 20))
 
     # K8: FP3, 25,600 sorted queries against the 5,120 x-sorted centroids,
     # with the bounded spans (the default) and the flat ones
@@ -220,12 +241,17 @@ def slab_kernels(dev, xyz, record) -> None:
         ss = torch.stack([start, stop], -1).to(torch.int32).contiguous()
 
         def kernel():
+            return slab.three_nn_slab_spans(sx, centroids, ss)
+
+        def wrapper():
             return slab.three_nn_slab(sx, centroids, 0.06, 3, flat)
 
         def plain():
             return slab.three_nn_slab_plain(sx, centroids, ss)
 
-        got, ref = kernel(), plain()
+        got, ref = wrapper(), plain()
+        check(all_equal(kernel(), got[:2]),
+              f"K8 wrapper and launch differ ({label})")
         check(torch.equal(got[0], ref[0]), f"K8 3-NN indices differ ({label})")
         check(torch.allclose(got[1], ref[1], rtol=1e-6, atol=0),
               f"K8 3-NN distances differ beyond rtol 1e-6 ({label})")
@@ -234,10 +260,10 @@ def slab_kernels(dev, xyz, record) -> None:
               f"{N_POINTS * 5120}, proven {bool(got[2].all())}")
         return (got, max_err(got[:2], ref), cuda_ms(kernel, 20),
                 cuda_ms(plain, 3), nbytes(sx, centroids, ss, *got[:2]),
-                pairs * 10)
+                pairs * 10, cuda_ms(wrapper, 20))
 
-    nn, err, ms, plain_ms, bytes_, ops = k8(False, "bounded spans")
-    _, err_f, ms_f, plain_f, bytes_f, ops_f = k8(True, "flat spans")
+    nn, err, ms, plain_ms, bytes_, ops, wrap = k8(False, "bounded spans")
+    _, err_f, ms_f, plain_f, bytes_f, ops_f, wrap_f = k8(True, "flat spans")
     check(bool(nn[2].all()), "K8 certificate failed on the tabletop cloud")
 
     def cdist_topk():
@@ -249,10 +275,10 @@ def slab_kernels(dev, xyz, record) -> None:
     check(same > 0.99, "the proven slab 3-NN disagrees with the full scan")
     record("three_nn_slab", CSRC + "three_nn_slab.cu",
            JAX_OPS + "slab.py:853", err, ms, plain_ms, bytes_, ops,
-           cuda_ms(cdist_topk, 20), also=[{
+           cuda_ms(cdist_topk, 20), wrapper_ms=wrap, also=[{
                "shape": "flat spans (slab.py:885)", "max_abs_err": err_f,
                "ms": ms_f, "plain_ms": plain_f,
-               "bound_ms": bound(bytes_f, ops_f)[0]}])
+               "bound_ms": bound(bytes_f, ops_f)[0], "wrapper_ms": wrap_f}])
 
     # the certificate refusing, on the card: the same cloud 20 times larger,
     # so the 0.06 bound no longer covers the neighbours and the FP layer
@@ -434,20 +460,24 @@ def main() -> None:
     results = {}
 
     def record(name, source, replaces, err, ms, plain_ms, bytes_, ops,
-               library_ms=None, also=None):
+               library_ms=None, also=None, wrapper_ms=None):
         """`also`: the numbers of the kernel's second shape, where it has
-        one on the path."""
+        one on the path.  `wrapper_ms`: the whole call where `ms` times the
+        launch on a span table computed beforehand."""
         b_ms, b_by = bound(bytes_, ops)
         results[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
+        if wrapper_ms is not None:
+            results[name]["wrapper_ms"] = wrapper_ms
         if also:
             results[name]["also"] = also
         print(f"{name}: max_abs_err {err} kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
-              + (f", library {library_ms:.4f} ms" if library_ms else ""))
+              + (f", library {library_ms:.4f} ms" if library_ms else "")
+              + (f", whole call {wrapper_ms:.4f} ms" if wrapper_ms else ""))
 
     # K1: 25600 -> 5120 unmasked (SA1), and the masked 25600 -> 4000
     dist = fps.dist_init(xyz, None)

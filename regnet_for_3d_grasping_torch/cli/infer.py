@@ -44,18 +44,13 @@ def build_parser():
     p.add_argument("--num-refine", type=int, default=1)
     p.add_argument("--refine-pose", default="full",
                    choices=["full", "center", "off"])
-    p.add_argument("--slab-cell", type=float, default=-1.0,
-                   help="sorted-slab cell in meters (0 or unset = exact "
-                        "full scans; the serving configuration uses 0.04)")
-    p.add_argument("--fps-groups", type=int, default=-1,
+    p.add_argument("--slab-cell", type=float, default=0.0,
+                   help="sorted-slab cell in meters (0 = exact full scans; "
+                        "the serving configuration uses 0.04)")
+    p.add_argument("--fps-groups", type=int, default=1,
                    help="stratified-FPS groups at SA1 and the center "
-                        "selection (1 or unset = exact; the serving "
-                        "configuration uses 8)")
-    p.add_argument("--fast", action="store_true",
-                   help="bf16 + --slab-cell 0.04 + --fps-groups 8; waits "
-                        "for the bf16 compute dtype")
-    p.add_argument("--bf16", action="store_true",
-                   help="bf16 compute dtype; not ported yet")
+                        "selection (1 = exact; the serving configuration "
+                        "uses 8)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -97,20 +92,14 @@ def main(argv=None) -> list:
             "the geometric evaluator is not ported yet (ROADMAP.md queue A "
             "item 10); run with --no-eval")
 
-    if args.fast or args.bf16:
-        raise NotImplementedError(
-            "the bf16 compute dtype is not ported yet (ROADMAP.md queue A "
-            "item A11); --slab-cell 0.04 --fps-groups 8 is --fast in f32")
-
     from regnet_for_3d_grasping_torch.config import infer_config
     from regnet_for_3d_grasping_torch.models.regnet import build_regnet
     from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
 
-    fps_groups = max(args.fps_groups, 1)
     cfg = infer_config(**{
-        "region.slab_cell": max(args.slab_cell, 0.0),
-        "region.center_fps_groups": fps_groups,
-        "model.fps_groups": fps_groups,
+        "region.slab_cell": args.slab_cell,
+        "region.center_fps_groups": args.fps_groups,
+        "model.fps_groups": args.fps_groups,
         "region.center_num": args.center_num,
         "region.accept_margin": args.accept_margin,
         "region.refine_iters": args.num_refine,

@@ -23,7 +23,9 @@
 //   because a TPU core runs one program at a time; here each (batch, slice)
 //   is a thread block of its own running the same loop on its slice, so the
 //   slices run on G SMs at once and the dependent steps drop from S to S/G.
-//   Indices come out slice-major with the slice's offset g*N/G added.
+//   Indices come out slice-major with the slice's offset g*N/G added.  The
+//   kernel is a template on `kGrouped` only so that a profile names the two
+//   forms apart (fps_kernel<false> is K1, fps_kernel<true> is K10).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -66,6 +68,7 @@ __device__ int block_argmax(float v, int i, float* sv, int* si, int* sout) {
   return *sout;
 }
 
+template <bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 fps_kernel(const float* __restrict__ xyz, const float* __restrict__ dist_init,
            int32_t* __restrict__ out, int n, int s_total, int groups) {
@@ -76,7 +79,7 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ dist_init,
 
   // block = (batch element, slice): a slice is n points, s_total samples
   const int b = blockIdx.x;
-  const int offset = (b % groups) * n;
+  const int offset = kGrouped ? (b % groups) * n : 0;
   xyz += (size_t)b * n * 3;
   dist_init += (size_t)b * n;
   out += (size_t)b * s_total;
@@ -121,14 +124,16 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ dist_init,
   }
 }
 
+template <bool kGrouped>
 int launch(const float* xyz, const float* dist_init, int32_t* out, int blocks,
            int n, int s_total, int groups, cudaStream_t stream) {
   const size_t smem = (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fps_kernel<kGrouped>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fps_kernel<<<blocks, kThreads, smem, stream>>>(xyz, dist_init, out, n,
-                                                 s_total, groups);
+  fps_kernel<kGrouped><<<blocks, kThreads, smem, stream>>>(
+      xyz, dist_init, out, n, s_total, groups);
   return (int)cudaGetLastError();
 }
 
@@ -138,7 +143,7 @@ int launch(const float* xyz, const float* dist_init, int32_t* out, int blocks,
 extern "C" int regnet_fps(const float* xyz, const float* dist_init,
                           int32_t* out, int batch, int n, int s_total,
                           cudaStream_t stream) {
-  return launch(xyz, dist_init, out, batch, n, s_total, 1, stream);
+  return launch<false>(xyz, dist_init, out, batch, n, s_total, 1, stream);
 }
 
 // Grouped: xyz [B, N, 3], dist_init [B, N] (each slice's own sentinel
@@ -147,6 +152,6 @@ extern "C" int regnet_fps(const float* xyz, const float* dist_init,
 extern "C" int regnet_fps_grouped(const float* xyz, const float* dist_init,
                                   int32_t* out, int batch, int n, int s_total,
                                   int groups, cudaStream_t stream) {
-  return launch(xyz, dist_init, out, batch * groups, n / groups,
-                s_total / groups, groups, stream);
+  return launch<true>(xyz, dist_init, out, batch * groups, n / groups,
+                      s_total / groups, groups, stream);
 }

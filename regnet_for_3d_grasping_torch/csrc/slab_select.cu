@@ -6,11 +6,12 @@
 //   and _slab_flat_call (the flat grid of live steps, slab.py:476).  The two
 //   grids scan the same blocks in the same order; a thread block that walks
 //   [start, stop) itself is the counterpart of both.
-// Bound on the H100: arithmetic.  Each (query, scanned row) pair costs a
-//   distance or a frame transform plus a 32-bit hash, about 25 to 45 integer
-//   and float operations, over inputs of a few hundred KB; the slab cuts the
-//   pairs to the rows whose x can pass (3 to 8 of 13 blocks per tile at the
-//   inference shapes).
+// Bound on the H100: arithmetic.  Each (query, scanned row) pair needs the
+//   test, 9 float operations for the radius and 22 for the frame transform
+//   and box; only a pair that passes needs its 32-bit hash and a place in
+//   the window's argmax, about 10 more.  The inputs are a few hundred KB; the
+//   slab cuts the pairs to the rows whose x can pass (3 to 8 of 13 blocks
+//   per tile at the inference shapes).
 // Design: the tile of 128 queries for which the wrapper computed
 //   (start, stop, off) is split over 4 thread blocks of 8 warps, so that a
 //   few dozen tiles still fill the card.  A thread block stages each

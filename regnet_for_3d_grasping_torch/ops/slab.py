@@ -40,10 +40,8 @@ _SCAN = 2048   # rows per scan block
 _BIG = 1e38    # finite sentinel: "no neighbour" distance, pooled "nothing"
 
 # selection window geometry: `spw` picks per `win`-row window
-_WIN_GROUP, _SPW_GROUP = 128, 4
-_WIN_CROP, _SPW_CROP = 256, 1
-GROUP_WIN, GROUP_SPW = _WIN_GROUP, _SPW_GROUP
-CROP_WIN, CROP_SPW = _WIN_CROP, _SPW_CROP
+GROUP_WIN, GROUP_SPW = 128, 4
+CROP_WIN, CROP_SPW = 256, 1
 BALL_WIN, BALL_SPW = 256, 2
 
 _SCAN_K = 1024  # keys per block (3-NN)
@@ -107,11 +105,11 @@ def span_blocks_for(k: int, win: int, spw: int) -> int:
 
 
 def group_span_blocks(group_num: int) -> int:
-    return span_blocks_for(group_num, _WIN_GROUP, _SPW_GROUP)
+    return span_blocks_for(group_num, GROUP_WIN, GROUP_SPW)
 
 
 def crop_span_blocks(gripper_num: int) -> int:
-    return span_blocks_for(gripper_num, _WIN_CROP, _SPW_CROP)
+    return span_blocks_for(gripper_num, CROP_WIN, CROP_SPW)
 
 
 def _tile_range(qt: torch.Tensor, bound: float):
@@ -205,7 +203,7 @@ def select_spans(sc: SortedCloud, centers: torch.Tensor, bound: float,
 
 def group_slab(sc: SortedCloud, centers: torch.Tensor, seed: int,
                radius: float, group_num: int, cell: float,
-               win: int = _WIN_GROUP, spw: int = _SPW_GROUP,
+               win: int = GROUP_WIN, spw: int = GROUP_SPW,
                distinct: bool = False):
     """Kernel K6: radius grouping over a sorted cloud.
 
@@ -216,23 +214,30 @@ def group_slab(sc: SortedCloud, centers: torch.Tensor, seed: int,
     nothing was selectable), count [B, M] int32 exact in-radius population,
     sel_any [B, M] bool, off_blk [B, T] int32 selection-span origins for
     `gather_max_slab`.  CPU tensors take `group_slab_plain`."""
-    (B, N, _), M, K = sc.xyz.shape, centers.shape[1], group_num
     c = centers[..., :3].float().contiguous()
-    ss = select_spans(sc, c, radius, cell, K, win, spw)
+    ss = select_spans(sc, c, radius, cell, group_num, win, spw)
     r2 = float(np.float32(float(radius) ** 2))
-    if c.device.type == "cpu":
-        raw = group_slab_plain(sc.xyz, c, ss, seed, r2, K, win, spw,
-                               distinct)
-        return finish_select(*raw, ss)
-    _cuda.check(sc.xyz, "group_slab xyz", torch.float32, (B, N, 3))
-    _cuda.check(c, "group_slab centers", torch.float32, (B, M, 3))
-    idx = torch.empty(B, M, K, dtype=torch.int32, device=c.device)
-    cnt = torch.empty(B, M, dtype=torch.int32, device=c.device)
-    first = torch.empty(B, M, dtype=torch.int32, device=c.device)
-    _cuda.launch("group_slab", c.device, sc.xyz, c, ss, int(seed) & _U32,
-                 idx, cnt, first, B, N, M, K, span_blocks_for(K, win, spw),
-                 win, spw, int(distinct), r2)
-    return finish_select(idx, cnt, first, ss)
+    return finish_select(*group_slab_spans(
+        sc.xyz, c, ss, seed, r2, group_num, win, spw, distinct), ss)
+
+
+def group_slab_spans(xyz, centers, ss, seed, r2, K, win, spw, distinct):
+    """K6 over a given span table `ss` (`select_spans`): the launch alone.
+    Returns raw (index [B, M, K] with -1 in empty slots, count, first
+    in-span pick or -1).  CPU tensors take `group_slab_plain`."""
+    if centers.device.type == "cpu":
+        return group_slab_plain(xyz, centers, ss, seed, r2, K, win, spw,
+                                distinct)
+    (B, N, _), M = xyz.shape, centers.shape[1]
+    _cuda.check(xyz, "group_slab xyz", torch.float32, (B, N, 3))
+    _cuda.check(centers, "group_slab centers", torch.float32, (B, M, 3))
+    idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
+    cnt = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
+    first = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
+    _cuda.launch("group_slab", xyz.device, xyz, centers, ss,
+                 int(seed) & _U32, idx, cnt, first, B, N, M, K,
+                 span_blocks_for(K, win, spw), win, spw, int(distinct), r2)
+    return idx, cnt, first
 
 
 def ball_query_slab(sc: SortedCloud, centers: torch.Tensor, seed: int,
@@ -262,23 +267,33 @@ def crop_slab(sc: SortedCloud, frame: torch.Tensor, center: torch.Tensor,
     (xlo, xhi, |y|max, |z|max).  One pick per 256-row window.  Returns
     (index, count, sel_any, off_blk) as `group_slab`.  CPU tensors take
     `crop_slab_plain`."""
-    (B, N, _), M, K = sc.xyz.shape, center.shape[1], gripper_num
+    B, M = center.shape[:2]
     f = frame.float().reshape(B, M, 9).contiguous()
     c = center.float().contiguous()
-    ss = select_spans(sc, c, crop_bound(box), cell, K, _WIN_CROP, _SPW_CROP)
+    ss = select_spans(sc, c, crop_bound(box), cell, gripper_num, CROP_WIN,
+                      CROP_SPW)
     box32 = tuple(float(np.float32(v)) for v in box)
-    if c.device.type == "cpu":
-        raw = crop_slab_plain(sc.xyz, f, c, ss, seed, box32, K)
-        return finish_select(*raw, ss)
-    _cuda.check(sc.xyz, "crop_slab xyz", torch.float32, (B, N, 3))
-    _cuda.check(f, "crop_slab frames", torch.float32, (B, M, 9))
-    _cuda.check(c, "crop_slab centers", torch.float32, (B, M, 3))
-    idx = torch.empty(B, M, K, dtype=torch.int32, device=c.device)
-    cnt = torch.empty(B, M, dtype=torch.int32, device=c.device)
-    first = torch.empty(B, M, dtype=torch.int32, device=c.device)
-    _cuda.launch("crop_slab", c.device, sc.xyz, f, c, ss, int(seed) & _U32,
-                 idx, cnt, first, B, N, M, K, crop_span_blocks(K), *box32)
-    return finish_select(idx, cnt, first, ss)
+    return finish_select(*crop_slab_spans(
+        sc.xyz, f, c, ss, seed, box32, gripper_num), ss)
+
+
+def crop_slab_spans(xyz, frames, centers, ss, seed, box, K):
+    """K7 over a given span table `ss`: the launch alone, frames [B, M, 9]
+    and the box in f32 values.  Returns raw (index, count, first) as
+    `group_slab_spans`.  CPU tensors take `crop_slab_plain`."""
+    if centers.device.type == "cpu":
+        return crop_slab_plain(xyz, frames, centers, ss, seed, box, K)
+    (B, N, _), M = xyz.shape, centers.shape[1]
+    _cuda.check(xyz, "crop_slab xyz", torch.float32, (B, N, 3))
+    _cuda.check(frames, "crop_slab frames", torch.float32, (B, M, 9))
+    _cuda.check(centers, "crop_slab centers", torch.float32, (B, M, 3))
+    idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
+    cnt = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
+    first = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
+    _cuda.launch("crop_slab", xyz.device, xyz, frames, centers, ss,
+                 int(seed) & _U32, idx, cnt, first, B, N, M, K,
+                 crop_span_blocks(K), *box)
+    return idx, cnt, first
 
 
 def _select_plain(xyz, ss, seed, M, K, win, spw, distinct, test):
@@ -363,8 +378,8 @@ def crop_slab_plain(xyz, frames, centers, ss, seed, box, K):
         return ((loc[0] > xlo) & (loc[0] < xhi) & (loc[1].abs() < yabs)
                 & (loc[2].abs() < zabs))
 
-    return _select_plain(xyz, ss, seed, centers.shape[1], K, _WIN_CROP,
-                         _SPW_CROP, False, test)
+    return _select_plain(xyz, ss, seed, centers.shape[1], K, CROP_WIN,
+                         CROP_SPW, False, test)
 
 
 # ---------------------------------------------------------------------------
@@ -429,15 +444,7 @@ def three_nn_slab(query: torch.Tensor, key: torch.Tensor,
         raise ValueError(f"three_nn_slab: empty input {Nq}, {NK}")
     start, stop, qt = three_nn_spans(query, key, bound, grid_span, flat)
     ss = torch.stack([start, stop], -1).to(torch.int32).contiguous()
-    if query.device.type == "cpu":
-        idx, d2 = three_nn_slab_plain(query, key, ss)
-    else:
-        _cuda.check(query, "three_nn_slab query", torch.float32, (B, Nq, 3))
-        _cuda.check(key, "three_nn_slab key", torch.float32, (B, NK, 3))
-        idx = torch.empty(B, Nq, 3, dtype=torch.int32, device=query.device)
-        d2 = torch.empty(B, Nq, 3, dtype=torch.float32, device=query.device)
-        _cuda.launch("three_nn_slab", query.device, query, key, ss, idx, d2,
-                     B, Nq, NK)
+    idx, d2 = three_nn_slab_spans(query, key, ss)
 
     # certificate: the nearest unscanned key on either side, by x alone
     kx = key[..., 0]
@@ -454,6 +461,23 @@ def three_nn_slab(query: torch.Tensor, key: torch.Tensor,
     margin = margin.clamp(min=0.0).reshape(B, -1)[:, :Nq]
     proven = (d2[..., 2] <= margin * margin).all(-1)
     return idx, d2, proven
+
+
+def three_nn_slab_spans(query: torch.Tensor, key: torch.Tensor,
+                        ss: torch.Tensor):
+    """K8 over given spans `ss` [B, T, 2] int32 (start, stop): the launch
+    alone.  Returns (index, d2) [B, Nq, 3].  CPU tensors take
+    `three_nn_slab_plain`."""
+    if query.device.type == "cpu":
+        return three_nn_slab_plain(query, key, ss)
+    (B, Nq, _), NK = query.shape, key.shape[1]
+    _cuda.check(query, "three_nn_slab query", torch.float32, (B, Nq, 3))
+    _cuda.check(key, "three_nn_slab key", torch.float32, (B, NK, 3))
+    idx = torch.empty(B, Nq, 3, dtype=torch.int32, device=query.device)
+    d2 = torch.empty(B, Nq, 3, dtype=torch.float32, device=query.device)
+    _cuda.launch("three_nn_slab", query.device, query, key, ss, idx, d2,
+                 B, Nq, NK)
+    return idx, d2
 
 
 def three_nn_slab_plain(query: torch.Tensor, key: torch.Tensor,

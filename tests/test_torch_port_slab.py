@@ -665,7 +665,8 @@ def test_infer_cli_slab_flags(tmp_path):
     with open(tmp_path / "scene_data_predict" / "0000.p", "rb") as f:
         pred = pickle.load(f)
     np.testing.assert_array_equal(pred["scores"][:, 0], out.score[0].numpy())
+    # the bf16 flags wait for the bf16 compute dtype: not accepted yet
     for flag in ("--fast", "--bf16"):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(SystemExit):
             infer.main(["--folder-name", str(folder), "--no-eval",
                         "--device", "cpu", flag])
