@@ -7,11 +7,13 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the eight CUDA sources (ten kernels) of
+2. build: the nine CUDA sources (fourteen kernels) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
-   slab-sorted cloud), with their median times, a bound computed from the
+   slab-sorted cloud) and, for the grouping kernel K11 and the argmax and
+   backward forms of the pools K4 and K9, of the training paths (12 clouds,
+   64 centers), with their median times, a bound computed from the
    shapes (for the slab kernels from the pairs their span tables scan and
    the pairs that pass), and a library call where one computes the same
    function.  K6-K8 are timed, like their plain versions, on a span table
@@ -28,7 +30,17 @@ result unless every phase passed):
    --fps-groups 8`` on the same clouds, counters reset and read as in 4,
    and the count of forwards whose slab 3-NN fell back to the full scan;
 7. one slab forward on the card and on the CPU with the same sort noise
-   and seeds, compared.
+   and seeds, compared;
+8. training, full scan: the port's train CLI for 4 steps at batch 12 and
+   full width on synthetic scenes made from a seed (and its validation
+   forwards), counters reset before and read after, losses finite, weights
+   moved, step times and peak device memory printed;
+9. the same with ``--slab-cell 0.04 --fps-groups 8``;
+10. one training step at batch 2 on the card and on the CPU with the same
+    weights and seeds and dropout off: selections equal, loss within 1e-4,
+    the gradients of the score and proposal heads within 2 % of their largest
+    entry and
+    that of SA1's first layer within 15 %.
 
 The last lines are the kernels' JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -109,8 +121,114 @@ def scanned_pairs(ss: torch.Tensor, m: int, tile: int, scan: int,
     return int((rows * queries).sum())
 
 
-def slab_kernels(dev, xyz, record) -> None:
-    """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order."""
+TRAIN_B, TRAIN_CENTERS = 12, 64
+
+
+def train_clouds(dev) -> torch.Tensor:
+    """[12, N, 3]: the clouds of one training batch."""
+    from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
+    return torch.tensor(np.stack([
+        tabletop_cloud(np.random.RandomState(300 + b), N_POINTS + 64)[0]
+        [:N_POINTS] for b in range(TRAIN_B)]), dtype=torch.float32,
+        device=dev)
+
+
+def relu_features(b: int, seed: int, dev) -> torch.Tensor:
+    """[b, N, 256] features as a ReLU leaves them: half of them 0, so the
+    maxima of a pool tie across different rows and the winner rule shows."""
+    return torch.relu(torch.randn(
+        b, N_POINTS, 256, generator=torch.Generator().manual_seed(seed))
+    ).to(dev)
+
+
+def embedding_bag_pair(feature, index):
+    """The library yardstick of a pool with its gradient: ``embedding_bag``
+    (max) over all clouds at once -> (forward, backward) closures."""
+    B, N, C = feature.shape
+    w = feature.reshape(B * N, C).clone().requires_grad_()
+    flat = (index.long() + torch.arange(B, device=index.device)
+            [:, None, None] * N).reshape(-1, index.shape[-1])
+
+    def fwd():
+        return torch.nn.functional.embedding_bag(flat, w, mode="max")
+
+    out = fwd()
+    g = torch.ones_like(out)
+
+    def bwd():
+        return torch.autograd.grad(out, w, g, retain_graph=True)
+
+    return fwd, bwd
+
+
+def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
+                 n_points, pooled_slots=None) -> list:
+    """Phase 3 for an argmax pool (K4's or K9's) and its backward at the
+    shapes `cases` = [(label, feature, index, extra args)], the first the
+    main path's.  Winners and pooled values must equal the plain version's;
+    the backward, which sums in a fixed order, must repeat itself bit for
+    bit and agree with the plain ``index_add_`` (atomic, unordered) within
+    rtol 1e-5 / atol 1e-5.  The forward's bound counts the feature rows
+    that this run's indices touch (`pooled_slots` masks the slots that are
+    pooled over; all, when None), not the whole feature array.  Returns the
+    backward's rows, for one record over both pools."""
+    from regnet_for_3d_grasping_torch.ops import pooling
+    rows_f, rows_b = [], []
+    for label, feature, index, extra in cases:
+        got, ref = argmax(feature, index, *extra), plain(feature, index,
+                                                         *extra)
+        check(all_equal(got, ref), f"{name_fwd} differs ({label})")
+        win = got[1]
+        g = torch.randn(got[0].shape, device=feature.device,
+                        generator=torch.Generator(
+                            device=feature.device).manual_seed(1))
+        df = pooling.scatter_winner(g, win, n_points)
+        check(torch.equal(df, pooling.scatter_winner(g, win, n_points)),
+              f"the backward of {name_fwd} is not deterministic ({label})")
+        df_plain = pooling.scatter_winner_plain(g, win, n_points)
+        check(torch.allclose(df, df_plain, rtol=1e-5, atol=1e-5),
+              f"the backward of {name_fwd} differs ({label})")
+        lib_f, lib_b = embedding_bag_pair(feature, index)
+        rows_id = (index.long() + torch.arange(
+            len(index), device=index.device)[:, None, None] * n_points)
+        if pooled_slots is not None:
+            rows_id = rows_id[pooled_slots(index, *extra)]
+        touched = torch.unique(rows_id).numel()
+        rows_f.append({
+            "shape": label, "max_abs_err": max_err(got, ref),
+            "ms": cuda_ms(lambda: argmax(feature, index, *extra), 20),
+            "plain_ms": cuda_ms(lambda: plain(feature, index, *extra), 3),
+            "bytes": (touched * feature.shape[-1] * feature.element_size()
+                      + nbytes(index, *got)),
+            "ops": index.numel() * feature.shape[-1],
+            "library_ms": cuda_ms(lib_f, 10)})
+        rows_b.append({
+            "shape": label, "max_abs_err": max_err(df, df_plain),
+            "ms": cuda_ms(lambda: pooling.scatter_winner(g, win, n_points),
+                          20),
+            "plain_ms": cuda_ms(lambda: pooling.scatter_winner_plain(
+                g, win, n_points), 5),
+            "bytes": nbytes(g, win, df), "ops": g.numel(),
+            "library_ms": cuda_ms(lib_b, 10)})
+    record_rows(record, name_fwd, src, replaces, rows_f)
+    return rows_b
+
+
+def record_rows(record, name, src, replaces, rows) -> None:
+    """One record from per-shape rows: the first is the main path's shape,
+    the others go under ``also`` with their own bounds."""
+    first, also = rows[0], []
+    for r in rows[1:]:
+        also.append({k: v for k, v in r.items() if k not in ("bytes", "ops")}
+                    | {"bound_ms": bound(r["bytes"], r["ops"])[0]})
+    record(name, src, replaces, first["max_abs_err"], first["ms"],
+           first["plain_ms"], first["bytes"], first["ops"],
+           first.get("library_ms"), also=also or None, shape=first["shape"])
+
+
+def slab_kernels(dev, xyz, record) -> list:
+    """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order.
+    Returns the rows of the pools' backward at K9's shapes."""
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
     from regnet_for_3d_grasping_torch.ops import fps, slab
 
@@ -352,6 +470,60 @@ def slab_kernels(dev, xyz, record) -> None:
                   "bound_ms": bound(bytes_c, ops_c)[0],
                   "library_ms": lib_c}])
 
+    # K9's argmax form and the backward, at the pools of a training batch
+    # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
+    # indices, held against their plain versions at this batch too) and at
+    # the 4,000-center region pool
+    tx = train_clouds(dev)
+    _, sc12 = slab.sort_cloud(tx, SLAB_CELL,
+                              generator=torch.Generator().manual_seed(11))
+    picks = fps.fps(sc12.xyz, fps.dist_init(sc12.xyz, None), TRAIN_CENTERS)
+    check(torch.equal(picks, fps.fps_plain(
+        sc12.xyz, fps.dist_init(sc12.xyz, None), TRAIN_CENTERS)),
+        "K1 fps differs at batch 12")
+    c12 = torch.gather(sc12.xyz, 1, picks.long()[..., None].expand(-1, -1, 3))
+    c12 = torch.gather(c12, 1, torch.sort(
+        c12[..., 0], dim=-1, stable=True).indices[..., None].expand(
+            -1, -1, 3)).contiguous()
+    ss = slab.select_spans(sc12, c12, 0.008, SLAB_CELL, 256, slab.GROUP_WIN,
+                           slab.GROUP_SPW)
+    r2 = float(np.float32(0.008 ** 2))
+    g12 = slab.group_slab(sc12, c12, 31, 0.008, 256, SLAB_CELL)
+    check(all_equal(g12, slab.finish_select(*slab.group_slab_plain(
+        sc12.xyz, c12, ss, 31, r2, 256, slab.GROUP_WIN, slab.GROUP_SPW,
+        False), ss)), "K6 group_slab differs at batch 12")
+    gen = torch.Generator().manual_seed(12)
+    axis = torch.nn.functional.normalize(
+        torch.randn(TRAIN_B, TRAIN_CENTERS, 3, generator=gen), dim=-1).to(dev)
+    theta = ((torch.rand(TRAIN_B, TRAIN_CENTERS, 1, generator=gen) * 2 - 1)
+             * np.pi).to(dev)
+    fr12, base12 = grasps_to_frames(torch.cat([c12, axis, theta], -1))
+    fr12, base12 = fr12.contiguous(), base12.contiguous()
+    ss = slab.select_spans(sc12, base12, slab.crop_bound(box), SLAB_CELL, 64,
+                           slab.CROP_WIN, slab.CROP_SPW)
+    k12 = slab.crop_slab(sc12, fr12, base12, 32, box, 64, SLAB_CELL)
+    check(all_equal(k12, slab.finish_select(*slab.crop_slab_plain(
+        sc12.xyz, fr12.reshape(TRAIN_B, TRAIN_CENTERS, 9), base12, ss, 32,
+        box32, 64), ss)), "K7 crop_slab differs at batch 12")
+    print(f"training batch in slab order: {int(g12[1].sum())} points in "
+          f"radius, {int((g12[2] & (g12[1] > 0)).sum())} of "
+          f"{TRAIN_B * TRAIN_CENTERS} regions with a pick, "
+          f"{int(((k12[1] > 5) & k12[2]).sum())} crops with > 5 points")
+    f12, f1 = relu_features(TRAIN_B, 13, dev), torch.relu(feature)
+    cases = [
+        ("region pool, training: 12 x 64 x 256 slots, win 128, spw 4", f12,
+         torch.where((g12[2] & (g12[1] > 0))[..., None], g12[0], 0),
+         (g12[3], slab.GROUP_WIN, slab.GROUP_SPW)),
+        ("refine pool, training: 12 x 64 x 64 slots, win 256, spw 1", f12,
+         torch.where(k12[2][..., None], k12[0], 0),
+         (k12[3], slab.CROP_WIN, slab.CROP_SPW)),
+        ("region pool, 4000 x 256 slots", f1, g_idx,
+         (groups[3], slab.GROUP_WIN, slab.GROUP_SPW))]
+    return pool_kernels(
+        record, "gather_max_slab_argmax", CSRC + "gather_max_slab.cu",
+        JAX_OPS + "slab.py:1072", slab.gather_max_slab_argmax,
+        slab.gather_max_slab_argmax_plain, cases, N_POINTS, slab.slab_cover)
+
 
 def serve(argv_extra, tmp, label):
     """Drive the infer CLI on 3 tabletop clouds; returns (records, launch
@@ -395,15 +567,142 @@ def serve(argv_extra, tmp, label):
     return records, launches, fallbacks
 
 
+def train(argv_extra, tmp, label, n_val, want_step, want_val):
+    """Drive the train CLI for one epoch of 4 steps at batch 12 (and its
+    validation forwards, which run the exact full-scan configuration at
+    batch 1); returns the launch counts, read just after a run that started
+    with the counters at 0.  `want_step` / `want_val`: launches per training
+    step and per validation forward."""
+    from regnet_for_3d_grasping_torch.cli import train as train_cli
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    argv = ["--mode", "train", "--data-path", str(Path(tmp) / "scenes"),
+            "--model-path", str(Path(tmp) / "models"), "--log-path",
+            str(Path(tmp) / "log"), "--tag", label, "--batch-size",
+            str(TRAIN_B), "--epoch", "1", "--seed", "1", *argv_extra]
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    fallbacks = _cuda.fallbacks["fp3_slab"]
+    peak = torch.cuda.max_memory_allocated()
+    steps = res["steps"]
+    check(len(steps) == 4 and len(res["validation"]) == n_val,
+          f"{label}: {len(steps)} steps and {len(res['validation'])} "
+          f"validation forwards, expected 4 and {n_val}")
+    check(all(np.isfinite(s["loss"]) for s in steps)
+          and all(np.isfinite(v["loss_total"]) for v in res["validation"]),
+          f"{label}: non-finite loss")
+    print(f"launches on the {label} training path (4 steps, {n_val} "
+          f"validation forwards): {launches}; 3-NN fallbacks {fallbacks}")
+    for k in launches:
+        want = 4 * want_step.get(k, 0) + n_val * want_val.get(k, 0)
+        if k == "three_nn":
+            want += fallbacks
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
+              f"times, expected {want}")
+    # the weights of every stage moved away from the seed's initial model
+    fresh = train_cli.build_model(res["cfg"], 1, "cpu").state_dict()
+    now = res["model"].state_dict()
+    moved = {k.split(".")[0] for k in fresh
+             if not torch.equal(fresh[k], now[k].cpu())}
+    check(moved == {"score_net", "grn_head", "refine_head"},
+          f"{label}: only {sorted(moved)} moved in training")
+    check((Path(tmp) / "models" / label / "ckpt_0.pt").exists(),
+          f"{label}: no checkpoint written")
+    ms = [s["seconds"] * 1e3 for s in steps]
+    print(f"{label} training, batch {TRAIN_B}: losses "
+          f"{[round(s['loss'], 4) for s in steps]}, step ms first "
+          f"{ms[0]:.3f}, median of the rest "
+          f"{statistics.median(ms[1:]):.3f}, all "
+          f"{[round(x, 3) for x in ms]}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; validation loss_total "
+          f"{statistics.median(v['loss_total'] for v in res['validation']):.4f}"
+          f" (median of {n_val})")
+    return launches
+
+
+def train_step_card_vs_cpu(tmp, dev) -> None:
+    """One refine-stage training step at batch 2 on the card and on the CPU
+    (plain versions), same initial weights, batch and seeds, dropout off."""
+    from regnet_for_3d_grasping_torch.cli.train import build_model
+    from regnet_for_3d_grasping_torch.config import train_config
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.geometry import region
+    from regnet_for_3d_grasping_torch.train import trainer
+    cfg = train_config(**{"model.dropout_prob": 0.0})
+    R = cfg.region
+    ds = GraspDataset(str(Path(tmp) / "scenes"), "train", R.num_points,
+                      R.max_gt_grasps, 1)
+    batch = next(ds.batches(2, seed=0))
+    kw = dict(
+        group_seeds=list(range(40, 40 + region.group_seed_count(
+            R.center_num, R.num_points, R.group_num))),
+        crop_seeds=[list(range(50, 50 + region.crop_seed_count(
+            R.center_num, R.num_points, R.gripper_num)))])
+    runs = {}
+    for name in ("cuda", "cpu"):
+        model = build_model(cfg, 5, name).train()
+        t0 = time.perf_counter()
+        out, total, metrics = trainer.forward_losses(
+            model, trainer.device_batch(batch, name), "refine", **kw)
+        total.backward()
+        runs[name] = (out, float(total.detach()), model)
+        print(f"training step on {name}: {time.perf_counter() - t0:.1f}s, "
+              f"loss {float(total.detach()):.6f}")
+    (out_g, loss_g, m_g), (out_c, loss_c, m_c) = runs["cuda"], runs["cpu"]
+    # a score that lies within rounding of score_thre on one device and not
+    # on the other changes the FPS mask, and with it some centers: so the
+    # selections must agree on 97 % of their entries, and loss and gradients
+    # are compared only when they agree on all
+    exact = True
+    for field in ("center_index", "region_valid", "anchor_index",
+                  "crop_valid"):
+        same = float((getattr(out_g, field).cpu() == getattr(out_c, field))
+                     .float().mean())
+        print(f"training step: {field} equal share {same:.5f}")
+        check(same >= 0.97, f"training step: {field} differs between card "
+              f"and CPU (equal share {same:.5f})")
+        exact = exact and same == 1.0
+    check(np.isfinite(loss_g) and np.isfinite(loss_c),
+          "training step: non-finite loss")
+    if not exact:
+        print("training step: selections differ, loss and gradients not "
+              "compared")
+        return
+    check(abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c)),
+          f"training step: loss {loss_g} on the card, {loss_c} on the CPU")
+    # f32 gradients carry the rounding of every train-mode BatchNorm above
+    # them, each of which magnifies it: within 2 % of the array's largest
+    # entry at the heads, 15 % at SA1's first layer, 21 normalisations below
+    # the loss (3.2 % measured); a wrong stride or a cut graph is off by
+    # its whole size
+    for name, tol in (("score_net.backbone.score_dense.weight", 2e-2),
+                      ("grn_head.stem.dense.weight", 2e-2),
+                      ("score_net.backbone.sa0.mlp.layer0.dense.weight",
+                       0.15)):
+        g_g = m_g.get_parameter(name).grad.cpu()
+        g_c = m_c.get_parameter(name).grad
+        err = float((g_g - g_c).abs().max() / g_c.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(
+            g_g.flatten(), g_c.flatten(), dim=0))
+        print(f"training step: gradient of {name} card vs cpu, max abs err "
+              f"over max abs {err:.3e} (max abs {float(g_c.abs().max()):.3e}"
+              f", cosine {cos:.6f})")
+        check(float(g_c.abs().max()) > 0 and err <= tol and cos >= 0.99,
+              f"training step: gradient of {name} differs")
+
+
 def card_vs_cpu(cfg, pc, dev, label, **randomness) -> None:
     """One forward on the card and on the CPU (plain versions) with the
     same randomness: scores within 1e-4, selections at least 99 % equal."""
     from regnet_for_3d_grasping_torch.models.regnet import build_regnet
-    out_g = build_regnet(cfg, WEIGHTS, "cuda")(
-        torch.from_numpy(pc)[None].to(dev), **randomness)
-    t0 = time.perf_counter()
-    out_c = build_regnet(cfg, WEIGHTS, "cpu")(torch.from_numpy(pc)[None],
-                                              **randomness)
+    with torch.inference_mode():
+        out_g = build_regnet(cfg, WEIGHTS, "cuda")(
+            torch.from_numpy(pc)[None].to(dev), **randomness)
+        t0 = time.perf_counter()
+        out_c = build_regnet(cfg, WEIGHTS, "cpu")(torch.from_numpy(pc)[None],
+                                                  **randomness)
     print(f"{label}: cpu forward {time.perf_counter() - t0:.1f}s")
     score_g, score_c = out_g.score.cpu(), out_c.score
     if out_c.point_order is not None:
@@ -450,8 +749,9 @@ def main() -> None:
     # --- 3. each kernel against its plain version --------------------------
     from regnet_for_3d_grasping_torch.geometry import region
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
-    from regnet_for_3d_grasping_torch.ops import (ball_query, crop, fps, knn,
-                                                  pooling, sampling)
+    from regnet_for_3d_grasping_torch.ops import (ball_query, crop, fps,
+                                                  group, knn, pooling,
+                                                  sampling)
     from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
     # a few points more than needed: the scene's objects round their share
     xyz_np, _ = tabletop_cloud(np.random.RandomState(0), N_POINTS + 64)
@@ -460,10 +760,11 @@ def main() -> None:
     results = {}
 
     def record(name, source, replaces, err, ms, plain_ms, bytes_, ops,
-               library_ms=None, also=None, wrapper_ms=None):
-        """`also`: the numbers of the kernel's second shape, where it has
-        one on the path.  `wrapper_ms`: the whole call where `ms` times the
-        launch on a span table computed beforehand."""
+               library_ms=None, also=None, wrapper_ms=None, shape=None):
+        """`also`: the numbers of the kernel's other shapes, where it has
+        some on its paths (`shape` then names the first).  `wrapper_ms`: the
+        whole call where `ms` times the launch on a span table computed
+        beforehand."""
         b_ms, b_by = bound(bytes_, ops)
         results[name] = {
             "name": name, "route": "cuda", "source": source,
@@ -472,6 +773,8 @@ def main() -> None:
             "bound_by": b_by, "library_ms": library_ms}
         if wrapper_ms is not None:
             results[name]["wrapper_ms"] = wrapper_ms
+        if shape:
+            results[name]["shape"] = shape
         if also:
             results[name]["also"] = also
         print(f"{name}: max_abs_err {err} kernel {ms:.4f} ms, plain "
@@ -531,9 +834,58 @@ def main() -> None:
            nbytes(xyz, centers, *got), N_POINTS * 5120 * 10,
            cuda_ms(cdist_topk, 20))
 
-    # K4: region pool (4000 x 256 slots x 256 channels) and refine pool
+    # K11: the region grouping (r 0.008, K 256, L 128) of a training batch
+    # (12 clouds x 64 centers) and of a serving forward (4,000 centers).
+    # Operations as K6's: the radius test (9) on every pair, hash and argmax
+    # (10) on the pairs in radius, which `count` sums exactly
     c4000 = xyz[:, fps.fps(xyz, dist_m, N_CENTERS)[0].long()].contiguous()
-    groups = region.group_regions([1, 2, 3, 4], xyz, c4000, 256, 0.008)
+    tx = train_clouds(dev)
+    picks = fps.fps(tx, fps.dist_init(tx, tx[..., 2] > 0.76), TRAIN_CENTERS)
+    c12 = torch.gather(tx, 1, picks.long()[..., None].expand(-1, -1, 3))
+    Lg = sampling.pallas_bucket_stride(N_POINTS, 256)
+    rows = []
+    for label, x, c in (
+            ("training: 12 clouds x 64 centers x 25600 points", tx, c12),
+            ("serving: 4000 centers x 25600 points", xyz, c4000)):
+        def kernel():
+            return group.group_regions_fused(x, c, 21, 0.008, 256, Lg)
+
+        def plain():
+            return group.group_regions_fused_plain(x, c, 21, 0.008, 256, Lg)
+
+        def plain_path():
+            # the chunked path that grouping took before this kernel
+            seeds = list(range(region.group_chunks(c.shape[1])))
+            return region.group_regions(seeds, x, c, 256, 0.008)
+
+        got, ref = kernel(), plain()
+        check(all_equal(got, ref), f"K11 group_regions differs ({label})")
+        in_radius = int(got[1].sum())
+        print(f"group_regions {label}: {in_radius} pairs in radius, "
+              f"{int((got[1] > 0).sum())} of {got[1].numel()} regions "
+              f"non-empty")
+        threshold = region.GROUP_KERNEL_MIN_WORK
+        region.GROUP_KERNEL_MIN_WORK = 1 << 62
+        try:
+            replaced_ms = cuda_ms(plain_path, 3)
+        finally:
+            region.GROUP_KERNEL_MIN_WORK = threshold
+        rows.append({
+            "shape": label, "max_abs_err": max_err(got, ref),
+            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+            "bytes": nbytes(x, c, *got),
+            "ops": c.shape[0] * c.shape[1] * N_POINTS * 9 + in_radius * 10,
+            "replaced_plain_path_ms": replaced_ms})
+    record_rows(record, "group_regions", CSRC + "group.cu",
+                JAX_OPS + "group_pallas.py:119", rows)
+    results["group_regions"]["replaced_plain_path_ms"] = rows[0][
+        "replaced_plain_path_ms"]
+
+    # K4: region pool (4000 x 256 slots x 256 channels) and refine pool
+    groups = region.group_regions([21], xyz, c4000, 256, 0.008)
+    check(torch.equal(groups.index, torch.where(
+        (got[1] > 0)[..., None], got[0], 0)),
+        "region.group_regions does not return K11's picks")
     feature = torch.randn(1, N_POINTS, 256, device=dev)
     got = pooling.gather_max(feature, groups.index)
     ref = pooling.gather_max_plain(feature, groups.index)
@@ -556,6 +908,36 @@ def main() -> None:
            cuda_ms(lambda: pooling.gather_max_plain(feature, index), 5),
            nbytes(feature, index, got), index.numel() * 256,
            cuda_ms(embedding_bag, 20))
+
+    # K4's argmax form and the backward, at the pools of a training batch
+    # and at the 4,000-center region pool
+    g12 = region.group_regions([22], tx, c12, 256, 0.008)
+    f12 = relu_features(TRAIN_B, 14, dev)
+    cases = [
+        ("region pool, training: 12 x 64 x 256 slots", f12, g12.index, ()),
+        ("refine pool, training: 12 x 64 x 64 slots", f12,
+         g12.index[..., :64].contiguous(), ()),
+        ("region pool, 4000 x 256 slots", torch.relu(feature), index, ())]
+    backward_rows = pool_kernels(
+        record, "gather_max_argmax", CSRC + "gather_max.cu",
+        JAX_OPS + "pooling.py:216", pooling.gather_max_argmax,
+        pooling.gather_max_argmax_plain, cases, N_POINTS)
+    # the autograd wiring on the card: the pool's gradient is the scatter
+    # of its own winners, and the graph is not cut
+    f = f12.clone().requires_grad_()
+    before = dict(_cuda.launches)
+    pooled = pooling.gather_max(f, g12.index)
+    pooled.backward(torch.ones_like(pooled))
+    check(_cuda.launches["gather_max_argmax"]
+          == before["gather_max_argmax"] + 1
+          and _cuda.launches["gather_max_backward"]
+          == before["gather_max_backward"] + 1
+          and _cuda.launches["gather_max"] == before["gather_max"],
+          "a pool that needs a gradient did not take the argmax kernel")
+    check(f.grad is not None and torch.equal(f.grad, pooling.scatter_winner(
+        torch.ones_like(pooled), pooling.gather_max_argmax(f12, g12.index)[1],
+        N_POINTS)) and float(f.grad.sum()) == pooled.numel(),
+        "the pool's gradient is not the scatter of its winners")
 
     # K5: crop of 4000 proposals around the selected centers
     axis = torch.nn.functional.normalize(torch.randn(1, N_CENTERS, 3,
@@ -582,7 +964,10 @@ def main() -> None:
            N_CENTERS * N_POINTS * 22 + inside * 8)
 
     # K6-K10 on the same cloud in slab order
-    slab_kernels(dev, xyz, record)
+    backward_rows += slab_kernels(dev, xyz, record)
+    record_rows(record, "gather_max_backward", CSRC + "gather_max.cu",
+                JAX_OPS + "pooling.py:285 (the XLA scatter-add of the "
+                "custom VJPs, also slab.py:1090)", backward_rows)
     check(set(results) == set(_cuda.KERNELS),
           "not every kernel of the port was held against its plain version")
     if "--kernels-only" in sys.argv[1:]:
@@ -595,6 +980,8 @@ def main() -> None:
                  "region.center_fps_groups": FPS_GROUPS}
     slab_kernel_names = ("fps_grouped", "group_slab", "crop_slab",
                          "three_nn_slab", "gather_max_slab")
+    train_kernel_names = ("gather_max_argmax", "gather_max_backward",
+                          "gather_max_slab_argmax")
     cxyz, crgb = tabletop_cloud(np.random.RandomState(100))
     sel = np.random.RandomState(1).choice(len(cxyz), N_POINTS, False)
     pc = np.c_[cxyz, crgb][sel].astype(np.float32)
@@ -603,14 +990,15 @@ def main() -> None:
         # --- 4. the full-scan path: the infer CLI on 3 clouds ---------------
         _, full, _ = serve([], tmp, "full-scan")
         want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
-                "crop": 1, **dict.fromkeys(slab_kernel_names, 0)}
+                "crop": 1, "group_regions": 1,
+                **dict.fromkeys(slab_kernel_names + train_kernel_names, 0)}
         for k, n in want.items():
             check(full[k] == 3 * n, f"{k}: {full[k]} launches in 3 full-scan "
                   f"forwards, expected {3 * n}")
 
         # --- 5. the same forward on the CPU, through the plain versions -----
-        card_vs_cpu(infer_config(), pc, dev, "full-scan",
-                    group_seeds=[11, 12, 13, 14], crop_seeds=[[15]])
+        card_vs_cpu(infer_config(), pc, dev, "full-scan", group_seeds=[11],
+                    crop_seeds=[[15]])
 
         # --- 6. the sorted-slab serving path: the CLI on the same clouds ----
         _, slab_l, fallbacks = serve(
@@ -620,24 +1008,56 @@ def main() -> None:
           f"3-NN")
     want = {"fps_grouped": 2, "fps": 2, "group_slab": 2, "crop_slab": 1,
             "three_nn_slab": 1, "gather_max_slab": 2, "ball_query": 0,
-            "gather_max": 0, "crop": 0}
+            "gather_max": 0, "crop": 0, "group_regions": 0,
+            **dict.fromkeys(train_kernel_names, 0)}
     for k, n in want.items():
         check(slab_l[k] == 3 * n, f"{k}: {slab_l[k]} launches in 3 slab "
               f"forwards, expected {3 * n}")
     check(slab_l["three_nn"] == fallbacks,
           "K3 ran in a forward that did not fall back")
-    for k in results:
-        path = slab_l if k in slab_kernel_names else full
-        results[k]["launches"] = path[k]
-        results[k]["launches_by_path"] = {"full_scan": full[k],
-                                          "slab": slab_l[k]}
-        check(path[k] > 0 or k == "three_nn",
-              f"{k} was never launched on its path")
 
     # --- 7. one slab forward on the card and on the CPU ---------------------
     u = torch.rand(1, N_POINTS, generator=torch.Generator().manual_seed(3))
     card_vs_cpu(infer_config(**slab_over), pc, dev, "slab", sort_u=u,
                 sa1_seed=16, group_seeds=[17], crop_seeds=[[18]])
+
+    # --- 8./9. training: the train CLI, 4 steps at batch 12, both paths -----
+    # 60 scenes: the split keeps 48 for training (4 batches of 12) and 12
+    # for validation.  A validation forward runs the exact configuration at
+    # batch 1 and 64 centers: the crop takes its plain path there
+    # (64 x 25,600 pairs are under its kernel's threshold), as in training
+    n_val = 12
+    val = {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
+           "gather_max": 2}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_full = train(
+            ["--synthetic-scenes", "60"], tmp, "full-scan", n_val,
+            {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
+             "gather_max_argmax": 2, "gather_max_backward": 2}, val)
+        train_slab = train(
+            ["--slab-cell", str(SLAB_CELL), "--fps-groups", str(FPS_GROUPS)],
+            tmp, "slab", n_val,
+            {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
+             "three_nn_slab": 1, "gather_max_slab_argmax": 2,
+             "gather_max_backward": 2}, val)
+        # --- 10. one training step on the card and on the CPU ---------------
+        train_step_card_vs_cpu(tmp, dev)
+
+    paths = {"full_scan": full, "slab": slab_l, "train_full_scan": train_full,
+             "train_slab": train_slab}
+    main_path = {**dict.fromkeys(results, "full_scan"),
+                 **dict.fromkeys(slab_kernel_names, "slab"),
+                 "gather_max_argmax": "train_full_scan",
+                 "gather_max_backward": "train_full_scan",
+                 "gather_max_slab_argmax": "train_slab"}
+    for k in results:
+        results[k]["launches"] = paths[main_path[k]][k]
+        results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}
+        check(results[k]["launches"] > 0 or k == "three_nn",
+              f"{k} was never launched on its path")
+    for k, path in (("group_regions", "train_full_scan"),
+                    ("gather_max_backward", "train_slab")):
+        check(paths[path][k] > 0, f"{k} was never launched in {path}")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

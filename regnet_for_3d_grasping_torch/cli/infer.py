@@ -128,7 +128,8 @@ def main(argv=None) -> list:
         x = torch.from_numpy(pc)[None].to(device)
         _sync(device)
         t0 = time.perf_counter()
-        out = model(x, generator=gen)
+        with torch.inference_mode():
+            out = model(x, generator=gen)
         _sync(device)
         dt = time.perf_counter() - t0
         sets = extract_grasp_sets(out)[0]

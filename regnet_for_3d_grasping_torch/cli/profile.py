@@ -1,7 +1,10 @@
-"""Where one inference forward spends its time on the card.
+"""Where one inference forward, or one training step, spends its time on
+the card.
 
     python -m regnet_for_3d_grasping_torch.cli.profile [--clouds 3]
         [--slab-cell 0.04 --fps-groups 8]
+    python -m regnet_for_3d_grasping_torch.cli.profile --train
+        [--batch-size 12] [--slab-cell 0.04 --fps-groups 8]
 
 Runs the inference preset (25,600 points, 4,000 centers, the trained
 weights; with the two flags, the sorted-slab serving configuration) on
@@ -14,6 +17,13 @@ device-to-host copies per forward (in slab mode one of them is the read of
 the 3-NN certificate), the forwards that fell back to the full-scan 3-NN,
 and the device time per forward of the ten costliest kernels and of every
 kernel of ``csrc/``.
+
+With ``--train``: the training preset (25,600 points, 64 centers, batch 12,
+all three losses, freshly initialised weights) on synthetic scenes made
+from a seed; two warm-up steps, two untraced steps, then one step whose
+forward (with the losses) and whose backward (with the update) are traced
+apart.  It prints the step times, the peak device memory, and for each half
+the device busy time, the launches and the five costliest kernels.
 """
 
 from __future__ import annotations
@@ -34,7 +44,12 @@ def main(argv=None) -> None:
     p.add_argument("--weights", default=str(WEIGHTS))
     p.add_argument("--slab-cell", type=float, default=0.0)
     p.add_argument("--fps-groups", type=int, default=1)
+    p.add_argument("--train", action="store_true",
+                   help="profile one training step instead of forwards")
+    p.add_argument("--batch-size", type=int, default=12)
     args = p.parse_args(argv)
+    if args.train:
+        return profile_train(args)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -58,10 +73,12 @@ def main(argv=None) -> None:
         keep = rng.choice(len(xyz), 25600, replace=False)
         clouds.append(torch.tensor(np.c_[xyz, rgb][keep], dtype=torch.float32,
                                    device="cuda")[None])
-    for pc in clouds[:2]:
-        model(pc, generator=gen)
+    with torch.inference_mode():
+        for pc in clouds[:2]:
+            model(pc, generator=gen)
     torch.cuda.synchronize()
 
+    @torch.inference_mode()
     def serve() -> list:
         lat = []
         for pc in clouds[2:]:
@@ -79,8 +96,7 @@ def main(argv=None) -> None:
         lat = serve()
         wall = (time.perf_counter() - t_all) * 1e3
     n = args.clouds
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"forward latency (host clock) ms: profiler off "
@@ -96,11 +112,7 @@ def main(argv=None) -> None:
           f"3-NN fallbacks: {_cuda.fallbacks['fp3_slab']} of {n} forwards; "
           f"launches per forward: "
           f"{ {k: v // n for k, v in _cuda.launches.items() if v} }")
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    # the kernels of csrc/ live in anonymous namespaces at global scope
-    # (so do a few of PyTorch's, which name at:: in their arguments)
-    own = [e for e in kernels if e.key.removeprefix("void ").startswith(
-        "(anonymous namespace)::") and "at::" not in e.key]
+    own = own_kernels(kernels)
     for title, rows in (("top kernels", kernels[:10]),
                         ("the port's own kernels", own)):
         print(f"{title}, device ms per forward:")
@@ -111,6 +123,113 @@ def main(argv=None) -> None:
     print(f"the port's own kernels {own_ms:.3f} ms, library and elementwise "
           f"kernels {busy / n - own_ms:.3f} ms per forward, "
           f"{sum(e.count for e in kernels) // n} kernel launches per forward")
+
+
+def device_kernels(prof) -> list:
+    """The profile's device-side rows, costliest first."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda e: -e.self_device_time_total)
+
+
+def own_kernels(rows: list) -> list:
+    """The rows of the kernels of ``csrc/``: they live in anonymous
+    namespaces at global scope (so do a few of PyTorch's), under the names
+    their sources define."""
+    import re
+
+    from regnet_for_3d_grasping_torch.ops._cuda import CSRC
+    names = {m for src in CSRC.glob("*.cu") for m in re.findall(
+        r"\b(\w+_kernel)\s*\(", src.read_text())}
+    return [e for e in rows if any(
+        f"(anonymous namespace)::{n}" in e.key for n in names)]
+
+
+def profile_train(args) -> None:
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from regnet_for_3d_grasping_torch.cli.train import build_model
+    from regnet_for_3d_grasping_torch.config import train_config
+    from regnet_for_3d_grasping_torch.data import (GraspDataset,
+                                                   write_synthetic_dataset)
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    from regnet_for_3d_grasping_torch.runtime import resolve_device
+    from regnet_for_3d_grasping_torch.train import trainer
+
+    dev = resolve_device("cuda")
+    B = args.batch_size
+    cfg = train_config(**{"train.batch_size": B,
+                          "region.slab_cell": args.slab_cell,
+                          "model.fps_groups": args.fps_groups})
+    with tempfile.TemporaryDirectory() as tmp:
+        # the split keeps 80 % for training: make enough for one batch
+        write_synthetic_dataset(tmp, -(-B * 5 // 4), num_view=25600)
+        ds = GraspDataset(tmp, "train", 25600, cfg.region.max_gt_grasps, 1)
+        batch = trainer.device_batch(next(ds.batches(B, seed=0)), dev)
+    model = build_model(cfg, 1, dev)
+    opt = trainer.make_optimizer(model, cfg, 1)
+    gen = torch.Generator().manual_seed(0)
+    drop = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(generator=gen, dropout_generator=drop)
+
+    def step() -> tuple:
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, batch, "refine", **kw)
+        loss = float(m["loss_total"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, loss
+
+    warm = [step() for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    untraced = [step() for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    _cuda.reset_launches()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    model.train()
+    opt.zero_grad()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as fwd:
+        _, total, _ = trainer.forward_losses(model, batch, "refine", **kw)
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=acts) as bwd:
+        total.backward()
+        opt.step()
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"training step, batch {B}, "
+          f"{'slab' if args.slab_cell > 0 else 'full scan'}: warm-up "
+          f"{[round(t, 1) for t, _ in warm]} ms, untraced "
+          f"{[round(t, 3) for t, _ in untraced]} ms (losses "
+          f"{[round(v, 4) for _, v in warm + untraced]}), traced forward "
+          f"{(t1 - t0) * 1e3:.3f} + backward and update "
+          f"{(t2 - t1) * 1e3:.3f} ms")
+    print(f"peak device memory of an untraced step: {peak / 2**30:.3f} GiB; "
+          f"launches of the port's kernels in the step: "
+          f"{ {k: v for k, v in _cuda.launches.items() if v} }; 3-NN "
+          f"fallbacks {_cuda.fallbacks['fp3_slab']}")
+    mean_untraced = sum(t for t, _ in untraced) / len(untraced)
+    busy_all = 0.0
+    for title, prof, wall in (("forward and losses", fwd, t1 - t0),
+                              ("backward and update", bwd, t2 - t1)):
+        rows = device_kernels(prof)
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        busy_all += busy
+        print(f"{title}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
+              f"traced wall, {sum(e.count for e in rows)} kernel launches; "
+              f"the five costliest kernels, device ms:")
+        for e in rows[:5]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} x{e.count:<5d} "
+                  f"{e.key[:90]}")
+        for e in own_kernels(rows):
+            print(f"  own {e.self_device_time_total / 1e3:7.3f} "
+                  f"x{e.count:<5d} {e.key[:90]}")
+    print(f"device busy {busy_all:.3f} ms per step: busy share "
+          f"{busy_all / mean_untraced:.3f} of the untraced steps' mean "
+          f"{mean_untraced:.3f} ms")
 
 
 if __name__ == "__main__":

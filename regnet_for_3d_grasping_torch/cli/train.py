@@ -1,0 +1,266 @@
+"""Training CLI of the PyTorch port (JAX ``cli/train.py``), one device.
+
+Modes: train (all three losses), pretrain_score, pretrain_region,
+validate[_score|_region], test[_score|_region] (loss metrics only).
+
+Usage:
+  python -m regnet_for_3d_grasping_torch.cli.train --mode train \\
+      --synthetic-scenes 24 --data-path /tmp/scenes --batch-size 12 \\
+      --epoch 1 [--slab-cell 0.04 --fps-groups 8] [--device cpu]
+
+Runs on the card unless ``--device cpu`` asks for the plain PyTorch
+versions of the kernels.  Not ported yet, so argparse rejects them (see
+ROADMAP.md queue A): --eval-grasps / --eval-every (the geometric evaluator),
+--bf16, --native-loader, --geom-aug, --profile-dir, --remat, data
+parallelism.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import torch
+
+MODE_STAGE = {
+    "train": "refine", "validate": "refine", "test": "refine",
+    "pretrain_score": "score", "validate_score": "score",
+    "test_score": "score",
+    "pretrain_region": "region", "validate_region": "region",
+    "test_region": "region",
+}
+TRAIN_MODES = ("train", "pretrain_score", "pretrain_region")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="REGNet training (PyTorch)")
+    p.add_argument("--tag", type=str, default="default")
+    p.add_argument("--mode", required=True, choices=list(MODE_STAGE))
+    p.add_argument("--epoch", type=int, default=101)
+    p.add_argument("--batch-size", type=int, default=12)
+    p.add_argument("--data-path", type=str, required=True)
+    p.add_argument("--model-path", type=str, default="./assets/models")
+    p.add_argument("--log-path", type=str, default="./assets/log")
+    p.add_argument("--lr-score", type=float, default=1e-3)
+    p.add_argument("--lr-region", type=float, default=1e-3)
+    p.add_argument("--lr-step-epochs", type=int, default=5,
+                   help="period of the step decay, in epochs")
+    p.add_argument("--lr-gamma", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--center-jitter", type=str, default="",
+                   help="comma list of center_num values cycled across "
+                        "train steps (e.g. '64,256,1024')")
+    p.add_argument("--eval-center-num", type=int, default=0,
+                   help="run validation forwards at this center_num instead "
+                        "of the training value")
+    p.add_argument("--load-score-path", type=str, default="",
+                   help="checkpoint tag dir (or a ckpt_N.pt) whose ScoreNet "
+                        "weights initialize this run")
+    p.add_argument("--load-region-path", type=str, default="",
+                   help="checkpoint tag dir (or a ckpt_N.pt) whose GRN and "
+                        "RefineNet weights initialize this run; the "
+                        "optimizer state starts fresh")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint under "
+                        "model-path/tag")
+    p.add_argument("--synthetic-scenes", type=int, default=0,
+                   help="generate N synthetic scenes under data-path first")
+    p.add_argument("--gt-robust", type=int, default=0,
+                   help="pose-robust GT labelling: candidates must also "
+                        "survive N jittered poses (data/synthetic.py)")
+    p.add_argument("--scene-layout", type=str, default="origin",
+                   choices=["origin", "randomized"],
+                   help="synthetic scene layout (data/synthetic.py)")
+    p.add_argument("--num-points", type=int, default=25600)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny model and shapes (smoke tests)")
+    p.add_argument("--slab-cell", type=float, default=0.0,
+                   help="sorted-slab kernels in the TRAIN forward "
+                        "(region.slab_cell; validation forwards stay exact)")
+    p.add_argument("--fps-groups", type=int, default=1,
+                   help="stratified FPS at SA1 in the TRAIN forward "
+                        "(model.fps_groups; validation forwards stay exact)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch versions of the kernels)")
+    return p
+
+
+def build_model(cfg, seed: int, device):
+    """A freshly initialised REGNet on `device`: the weights are drawn on
+    the CPU from ``torch.manual_seed(seed)``, so a seed names one model on
+    every device."""
+    from regnet_for_3d_grasping_torch.models.regnet import REGNet
+    torch.manual_seed(seed)
+    return REGNet(cfg).to(device)
+
+
+def merge_checkpoint_modules(model, path: str, prefixes) -> None:
+    """Initialise the named top-level modules of `model` from another
+    run's checkpoint (a tag directory, latest epoch, or one ``ckpt_N.pt``).
+    Entries the checkpoint lacks keep their fresh init."""
+    from regnet_for_3d_grasping_torch.utils import checkpoint as ckpt
+    saved = ckpt.load_checkpoint(path.rstrip("/"))
+    own = model.state_dict()
+    picked = {k: v for k, v in saved["model"].items()
+              if k in own and k.split(".")[0] in prefixes}
+    model.load_state_dict(picked, strict=False)
+    print(f"loaded {len(picked)} arrays of {list(prefixes)} from {path} "
+          f"(epoch {saved['epoch']})")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    """Returns {"model", "cfg", "eval_cfg", "steps": [{"epoch", "loss",
+    "seconds"}], "validation": [metrics of each validation forward]}; a
+    step's seconds
+    are synchronized on the device and cover the batch upload, the forward,
+    the backward and the update."""
+    args = build_parser().parse_args(argv)
+
+    from regnet_for_3d_grasping_torch.config import tiny_config, train_config
+    from regnet_for_3d_grasping_torch.data import (GraspDataset,
+                                                   write_synthetic_dataset)
+    from regnet_for_3d_grasping_torch.runtime import resolve_device
+    from regnet_for_3d_grasping_torch.train import trainer
+    from regnet_for_3d_grasping_torch.utils import checkpoint as ckpt
+    from regnet_for_3d_grasping_torch.utils.logging import (MetricLogger,
+                                                            host_scalars)
+
+    device = resolve_device(args.device)
+    over = {"train.batch_size": args.batch_size,
+            "train.lr_score": args.lr_score,
+            "train.lr_region": args.lr_region,
+            "train.lr_step_epochs": args.lr_step_epochs,
+            "train.lr_gamma": args.lr_gamma}
+    if args.tiny:
+        cfg = tiny_config(**over)
+        args.num_points = cfg.region.num_points
+    else:
+        cfg = train_config(**{"region.num_points": args.num_points, **over})
+    # the fast-training knobs apply to the TRAIN config only; validation
+    # forwards keep the exact geometry of `exact_cfg`
+    exact_cfg = cfg
+    if args.slab_cell > 0.0:
+        cfg = dataclasses.replace(cfg, region=dataclasses.replace(
+            cfg.region, slab_cell=args.slab_cell))
+    if args.fps_groups > 1:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, fps_groups=args.fps_groups))
+
+    if args.synthetic_scenes:
+        write_synthetic_dataset(args.data_path, args.synthetic_scenes,
+                                num_view=args.num_points,
+                                layout=args.scene_layout,
+                                gt_robust=args.gt_robust)
+    stage = MODE_STAGE[args.mode]
+    is_train = args.mode in TRAIN_MODES
+
+    ckpt_dir = os.path.join(args.model_path, args.tag)
+    train_ds = GraspDataset(args.data_path, "train", args.num_points,
+                            cfg.region.max_gt_grasps, args.seed)
+    val_tag = "test" if "test" in args.mode else "validate"
+    val_ds = GraspDataset(args.data_path, val_tag, args.num_points,
+                          cfg.region.max_gt_grasps, args.seed)
+    batch_size = args.batch_size if is_train else 1
+    steps_per_epoch = max(len(train_ds) // max(batch_size, 1), 1)
+
+    model = build_model(cfg, args.seed, device)
+    resume_epoch, saved = 0, None
+    if args.resume and ckpt.latest_epoch(ckpt_dir) is not None:
+        saved = ckpt.load_checkpoint(ckpt_dir)
+        model.load_state_dict(saved["model"])
+        resume_epoch = saved["epoch"] + 1
+        print(f"resumed from epoch {saved['epoch']}")
+    optimizer = trainer.make_optimizer(model, cfg, steps_per_epoch,
+                                       resume_epoch)
+    if saved is not None and "adam" in saved:
+        optimizer.adam.load_state_dict(saved["adam"])
+    if args.load_score_path:
+        merge_checkpoint_modules(model, args.load_score_path, ["score_net"])
+    if args.load_region_path:
+        merge_checkpoint_modules(model, args.load_region_path,
+                                 ["grn_head", "refine_head"])
+
+    def with_center_num(base, nc):
+        return dataclasses.replace(base, region=dataclasses.replace(
+            base.region, center_num=nc))
+
+    train_cfgs = [cfg]
+    if args.center_jitter:
+        jitter = [int(v) for v in args.center_jitter.split(",") if v]
+        train_cfgs = [with_center_num(cfg, v) for v in jitter]
+        print(f"center_num jitter over {jitter}")
+    eval_cfg = exact_cfg
+    if args.eval_center_num:
+        eval_cfg = with_center_num(exact_cfg, args.eval_center_num)
+        print(f"validation forwards at center_num={args.eval_center_num}")
+
+    # validation forwards run a model of their own, built for `eval_cfg`
+    # (SA1 keeps its FPS grouping from the configuration it was built
+    # for), with the training model's weights copied in before each epoch
+    eval_model = (model if eval_cfg == cfg and not args.center_jitter
+                  else build_model(eval_cfg, args.seed, device))
+    result = {"model": model, "cfg": cfg, "eval_cfg": eval_cfg, "steps": [],
+              "validation": []}
+
+    def run_eval_epoch(logger, epoch, mode_name, ds):
+        if eval_model is not model:
+            eval_model.load_state_dict(model.state_dict())
+        for n, batch in enumerate(ds.batches(1, seed=epoch, shuffle=False,
+                                             augment=False)):
+            gen = torch.Generator().manual_seed(epoch * 10007 + n)
+            _, metrics = trainer.eval_step(
+                eval_model, trainer.device_batch(batch, device), stage,
+                generator=gen)
+            logger.scalars(metrics, n + epoch * len(ds), mode_name, "batch")
+            result["validation"].append(host_scalars(metrics))
+
+    with MetricLogger(args.log_path, args.tag) as logger:
+        if not is_train:
+            run_eval_epoch(logger, resume_epoch, args.mode, val_ds)
+            return result
+
+        drop_gen = torch.Generator(device=device)
+        for epoch in range(resume_epoch, args.epoch):
+            t_epoch = time.time()
+            total, nb = 0.0, 0
+            for batch in train_ds.batches(batch_size, seed=epoch):
+                _sync(device)
+                t0 = time.perf_counter()
+                seed = epoch * 131071 + nb
+                gen = torch.Generator().manual_seed(seed)
+                drop_gen.manual_seed(seed)
+                step = epoch * steps_per_epoch + nb
+                # the jittered configurations differ in center_num alone,
+                # which is read at every forward and built into no module
+                model.cfg = train_cfgs[step % len(train_cfgs)]
+                metrics = trainer.train_step(
+                    model, optimizer, trainer.device_batch(batch, device),
+                    stage, generator=gen, dropout_generator=drop_gen)
+                logger.scalars(metrics, step, "train", "batch")
+                loss = float(metrics["loss_total"])
+                _sync(device)
+                dt = time.perf_counter() - t0
+                result["steps"].append({"epoch": epoch, "loss": loss,
+                                        "seconds": dt})
+                total += loss
+                nb += 1
+                print(f"train epoch {epoch} [{nb}/{steps_per_epoch}] "
+                      f"loss {loss:.4f} ({dt:.3f}s)")
+            logger.scalar("epoch_train_loss", total / max(nb, 1), epoch)
+            print(f"epoch {epoch}: mean loss {total / max(nb, 1):.4f} "
+                  f"({time.time() - t_epoch:.1f}s)")
+            ckpt.save_checkpoint(ckpt_dir, epoch, model, optimizer)
+            run_eval_epoch(logger, epoch, "validate", val_ds)
+    return result
+
+
+if __name__ == "__main__":
+    main()

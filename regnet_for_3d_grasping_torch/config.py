@@ -1,9 +1,9 @@
 """Configuration tree of the PyTorch port.
 
 Its own copy of the JAX package's ``utils/config.py`` dataclasses, cut to
-the fields that single-cloud inference reads.  The values and presets
-(``infer_config``, ``tiny_config``) are those of the JAX package, so one
-override dict configures both packages alike.
+the fields that inference and training read.  The values and presets
+(``train_config``, ``infer_config``, ``tiny_config``) are those of the JAX
+package, so one override dict configures both packages alike.
 """
 
 from __future__ import annotations
@@ -19,6 +19,20 @@ class GripperConfig:
     width: float = 0.08    # max opening between fingers (y extent)
     height: float = 0.010  # hand thickness (z extent)
     depth: float = 0.06    # finger length along approach axis (x extent)
+    # evaluator-side geometry, read by the synthetic scene generator
+    finger_width: float = 0.01
+    half_hand_thickness: float = 0.005
+    finger_length: float = 0.06
+    bottom_length: float = 0.06
+    table_height: float = 0.75
+
+    @property
+    def hand_half_bottom_width(self) -> float:
+        return self.width / 2 + self.finger_width
+
+    @property
+    def hand_half_bottom_space(self) -> float:
+        return self.width / 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +49,7 @@ class ModelConfig:
         (1024, 1024), (512, 512), (256, 256, 256))
     num_fp_neighbours: Tuple[int, ...] = (3, 3, 3)
     seg_channels: Tuple[int, ...] = (512, 256, 256, 128)
+    dropout_prob: float = 0.5        # seg head, training mode only
     num_anchors: int = 4
     reg_channels: int = 10
     feature_channels: int = 256
@@ -50,6 +65,7 @@ class ModelConfig:
 class RegionConfig:
     """Proposal-region pipeline constants."""
 
+    num_points: int = 25600
     center_num: int = 64         # 4000 at inference
     score_thre: float = 0.5
     group_num: int = 256
@@ -67,6 +83,38 @@ class RegionConfig:
     center_fps_groups: int = 1
     center_select: str = "fps"
     slab_cell: float = 0.0
+    max_gt_grasps: int = 512     # static pad of a scene's ground-truth grasps
+    # threshold of the center <-> GT match, applied to the SQUARED distance
+    # (a quirk of the reference that the JAX package keeps)
+    gt_match_dist2: float = 0.005
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Constants of the geometric evaluator that the synthetic scene
+    generator's grasp labelling reads."""
+
+    num_points_threshold: int = 16
+    close_region_min_points: int = 16
+    back_collision_threshold: int = 0
+    finger_collision_threshold: int = 0
+    back_collision_margin: float = 0.0
+    neighbor_depth: float = 0.005
+    normal_radius: float = 0.01
+    normal_max_nn: int = 30
+    table_offset: float = 0.005
+    max_grasps: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 12
+    epochs: int = 101
+    lr_score: float = 1e-3
+    lr_region: float = 1e-3
+    lr_step_epochs: int = 5      # lr * gamma ** (epoch // lr_step_epochs)
+    lr_gamma: float = 0.5
+    seed: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,11 +122,18 @@ class PipelineConfig:
     gripper: GripperConfig = dataclasses.field(default_factory=GripperConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     region: RegionConfig = dataclasses.field(default_factory=RegionConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
     @property
     def group_radius(self) -> float:
         g = self.gripper
         return max(g.width, g.height, g.depth) * self.region.r_time_group
+
+
+def train_config(**overrides) -> PipelineConfig:
+    """Reference training preset: 64 centers, batch 12."""
+    return _override(PipelineConfig(), overrides)
 
 
 def infer_config(**overrides) -> PipelineConfig:
@@ -98,7 +153,10 @@ def tiny_config(**overrides) -> PipelineConfig:
                           seg_channels=(32, 32, 32, 32),
                           feature_channels=32,
                           refine_group_channels=16),
-        region=RegionConfig(center_num=8, group_num=16, gripper_num=16),
+        region=RegionConfig(num_points=512, center_num=8, group_num=16,
+                            gripper_num=16, max_gt_grasps=32),
+        eval=EvalConfig(max_grasps=32),
+        train=TrainConfig(batch_size=2),
     )
     return _override(cfg, overrides)
 

@@ -1,5 +1,5 @@
 // K9 — max over gathered rows for slab-structured indices (region and
-// refine pooling in slab mode), forward.
+// refine pooling in slab mode), with its argmax form for training.
 //
 // Replaces: regnet_for_3d_grasping_tpu/ops/slab.py, gather_max_slab
 //   (_gmax_slab_kernel, slab.py:1072).
@@ -17,8 +17,10 @@
 //   slots in shared memory once, and each thread owns channels c,
 //   c + blockDim, ... and loops over the covered rows, so every row read is
 //   coalesced along c.  The result is bit-exact (a max of copied values).
-//   The argmax output and the first-winner backward belong to the training
-//   slice.
+//   Training uses the argmax form (slab.py:996-1014), which also writes the
+//   winner's source row: the lowest covered slot holding the maximum, 0 for
+//   a row with no covered slot.  Its backward is the scatter kernel of
+//   gather_max.cu.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -60,6 +62,41 @@ __global__ void gather_max_slab_kernel(const float* __restrict__ feature,
   }
 }
 
+__global__ void gather_max_slab_argmax_kernel(
+    const float* __restrict__ feature, const int32_t* __restrict__ index,
+    const int32_t* __restrict__ off_blk, float* __restrict__ out,
+    int32_t* __restrict__ winner, int n, int c_total, int s_total,
+    int k_total, int win, int spw) {
+  extern __shared__ int s_row[];  // [K] covered row, or -1
+  const int b = blockIdx.y, s = blockIdx.x;
+  const size_t row = (size_t)b * s_total + s;
+  const int tiles = (s_total + kTile - 1) / kTile;
+  const int off = off_blk[(size_t)b * tiles + s / kTile];
+  const int rps = (kScan / win) * spw;  // slots per scan block
+  for (int k = threadIdx.x; k < k_total; k += blockDim.x) {
+    const int r = index[row * k_total + k];
+    const int base = (off + k / rps) * kScan + (k % rps) / spw * win;
+    s_row[k] = (r >= base && r < base + win && r < n) ? r : -1;
+  }
+  __syncthreads();
+  feature += (size_t)b * n * c_total;
+  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
+    float m = -kBig;
+    int w = 0;
+    for (int k = 0; k < k_total; ++k) {
+      const int r = s_row[k];
+      if (r < 0) continue;
+      const float v = feature[(size_t)r * c_total + c];
+      if (v > m) {
+        m = v;
+        w = r;
+      }
+    }
+    out[row * c_total + c] = m;
+    winner[row * c_total + c] = w;
+  }
+}
+
 }  // namespace
 
 // feature [B, N, C] f32, index [B, S, K] int32, off_blk [B, ceil(S/128)]
@@ -76,5 +113,20 @@ extern "C" int regnet_gather_max_slab(const float* feature,
   dim3 grid(s_total, batch);
   gather_max_slab_kernel<<<grid, threads, k_total * sizeof(int), stream>>>(
       feature, index, off_blk, out, n, c_total, s_total, k_total, win, spw);
+  return (int)cudaGetLastError();
+}
+
+// The same, and winner [B, S, C] int32: the row of the lowest covered slot
+// holding the maximum, 0 where no slot is covered.
+extern "C" int regnet_gather_max_slab_argmax(
+    const float* feature, const int32_t* index, const int32_t* off_blk,
+    float* out, int32_t* winner, int batch, int n, int c_total, int s_total,
+    int k_total, int win, int spw, cudaStream_t stream) {
+  const int threads = c_total < 256 ? ((c_total + 31) / 32) * 32 : 256;
+  dim3 grid(s_total, batch);
+  gather_max_slab_argmax_kernel<<<grid, threads, k_total * sizeof(int),
+                                  stream>>>(feature, index, off_blk, out,
+                                            winner, n, c_total, s_total,
+                                            k_total, win, spw);
   return (int)cudaGetLastError();
 }

@@ -56,3 +56,29 @@ def grasps_to_frames(grasp: torch.Tensor):
     approach = _safe_normalize(m[..., 0], unit(0))
     minor = torch.linalg.cross(approach, axis_y)
     return torch.stack([approach, axis_y, minor], -1), center
+
+
+def cos_dissimilarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1 - cos(a, b) along the last axis."""
+    ab = (a * b).sum(-1)
+    a2 = (a * a).sum(-1) + _EPS
+    b2 = (b * b).sum(-1) + _EPS
+    return 1.0 - ab / torch.sqrt(a2 * b2)
+
+
+def frames_to_grasps(frame: torch.Tensor, center: torch.Tensor,
+                     scores: torch.Tensor) -> torch.Tensor:
+    """frame [..., 3, 3] columns (axis_x, axis_y, axis_z), center [..., 3],
+    scores [..., S] -> [..., 7 + S] (center, axis_y, theta, scores), with
+    axis_y flipped to x >= 0 and theta wrapped to (-pi, pi]."""
+    axis_x, axis_y, axis_z = frame[..., 0], frame[..., 1], frame[..., 2]
+    angle = torch.atan2(axis_x[..., 2], axis_z[..., 2])
+    flip = axis_y[..., 0] < 0
+    angle = torch.where(flip, math.pi - angle, angle)
+    axis_y = torch.where(flip[..., None], -axis_y, axis_y)
+    two_pi = 2 * math.pi
+    angle = torch.where(angle >= two_pi, angle - two_pi, angle)
+    angle = torch.where(angle <= -two_pi, angle + two_pi, angle)
+    angle = torch.where(angle > math.pi, angle - two_pi, angle)
+    angle = torch.where(angle <= -math.pi, angle + two_pi, angle)
+    return torch.cat([center, axis_y, angle[..., None], scores], -1)

@@ -4,12 +4,11 @@ grouping and the closing-region crop, on the full-scan paths and, given a
 shapes qualify (`_use_slab_group`, `_use_slab_crop`, `use_slab_backbone`).
 
 Randomness enters as u32 seeds, the values the JAX package reads from its
-keys.  On the full-scan paths `group_regions` takes one seed per center
-chunk (``key_data(split(k_group, n_chunks))[:, -1]``) and
-`closing_region_crop_dense` one seed on the kernel path
-(``key_data(k_it)[-1]``) or one per proposal chunk on the plain path; on
-the slab paths each takes one (``key_data(key)[-1]``).  `group_seed_count`
-and `crop_seed_count` say which.
+keys.  On the full-scan paths `group_regions` and
+`closing_region_crop_dense` take one seed on the kernel path
+(``key_data(key)[-1]``) or one per chunk of centers or proposals on the
+plain path (``key_data(split(k_group, n_chunks))[:, -1]``); on the slab
+paths each takes one.  `group_seed_count` and `crop_seed_count` say which.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import torch
 from regnet_for_3d_grasping_torch.config import GripperConfig
 from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
 from regnet_for_3d_grasping_torch.ops import crop as crop_ops
+from regnet_for_3d_grasping_torch.ops import group as group_ops
 from regnet_for_3d_grasping_torch.ops import slab
 from regnet_for_3d_grasping_torch.ops.distances import bpdist2
 from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
@@ -35,14 +35,24 @@ from regnet_for_3d_grasping_torch.ops.sampling import (bucket_choice,
 # (regnet_for_3d_grasping_tpu/geometry/region.py:311, rule at :353-356);
 # gripper_num must be a multiple of 8
 CROP_KERNEL_MIN_WORK = 1 << 24
-# grouping runs the plain path on the TPU too: its Pallas kernel is off
-# there (region.py:312, _PALLAS_GROUP_THRESHOLD = None)
+# NC*N at or above which grouping takes the fused kernel K11; group_num
+# must be a multiple of 8 (the shape rule of the JAX package's
+# _use_pallas_group, region.py:359-362).  The JAX package leaves its Pallas
+# kernel off because it lost on the TPU (region.py:302-312); on the H100
+# the fused kernel replaces the plain path's int64 hashing, so the port
+# sets its own threshold: below the training shape (64 x 25,600) and the
+# serving shape (4,000 x 25,600), above the shapes of the unit tests
+GROUP_KERNEL_MIN_WORK = 1 << 20
 GROUP_CENTER_CHUNK = 1024
 CROP_PROPOSAL_CHUNK = 512
 
 
 def use_crop_kernel(m: int, n: int, gripper_num: int) -> bool:
     return m * n >= CROP_KERNEL_MIN_WORK and gripper_num % 8 == 0
+
+
+def use_group_kernel(m: int, n: int, group_num: int) -> bool:
+    return m * n >= GROUP_KERNEL_MIN_WORK and group_num % 8 == 0
 
 
 def _use_slab_group(n: int, group_num: int) -> bool:
@@ -90,15 +100,20 @@ def group_chunks(nc: int) -> int:
 
 def group_seed_count(nc: int, n: int, group_num: int,
                      sorted_cloud: bool = False) -> int:
-    """Seeds `group_regions` takes: 1 on the slab path, one per center
-    chunk on the full-scan path."""
+    """Seeds `group_regions` takes: 1 on the slab and kernel paths, one
+    per center chunk on the plain path."""
     if sorted_cloud and _use_slab_group(n, group_num):
+        return 1
+    if use_group_kernel(nc, n, group_num):
         return 1
     return group_chunks(nc)
 
 
 def group_stride(nc: int, n: int, group_num: int) -> int:
-    """Bucket width of `group_regions`' index output."""
+    """Bucket width of `group_regions`' index output on the full-scan
+    paths."""
+    if use_group_kernel(nc, n, group_num):
+        return pallas_bucket_stride(n, group_num)
     return bucket_stride(n, group_num)
 
 
@@ -114,9 +129,11 @@ def group_regions(seeds: Sequence[int], pc: torch.Tensor,
                   radius: float, sorted_cloud: slab.SortedCloud | None = None,
                   cell: float = 0.0) -> RegionGroups:
     """Stratified pick of `group_num` points with ``d2 <= r2`` around each
-    center, random tiebreak from `hash_uniform` (JAX ``region.py:160-185``).
-    Centers are processed in chunks of 1024, padded with far centers, one
-    seed per chunk.
+    center.  Where `use_group_kernel` holds, the fused kernel K11 makes
+    the picks (JAX ``region.py:149-158``).  Otherwise the plain path does,
+    with the random tiebreak from `hash_uniform` (JAX
+    ``region.py:160-185``): centers in chunks of 1024, padded with far
+    centers, one seed per chunk.
 
     With `sorted_cloud` (over the same rows as `pc`) and qualifying shapes,
     kernel K6 scans only each center tile's slab and the picks are
@@ -136,6 +153,12 @@ def group_regions(seeds: Sequence[int], pc: torch.Tensor,
         valid = (count > 0) & sel_any
         return RegionGroups(torch.where(valid[..., None], idx, 0), valid,
                             off)
+    if use_group_kernel(NC, N, group_num):
+        idx, count = group_ops.group_regions_fused(
+            xyz.contiguous(), cxyz.contiguous(), seeds[0], radius, group_num,
+            pallas_bucket_stride(N, group_num))
+        valid = count > 0
+        return RegionGroups(torch.where(valid[..., None], idx, 0), valid)
     r2 = float(np.float32(radius * radius))
     pad = (-NC) % chunk
     if pad:

@@ -1,5 +1,8 @@
-"""PointNet++ segmentation backbone (JAX ``models/backbone.py``),
-inference only.  Given a `SortedCloud` over its input rows and a slab
+"""PointNet++ segmentation backbone (JAX ``models/backbone.py``).  The
+sampling and grouping indices carry no gradient; the features do, through
+the gathers, the shared MLPs and the max over neighbours (`amax`, which
+splits a tie's gradient evenly as the JAX package's ``jnp.max`` does).
+In training mode the seg head drops out with ``cfg.dropout_prob``.  Given a `SortedCloud` over its input rows and a slab
 cell, SA1's ball query (kernel K6) and the last FP's 3-NN (kernel K8, with
 its exactness certificate and full-scan fallback) run the sorted-slab
 kernels; every other layer, and every layer without them, runs the
@@ -136,7 +139,7 @@ class PointNet2Seg(nn.Module):
             self.add_module(f"fp{i}", FeaturePropagation(
                 c_in + skip[-2 - i], ch, k, cfg.fp3_nn_bound))
             c_in = ch[-1]
-        self.seg_mlp = SharedMLP(c_in, cfg.seg_channels)
+        self.seg_mlp = SharedMLP(c_in, cfg.seg_channels, cfg.dropout_prob)
         self.score_dense = nn.Linear(cfg.seg_channels[-1], 1, bias=False)
         self.score_bn = BatchNorm(1)
         self.n_sa = len(cfg.num_centroids)
@@ -144,11 +147,13 @@ class PointNet2Seg(nn.Module):
 
     def forward(self, points: torch.Tensor,
                 sc: slab.SortedCloud | None = None, slab_cell: float = 0.0,
-                sa1_seed: int = 0x5A1B):
+                sa1_seed: int = 0x5A1B,
+                dropout_generator: torch.Generator | None = None):
         """`sc` (over the same rows as `points`) with ``slab_cell > 0``
         switches SA1's ball query and the last FP's 3-NN to the slab
         kernels: only SA1's point set is the sorted cloud, and only the
-        last FP's dense level is."""
+        last FP's dense level is.  `dropout_generator` (on the points'
+        device) draws the seg head's dropout masks in training mode."""
         use_slab = sc is not None and slab_cell > 0.0
         xyz = points[..., :3]
         feature = points[..., 3:self.input_channels]
@@ -169,5 +174,7 @@ class PointNet2Seg(nn.Module):
                 dense_xyz, sparse_xyz, inter_feat[-2 - i], sparse_feat,
                 use_slab and i == self.n_fp - 1)
             sparse_xyz = dense_xyz
-        x = self.score_bn(self.score_dense(self.seg_mlp(sparse_feat)))
-        return sparse_feat, torch.sigmoid(x)[..., 0]
+        x = self.seg_mlp(sparse_feat, dropout_generator)
+        x = self.score_bn(self.score_dense(x))
+        # scores feed threshold comparisons: f32 whatever the compute dtype
+        return sparse_feat, torch.sigmoid(x.float())[..., 0]

@@ -1,4 +1,4 @@
-"""REGNet, the three-stage cascade (JAX ``models/regnet.py``), inference.
+"""REGNet, the three-stage cascade (JAX ``models/regnet.py``).
 
 ScoreNet scores every point; masked FPS picks the grasp centers; radius
 groups around them are max-pooled (kernel K4) into the TwoStageHead, whose
@@ -15,6 +15,12 @@ and `point_order` gives each row's original row.
 The randomness is explicit: u32 selection seeds and the sort noise `u` are
 passed in (the tests pass the values the JAX package derives from its
 keys), or drawn from a ``torch.Generator``.
+
+``model.train()`` / ``.eval()`` is the JAX package's ``train`` flag (batch
+statistics and dropout).  The forward builds an autograd graph whenever
+gradients are enabled: the selections carry none, both pools carry the
+first-winner gradient of K4 / K9, and the refine stage sees the proposals
+detached.  Serving entry points call it under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -104,7 +110,8 @@ def _draw(generator: torch.Generator | None, n: int) -> list:
 def _pool(feature, index, valid, slab_off, win, spw):
     """Max over each row's gathered features: K4, or K9 where the slab
     kernels made `index`, whose rows without a pick are zeroed as the JAX
-    model zeroes them."""
+    model zeroes them (the `where` also keeps their gradient out of row
+    0)."""
     if slab_off is None:
         return gather_max(feature, index)
     pooled = slab.gather_max_slab(feature, index, slab_off, win, spw)
@@ -122,15 +129,29 @@ class REGNet(nn.Module):
         self.score_net = ScoreNet(cfg.model)
         self.grn_head = TwoStageHead(cfg.model)
         self.refine_head = RefineHead(cfg.model)
+        # the JAX package's initial distribution (flax's lecun_normal): a
+        # normal truncated at two standard deviations with variance
+        # 1 / fan_in after truncation
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std)
 
-    @torch.no_grad()
     def forward(self, pc: torch.Tensor,
                 generator: torch.Generator | None = None,
                 group_seeds: Sequence[int] | None = None,
                 crop_seeds: Sequence[Sequence[int]] | None = None,
                 sort_u: torch.Tensor | None = None,
-                sa1_seed: int | None = None) -> REGNetOutput:
+                sa1_seed: int | None = None,
+                with_refine: bool = True,
+                dropout_generator: torch.Generator | None = None
+                ) -> REGNetOutput:
         """pc [B, N, 6] -> REGNetOutput.
+
+        ``with_refine=False`` is the region pre-training configuration: the
+        refine stage is skipped and its outputs are zero placeholders, with
+        `final_grasps` the detached proposals.  `dropout_generator` (on
+        `pc`'s device) draws the seg head's dropout masks in training mode.
 
         `group_seeds`: the u32 seeds `group_regions` takes
         (`group_seed_count`); `crop_seeds`: per refine iteration, the seeds
@@ -147,7 +168,7 @@ class REGNet(nn.Module):
         if group_seeds is None:
             group_seeds = _draw(generator, group_seed_count(
                 NC, N, region.group_num, slab_mode))
-        if crop_seeds is None:
+        if crop_seeds is None and with_refine:
             n_crop = crop_seed_count(NC, N, region.gripper_num, slab_mode)
             crop_seeds = [_draw(generator, n_crop) for _ in range(iters)]
 
@@ -158,14 +179,17 @@ class REGNet(nn.Module):
         # as given and its outputs are brought into slab order
         sc = None
         if not slab_mode:
-            feature, score = self.score_net(pc)
+            feature, score = self.score_net(
+                pc, dropout_generator=dropout_generator)
         elif use_slab_backbone(N, cfg.model.num_neighbours[0]):
             if sa1_seed is None:
                 sa1_seed = _draw(generator, 1)[0]
             pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
-            feature, score = self.score_net(pc, sc, cell, sa1_seed)
+            feature, score = self.score_net(pc, sc, cell, sa1_seed,
+                                            dropout_generator)
         else:
-            feature, score = self.score_net(pc)
+            feature, score = self.score_net(
+                pc, dropout_generator=dropout_generator)
             pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
             feature = gather_points(feature, sc.order)
             score = torch.gather(score, 1, sc.order.long())
@@ -187,12 +211,44 @@ class REGNet(nn.Module):
         proposals = decode_proposals(reg, anchor_idx, centers[..., :3],
                                      cfg.gripper.depth)
 
-        cur = proposals
-        crop_valid = torch.ones(B, NC, dtype=torch.bool, device=pc.device)
+        proposals_sg = proposals.detach()
+        if with_refine:
+            cur, crop_valid, refine_logits, refine_reg = self._refine(
+                pc, feature, pooled, proposals_sg, crop_seeds, sc)
+            refine_accept = ((refine_logits[..., 1] - refine_logits[..., 0]
+                              > region.accept_margin) & crop_valid)
+            score_accept = refine_accept & (cur[..., 7]
+                                            > region.grasp_score_thre)
+        else:
+            R = cfg.model.reg_channels
+            cur = proposals_sg
+            crop_valid = torch.zeros(B, NC, dtype=torch.bool,
+                                     device=pc.device)
+            refine_logits = proposals.new_zeros(B, NC, 2)
+            refine_reg = proposals.new_zeros(B, NC, R)
+            refine_accept = score_accept = crop_valid
+        return REGNetOutput(
+            score=score, centers=centers, center_index=center_idx,
+            region_valid=groups.valid, cls_logits=cls_logits, reg=reg,
+            anchor_index=anchor_idx, proposals=proposals,
+            crop_valid=crop_valid, refine_logits=refine_logits,
+            refine_reg=refine_reg, final_grasps=cur,
+            refine_accept=refine_accept, score_accept=score_accept,
+            point_order=None if sc is None else sc.order)
+
+    def _refine(self, pc, feature, pooled, cur, crop_seeds, sc):
+        """The refine stage on the detached proposals `cur`:
+        `region.refine_iters` rounds of crop, pool and residual (the rounds
+        after the first start from the detached result of the one before).
+        -> (final grasps, crop_valid, refine_logits, refine_reg)."""
+        cfg, region = self.cfg, self.cfg.region
+        iters = max(region.refine_iters, 1)
+        crop_valid = torch.ones(cur.shape[:2], dtype=torch.bool,
+                                device=pc.device)
         for it in range(iters):
             crop = closing_region_crop_dense(
                 crop_seeds[it], pc, cur, cfg.gripper, region.gripper_num,
-                region.min_region_points, sc, cell)
+                region.min_region_points, sc, region.slab_cell)
             pooled_grip = _pool(feature, crop.index_in_all, crop.valid,
                                 crop.slab_off, slab.CROP_WIN, slab.CROP_SPW)
             refine_logits, refine_reg = self.refine_head(pooled_grip, pooled)
@@ -205,25 +261,17 @@ class REGNet(nn.Module):
             elif region.refine_pose == "off":
                 nxt = torch.cat([cur[..., :7], nxt[..., 7:]], -1)
             crop_valid = crop_valid & crop.valid
-            cur = nxt
-        refine_accept = ((refine_logits[..., 1] - refine_logits[..., 0]
-                          > region.accept_margin) & crop_valid)
-        score_accept = refine_accept & (cur[..., 7] > region.grasp_score_thre)
-        return REGNetOutput(
-            score=score, centers=centers, center_index=center_idx,
-            region_valid=groups.valid, cls_logits=cls_logits, reg=reg,
-            anchor_index=anchor_idx, proposals=proposals,
-            crop_valid=crop_valid, refine_logits=refine_logits,
-            refine_reg=refine_reg, final_grasps=cur,
-            refine_accept=refine_accept, score_accept=score_accept,
-            point_order=None if sc is None else sc.order)
+            cur = nxt.detach() if it + 1 < iters else nxt
+        return cur, crop_valid, refine_logits, refine_reg
 
 
 def build_regnet(cfg: PipelineConfig, weights=None,
                  device: str | torch.device | None = None) -> REGNet:
     """Entry point: an eval-mode REGNet on `device` (``cuda`` unless the
     caller asks for another), with `weights` (an npz path or the JAX
-    variable arrays, see `weights.jax_to_state_dict`) when given."""
+    variable arrays, see `weights.jax_to_state_dict`) when given.  Serving
+    callers run it under ``torch.inference_mode()``; the trainer switches
+    it to ``.train()``."""
     dev = resolve_device(device)
     model = REGNet(cfg)
     if weights is not None:

@@ -18,5 +18,7 @@ class ScoreNet(nn.Module):
         self.backbone = PointNet2Seg(cfg)
 
     def forward(self, points: torch.Tensor, sc=None, slab_cell: float = 0.0,
-                sa1_seed: int = 0x5A1B):
-        return self.backbone(points, sc, slab_cell, sa1_seed)
+                sa1_seed: int = 0x5A1B,
+                dropout_generator: torch.Generator | None = None):
+        return self.backbone(points, sc, slab_cell, sa1_seed,
+                             dropout_generator)

@@ -1,10 +1,15 @@
-"""Pointwise layers, channels-last (JAX ``nn/layers.py``), inference only.
+"""Pointwise layers, channels-last (JAX ``nn/layers.py``).
 
-`ConvBN` is a bias-free Linear on the trailing axis, an eval-mode
-BatchNorm and an optional ReLU.  The BatchNorm is written out in flax's
-order, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and keeps the
-state_dict names of ``torch.nn.BatchNorm1d`` (without its batch counter),
-so `weights.py` maps the JAX variables onto it one to one.
+`ConvBN` is a bias-free Linear on the trailing axis, a BatchNorm and an
+optional ReLU.  The BatchNorm is flax's, written out, not
+``torch.nn.BatchNorm1d``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+in that order; in training mode the statistics are taken over all leading
+axes, the variance as ``max(0, E[x^2] - E[x]^2)``, and the running update
+``running = 0.9 * running + 0.1 * batch`` takes that same biased variance
+(torch would take the unbiased one).  It keeps the state_dict names of
+``torch.nn.BatchNorm1d`` (without its batch counter), so `weights.py` maps
+the JAX variables onto it one to one.  ``module.train()`` / ``.eval()`` is
+the JAX package's ``train`` flag.
 """
 
 from __future__ import annotations
@@ -16,19 +21,33 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch normalization over the trailing axis."""
+    """Batch normalization over the trailing axis, flax semantics;
+    `momentum` in the torch convention (the weight of the new batch)."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = ((x * x).mean(axes) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                # flax's factors: its momentum 1 - 0.1, and 1 - that
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+                self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class ConvBN(nn.Module):
@@ -46,17 +65,38 @@ class ConvBN(nn.Module):
         return torch.relu(x) if self.relu else x
 
 
-class SharedMLP(nn.Module):
-    """Stack of ConvBN blocks named layer0, layer1, ... (dropout is a
-    no-op at inference and is left out)."""
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with an explicit generator (on `x`'s device): each
+    value is kept with probability 1 - p and scaled by 1 / (1 - p)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
-    def __init__(self, in_channels: int, channels: Sequence[int]):
+
+class SharedMLP(nn.Module):
+    """Stack of ConvBN blocks named layer0, layer1, ..., with dropout
+    after every block in training mode when ``dropout_prob > 0``."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 dropout_prob: float = 0.0):
         super().__init__()
+        self.dropout_prob = dropout_prob
         for i, ch in enumerate(channels):
             self.add_module(f"layer{i}", ConvBN(in_channels, ch))
             in_channels = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator` (on `x`'s device) draws the dropout masks; it is
+        required in training mode when ``dropout_prob > 0``."""
+        drop = self.training and self.dropout_prob > 0.0
+        if drop and generator is None:
+            raise ValueError("SharedMLP: dropout in training mode needs a "
+                             "torch.Generator")
         for layer in self.children():
             x = layer(x)
+            if drop:
+                x = dropout(x, self.dropout_prob, generator)
         return x

@@ -1,11 +1,16 @@
-"""Point-cloud ops of the PyTorch port, with the five CUDA kernels of the
-inference path and their plain PyTorch versions:
+"""Point-cloud ops of the PyTorch port, with their CUDA kernels and the
+kernels' plain PyTorch versions:
 
-  K1 fps.fps                            csrc/fps.cu
-  K2 ball_query.ball_query_bucketed     csrc/ball_query.cu
-  K3 knn.three_nn_kernel                csrc/three_nn.cu
-  K4 pooling.gather_max                 csrc/gather_max.cu
-  K5 crop.closing_region_crop           csrc/crop.cu
+  K1  fps.fps                            csrc/fps.cu
+  K2  ball_query.ball_query_bucketed     csrc/ball_query.cu
+  K3  knn.three_nn_kernel                csrc/three_nn.cu
+  K4  pooling.gather_max                 csrc/gather_max.cu
+      (forward, argmax form, and the first-winner backward shared with K9)
+  K5  crop.closing_region_crop           csrc/crop.cu
+  K6-K9  slab.*                          csrc/slab_select.cu,
+                                         three_nn_slab.cu, gather_max_slab.cu
+  K10 fps.fps_grouped                    csrc/fps.cu
+  K11 group.group_regions_fused          csrc/group.cu
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; ``_cuda.launches`` counts the kernel launches.

@@ -60,6 +60,15 @@ SIGNATURES = {
                       (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "gather_max_slab": ("gather_max_slab", "regnet_gather_max_slab",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "group_regions": ("group", "regnet_group_regions",
+                      (_P, _P, _U, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    "gather_max_argmax": ("gather_max", "regnet_gather_max_argmax",
+                          (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "gather_max_backward": ("gather_max", "regnet_gather_max_backward",
+                            (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "gather_max_slab_argmax": (
+        "gather_max_slab", "regnet_gather_max_slab_argmax",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))

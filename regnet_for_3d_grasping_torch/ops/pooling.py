@@ -1,10 +1,16 @@
-"""Max over gathered rows (JAX ``ops/pooling.py``), forward only.
+"""Max over gathered rows (JAX ``ops/pooling.py``), with its gradient.
 
 Every call goes to kernel K4 (``csrc/gather_max.cu``) on a CUDA tensor: a
 max is a max, so the JAX package's Pallas/XLA split (which keeps the f32
 refine pool on XLA, ``pooling.py:53-54``) changes no value.  The bucket
 structure the TPU kernel needs is not needed by a direct gather, so there
 is no `stride` argument.
+
+When `feature` needs a gradient the argmax form runs: it also gives the
+winner `win[b, s, c]`, the source row of the lowest slot holding the
+maximum, and the backward adds each ``g[b, s, c]`` to
+``dfeature[b, win[b, s, c], c]`` (JAX ``pooling.py:265-299``).  That is not
+the gradient of ``amax``, which splits a tie evenly.
 """
 
 from __future__ import annotations
@@ -18,19 +24,70 @@ from regnet_for_3d_grasping_torch.ops.grouping import group_points
 def gather_max(feature: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """Kernel K4: feature [B, N, C] f32, index [B, S, K] with values in
     [0, N) -> [B, S, C] = max_k feature[b, index[b, s, k], c].  CPU tensors
-    take `gather_max_plain`."""
+    take the plain versions.  Differentiable in `feature` by the
+    first-winner rule."""
+    if torch.is_grad_enabled() and feature.requires_grad:
+        return _GatherMax.apply(feature, index)
     if feature.device.type == "cpu":
         return gather_max_plain(feature, index)
+    B, N, C, S, K = _check(feature, index)
+    out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
+    _cuda.launch("gather_max", feature.device, feature, index, out, B, N, C,
+                 S, K)
+    return out
+
+
+def gather_max_argmax(feature: torch.Tensor, index: torch.Tensor):
+    """K4's argmax form -> (pooled [B, S, C], win [B, S, C] int32).  CPU
+    tensors take `gather_max_argmax_plain`.  No gradient: `gather_max` is
+    the differentiable entry."""
+    if feature.device.type == "cpu":
+        return gather_max_argmax_plain(feature, index)
+    B, N, C, S, K = _check(feature, index)
+    out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
+    win = torch.empty(B, S, C, dtype=torch.int32, device=feature.device)
+    _cuda.launch("gather_max_argmax", feature.device, feature, index, out,
+                 win, B, N, C, S, K)
+    return out, win
+
+
+def scatter_winner(g: torch.Tensor, win: torch.Tensor, n: int) -> torch.Tensor:
+    """The backward of K4 and K9: g, win [B, S, C] -> dfeature [B, n, C]
+    with ``dfeature[b, win[b, s, c], c] += g[b, s, c]``, summed in s order
+    (deterministic).  CPU tensors take `scatter_winner_plain`."""
+    if g.device.type == "cpu":
+        return scatter_winner_plain(g, win, n)
+    B, S, C = g.shape
+    g = g.contiguous()
+    _cuda.check(g, "gather_max backward g", torch.float32, (B, S, C))
+    _cuda.check(win, "gather_max backward win", torch.int32, (B, S, C))
+    df = torch.zeros(B, n, C, dtype=g.dtype, device=g.device)
+    _cuda.launch("gather_max_backward", g.device, g, win, df, B, n, C, S)
+    return df
+
+
+class _GatherMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feature, index):
+        pooled, win = gather_max_argmax(feature, index)
+        ctx.save_for_backward(win)
+        ctx.n = feature.shape[1]
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        (win,) = ctx.saved_tensors
+        return scatter_winner(g, win, ctx.n), None
+
+
+def _check(feature, index):
     B, N, C = feature.shape
     S, K = index.shape[1:]
     _cuda.check(feature, "gather_max feature", torch.float32, (B, N, C))
     _cuda.check(index, "gather_max index", torch.int32, (B, S, K))
     if K == 0 or S == 0:
         raise ValueError(f"gather_max: empty index {tuple(index.shape)}")
-    out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
-    _cuda.launch("gather_max", feature.device, feature, index, out, B, N, C,
-                 S, K)
-    return out
+    return B, N, C, S, K
 
 
 def gather_max_plain(feature: torch.Tensor, index: torch.Tensor,
@@ -38,3 +95,30 @@ def gather_max_plain(feature: torch.Tensor, index: torch.Tensor,
     """Plain PyTorch version of K4: gather, then amax over K."""
     return torch.cat([group_points(feature, i).amax(dim=2)
                       for i in torch.split(index, chunk, dim=1)], dim=1)
+
+
+def gather_max_argmax_plain(feature: torch.Tensor, index: torch.Tensor,
+                            chunk: int = 512):
+    """Plain PyTorch version of K4's argmax form: gather, argmax over K
+    (the first maximal slot), winner row = index at that slot."""
+    pooled, win = [], []
+    for i in torch.split(index, chunk, dim=1):
+        g = group_points(feature, i)                     # [B, s, K, C]
+        am = torch.argmax(g, dim=2, keepdim=True)        # [B, s, 1, C]
+        pooled.append(torch.gather(g, 2, am)[:, :, 0])
+        win.append(torch.gather(
+            i.long()[..., None].expand(-1, -1, -1, g.shape[-1]), 2,
+            am)[:, :, 0])
+    return torch.cat(pooled, 1), torch.cat(win, 1).to(torch.int32)
+
+
+def scatter_winner_plain(g: torch.Tensor, win: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """Plain PyTorch version of the backward: one ``index_add_`` over the
+    flattened keys ``win * C + c``."""
+    B, S, C = g.shape
+    keys = win.long() * C + torch.arange(C, device=g.device)
+    df = torch.zeros(B, n * C, dtype=g.dtype, device=g.device)
+    for b in range(B):
+        df[b].index_add_(0, keys[b].reshape(-1), g[b].reshape(-1))
+    return df.reshape(B, n, C)

@@ -34,6 +34,7 @@ import torch
 from regnet_for_3d_grasping_torch.ops import _cuda
 from regnet_for_3d_grasping_torch.ops.grouping import group_points
 from regnet_for_3d_grasping_torch.ops.knn import _smallest_k
+from regnet_for_3d_grasping_torch.ops.pooling import scatter_winner
 
 _TM = 128      # queries per tile (selection and pooling)
 _SCAN = 2048   # rows per scan block
@@ -518,7 +519,7 @@ def gather_max_slab(fs: torch.Tensor, index: torch.Tensor,
                     off_blk: torch.Tensor, win: int, spw: int
                     ) -> torch.Tensor:
     """Kernel K9: ``max_k fs[b, index[b, s, k], c]`` over the covered
-    slots, forward only.
+    slots.
 
     fs [B, N, C] features in slab order; index [B, S, K] from `group_slab`
     (win 128, spw 4) or `crop_slab` (win 256, spw 1); off_blk [B, T] their
@@ -526,7 +527,58 @@ def gather_max_slab(fs: torch.Tensor, index: torch.Tensor,
     lies in its own window ``[(off + kc)*2048 + w*win, +win)``; every fill
     value is also some slot's own pick, so skipping uncovered slots changes
     no maximum.  A query with no covered slot pools to -1e38.  CPU tensors
-    take `gather_max_slab_plain`."""
+    take the plain versions.
+
+    When `fs` needs a gradient the argmax form runs and the backward adds
+    each ``g[b, s, c]`` to the winner's row, the lowest covered slot holding
+    the maximum (JAX ``gather_max_slab_vjp``, ``slab.py:1084-1110``).  A
+    query with no covered slot sends its gradient to row 0: mask it, as the
+    model does with ``torch.where``."""
+    if torch.is_grad_enabled() and fs.requires_grad:
+        return _GatherMaxSlab.apply(fs, index, off_blk, win, spw)
+    off_blk = _check_gmax_slab(fs, index, off_blk, win, spw)
+    if fs.device.type == "cpu":
+        return gather_max_slab_plain(fs, index, off_blk, win, spw)
+    (B, N, C), (S, K) = fs.shape, index.shape[1:]
+    out = torch.empty(B, S, C, dtype=fs.dtype, device=fs.device)
+    _cuda.launch("gather_max_slab", fs.device, fs, index, off_blk, out, B, N,
+                 C, S, K, win, spw)
+    return out
+
+
+def gather_max_slab_argmax(fs: torch.Tensor, index: torch.Tensor,
+                           off_blk: torch.Tensor, win: int, spw: int):
+    """K9's argmax form -> (pooled [B, S, C], winner [B, S, C] int32, 0
+    for a query with no covered slot).  CPU tensors take
+    `gather_max_slab_argmax_plain`.  No gradient: `gather_max_slab` is the
+    differentiable entry."""
+    off_blk = _check_gmax_slab(fs, index, off_blk, win, spw)
+    if fs.device.type == "cpu":
+        return gather_max_slab_argmax_plain(fs, index, off_blk, win, spw)
+    (B, N, C), (S, K) = fs.shape, index.shape[1:]
+    out = torch.empty(B, S, C, dtype=fs.dtype, device=fs.device)
+    winner = torch.empty(B, S, C, dtype=torch.int32, device=fs.device)
+    _cuda.launch("gather_max_slab_argmax", fs.device, fs, index, off_blk,
+                 out, winner, B, N, C, S, K, win, spw)
+    return out, winner
+
+
+class _GatherMaxSlab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fs, index, off_blk, win, spw):
+        pooled, winner = gather_max_slab_argmax(fs, index, off_blk, win, spw)
+        ctx.save_for_backward(winner)
+        ctx.n = fs.shape[1]
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        (winner,) = ctx.saved_tensors
+        return scatter_winner(g, winner, ctx.n), None, None, None, None
+
+
+def _check_gmax_slab(fs, index, off_blk, win, spw) -> torch.Tensor:
+    """Validate K9's arguments; returns `off_blk` as contiguous int32."""
     B, N, C = fs.shape
     S, K = index.shape[1:]
     rps = (_SCAN // win) * spw
@@ -537,14 +589,10 @@ def gather_max_slab(fs: torch.Tensor, index: torch.Tensor,
     if off_blk.shape != (B, T):
         raise ValueError(f"gather_max_slab: off_blk {tuple(off_blk.shape)}, "
                          f"expected {(B, T)}")
-    if fs.device.type == "cpu":
-        return gather_max_slab_plain(fs, index, off_blk, win, spw)
-    _cuda.check(fs, "gather_max_slab fs", torch.float32, (B, N, C))
-    _cuda.check(index, "gather_max_slab index", torch.int32, (B, S, K))
-    out = torch.empty(B, S, C, dtype=fs.dtype, device=fs.device)
-    _cuda.launch("gather_max_slab", fs.device, fs, index, off_blk, out, B, N,
-                 C, S, K, win, spw)
-    return out
+    if fs.device.type != "cpu":
+        _cuda.check(fs, "gather_max_slab fs", torch.float32, (B, N, C))
+        _cuda.check(index, "gather_max_slab index", torch.int32, (B, S, K))
+    return off_blk
 
 
 def slab_cover(index: torch.Tensor, off_blk: torch.Tensor, win: int,
@@ -570,3 +618,21 @@ def gather_max_slab_plain(fs, index, off_blk, win, spw, chunk: int = 512):
         out.append(torch.where(c[..., None], group_points(fs, i),
                                neg).amax(2))
     return torch.cat(out, 1)
+
+
+def gather_max_slab_argmax_plain(fs, index, off_blk, win, spw,
+                                 chunk: int = 512):
+    """Plain PyTorch version of K9's argmax form: the first maximal covered
+    slot's row; (-1e38, 0) for a query with no covered slot."""
+    cover = slab_cover(index, off_blk, win, spw)
+    neg = torch.tensor(-_BIG, dtype=fs.dtype, device=fs.device)
+    pooled, winner = [], []
+    for i, c in zip(torch.split(index, chunk, 1),
+                    torch.split(cover, chunk, 1)):
+        g = torch.where(c[..., None], group_points(fs, i), neg)
+        am = torch.argmax(g, dim=2, keepdim=True)
+        rows = torch.gather(
+            i.long()[..., None].expand(-1, -1, -1, g.shape[-1]), 2, am)
+        pooled.append(torch.gather(g, 2, am)[:, :, 0])
+        winner.append(torch.where(c.any(-1)[..., None], rows[:, :, 0], 0))
+    return torch.cat(pooled, 1), torch.cat(winner, 1).to(torch.int32)

@@ -1,0 +1,147 @@
+"""Optimizer, train step and eval step (JAX ``train/trainer.py``, its
+single-device half; the mesh / ``shard_map`` half is not ported yet).
+
+  * `make_optimizer`: one Adam with two parameter groups (``score_net.*``
+    at ``lr_score``, the heads at ``lr_region``) and the epoch-granular
+    decay ``lr * gamma ** (epoch // lr_step_epochs)``;
+  * `train_step` / `eval_step`: forward, on-device GT matching
+    (``geometry/gt.py``), the losses of the stage, and for training the
+    backward and the update.
+
+Stages mirror the CLI modes: ``"score"`` (stage-1 loss only), ``"region"``
+(stages 1 and 2, refine stage skipped), ``"refine"`` (all three).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from regnet_for_3d_grasping_torch.config import PipelineConfig
+from regnet_for_3d_grasping_torch.geometry.gt import match_centers_to_gt
+from regnet_for_3d_grasping_torch.models.regnet import REGNet, REGNetOutput
+from regnet_for_3d_grasping_torch.train.losses import regnet_losses
+
+STAGES = ("score", "region", "refine")
+
+
+class DeviceBatch(NamedTuple):
+    """Device-side view of `data.SceneBatch` (tensors only)."""
+
+    pc: torch.Tensor          # [B, N, 6]
+    score: torch.Tensor       # [B, N]
+    gt_frames: torch.Tensor   # [B, MG, 3, 4]
+    gt_scores: torch.Tensor   # [B, MG, 3]
+    gt_valid: torch.Tensor    # [B, MG] bool
+
+
+def device_batch(scene_batch, device) -> DeviceBatch:
+    """Host SceneBatch -> DeviceBatch on `device` (drops host-only
+    fields)."""
+    return DeviceBatch(*(torch.from_numpy(getattr(scene_batch, f)).to(device)
+                         for f in DeviceBatch._fields))
+
+
+def learning_rates(cfg: PipelineConfig, epoch: int) -> Tuple[float, float]:
+    """(score lr, region lr) at `epoch`."""
+    tc = cfg.train
+    decay = tc.lr_gamma ** (epoch // tc.lr_step_epochs)
+    return tc.lr_score * decay, tc.lr_region * decay
+
+
+class Optimizer:
+    """Adam (eps 1e-8, no weight decay) over two parameter groups, with the
+    learning rates set from the epoch before every update.  The epoch is
+    ``resume_epoch + updates // steps_per_epoch``, counted in updates made
+    by this object, as the JAX package's schedule counts them."""
+
+    def __init__(self, model: REGNet, cfg: PipelineConfig,
+                 steps_per_epoch: int, resume_epoch: int = 0):
+        self.cfg = cfg
+        self.steps_per_epoch = max(steps_per_epoch, 1)
+        self.resume_epoch = resume_epoch
+        self.updates = 0
+        score, region = [], []
+        for name, p in model.named_parameters():
+            (score if name.startswith("score_net.") else region).append(p)
+        lr_s, lr_r = learning_rates(cfg, resume_epoch)
+        self.adam = torch.optim.Adam(
+            [{"params": score, "lr": lr_s}, {"params": region, "lr": lr_r}],
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+    @property
+    def epoch(self) -> int:
+        return self.resume_epoch + self.updates // self.steps_per_epoch
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for group, lr in zip(self.adam.param_groups,
+                             learning_rates(self.cfg, self.epoch)):
+            group["lr"] = lr
+            # a stage that leaves a head out of the loss still counts the
+            # update for it, with a zero gradient (as the JAX package's
+            # optimizer does), so Adam's bias correction stays in step
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.adam.step()
+        self.updates += 1
+
+
+def make_optimizer(model: REGNet, cfg: PipelineConfig, steps_per_epoch: int,
+                   resume_epoch: int = 0) -> Optimizer:
+    return Optimizer(model, cfg, steps_per_epoch, resume_epoch)
+
+
+def _check_stage(cfg: PipelineConfig, stage: str) -> None:
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}; one of {STAGES}")
+    if stage == "refine" and cfg.region.refine_iters != 1:
+        # the stage-3 residual loss targets (gt - stage-2 proposal); with
+        # iterated refinement the last residual is relative to an
+        # intermediate grasp
+        raise ValueError("training requires region.refine_iters == 1 "
+                         "(iterative refinement is inference-only)")
+
+
+def forward_losses(model: REGNet, batch: DeviceBatch, stage: str,
+                   **forward_kw) -> Tuple[REGNetOutput, torch.Tensor, Dict]:
+    """Forward, GT matching and the losses of `stage` -> (output, total
+    loss, metrics)."""
+    cfg = model.cfg
+    out = model(batch.pc, with_refine=stage == "refine", **forward_kw)
+    grasp_gt, matched = match_centers_to_gt(
+        out.centers[..., :3], batch.gt_frames, batch.gt_scores,
+        batch.gt_valid, cfg.region.gt_match_dist2)
+    total, metrics = regnet_losses(
+        out, batch.score, grasp_gt, matched, cfg,
+        with_stage2=stage in ("region", "refine"),
+        with_stage3=stage == "refine")
+    return out, total, metrics
+
+
+def train_step(model: REGNet, optimizer: Optimizer, batch: DeviceBatch,
+               stage: str = "refine", **forward_kw) -> Dict[str, torch.Tensor]:
+    """One update in training mode; returns the (detached) metrics.
+    `forward_kw` goes to `REGNet.forward`: the generators, or explicit
+    seeds."""
+    _check_stage(model.cfg, stage)
+    model.train()
+    optimizer.zero_grad()
+    _, total, metrics = forward_losses(model, batch, stage, **forward_kw)
+    total.backward()
+    optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def eval_step(model: REGNet, batch: DeviceBatch, stage: str = "refine",
+              **forward_kw) -> Tuple[REGNetOutput, Dict[str, torch.Tensor]]:
+    """Forward and losses in eval mode, no update."""
+    _check_stage(model.cfg, stage)
+    model.eval()
+    out, _, metrics = forward_losses(model, batch, stage, **forward_kw)
+    return out, metrics

@@ -1,4 +1,5 @@
-"""JAX weights to a PyTorch state_dict (JAX ``utils/checkpoint.py:94-109``).
+"""JAX weights to a PyTorch state_dict and back (JAX
+``utils/checkpoint.py:84-109``).
 
 The npz files under ``weights/`` hold flax variables under '/'-joined
 paths (``params/...`` and ``batch_stats/...``) plus ``__epoch__``.  The
@@ -9,6 +10,8 @@ port's modules carry the same names, so the mapping is per leaf:
   batch_stats/<path>/mean, var          -> <path>.running_mean, running_var
 
 Every array must be used exactly once and every state_dict entry filled.
+`state_dict_to_jax` is the inverse, and `write_npz` writes the layout of the
+JAX package's ``export_weights_npz``, so a model trained here loads there.
 """
 
 from __future__ import annotations
@@ -58,6 +61,34 @@ def jax_to_state_dict(arrays: dict) -> dict:
             raise KeyError(f"weight {tkey!r} given twice")
         out[tkey] = t
     return out
+
+
+def state_dict_to_jax(state_dict: dict) -> dict:
+    """{'a.b.weight': tensor, ...} -> {'params/a/b/kernel': array, ...}:
+    the inverse of `jax_to_state_dict`.  A ``weight`` is a dense kernel
+    (transposed back to [in, out]) when it has two axes and a BatchNorm
+    scale when it has one.  The arrays keep the tensors' dtype."""
+    out = {}
+    for key, t in state_dict.items():
+        *path, name = key.split(".")
+        a = t.detach().cpu().numpy()
+        if name == "weight":
+            coll, leaf = "params", "kernel" if a.ndim == 2 else "scale"
+            a = a.T if a.ndim == 2 else a
+        elif name == "bias":
+            coll, leaf = "params", "bias"
+        elif name in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", name.removeprefix("running_")
+        else:
+            raise KeyError(f"unexpected state_dict entry {key!r}")
+        out["/".join([coll, *path, leaf])] = np.ascontiguousarray(a)
+    return out
+
+
+def write_npz(path: str | os.PathLike, model: nn.Module, epoch: int) -> None:
+    """Write `model`'s weights as the JAX package's weight npz."""
+    np.savez_compressed(path, __epoch__=np.asarray(epoch, np.int32),
+                        **state_dict_to_jax(model.state_dict()))
 
 
 def load_into(model: nn.Module, weights) -> int | None:

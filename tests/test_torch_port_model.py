@@ -88,7 +88,7 @@ def test_real_convbn_matches_flax():
               "batch_stats": variables["batch_stats"]["grn_head"]["stem"]}
     x = np.random.RandomState(1).randn(3, 50, 256).astype(np.float32)
     ref = JConvBN(1024).apply(params, jnp.asarray(x))
-    layer = ConvBN(256, 1024)
+    layer = ConvBN(256, 1024).eval()
     weights.load_into(layer, params)
     np.testing.assert_allclose(layer(torch.from_numpy(x)).detach().numpy(),
                                np.asarray(ref), **TOL)
@@ -122,7 +122,7 @@ def test_backbone_matches_flax_at_tiny_config(tiny_variables):
     pc, variables = tiny_variables
     sv = {c: variables[c]["score_net"] for c in variables}
     ref_feat, ref_score = JScoreNet(jtiny().model).apply(sv, jnp.asarray(pc))
-    model = ScoreNet(tiny_config().model)
+    model = ScoreNet(tiny_config().model).eval()
     weights.load_into(model, sv)
     with torch.no_grad():
         feat, score = model(torch.from_numpy(pc))
@@ -179,8 +179,9 @@ def slice_run(tiny_variables):
         model = REGNet(tiny_config())
         weights.load_into(model, variables)
         model.eval()
-        out = model(torch.from_numpy(pc), group_seeds=seeds["group"],
-                    crop_seeds=seeds["crop"])
+        with torch.no_grad():
+            out = model(torch.from_numpy(pc), group_seeds=seeds["group"],
+                        crop_seeds=seeds["crop"])
     finally:
         mp.undo()
     return ref, out
