@@ -11,9 +11,11 @@ result unless every phase passed):
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
-   slab-sorted cloud) and, for the grouping kernel K11 and the argmax and
-   backward forms of the pools K4 and K9, of the training paths (12 clouds,
-   64 centers), with their median times, a bound computed from the
+   slab-sorted cloud) and, for K1 (at every shape the serving and training
+   paths launch, and at its edge cases, with the cluster size chosen for
+   each), the grouping kernel K11 and the argmax and backward forms of the
+   pools K4 and K9, of the training paths (12 clouds, 64 centers), with
+   their median times, a bound computed from the
    shapes (for the slab kernels from the pairs their span tables scan and
    the pairs that pass), and a library call where one computes the same
    function.  K6-K8 are timed, like their plain versions, on a span table
@@ -83,6 +85,26 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median device time of one call with the host ahead of the card: a
+    sleep kernel holds the queue while the call is enqueued, so the events
+    leave out the host's own time, which `cuda_ms` counts for a call the
+    card runs faster than the host issues it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -201,7 +223,9 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
             "bytes": (touched * feature.shape[-1] * feature.element_size()
                       + nbytes(index, *got)),
             "ops": index.numel() * feature.shape[-1],
-            "library_ms": cuda_ms(lib_f, 10)})
+            "library_ms": cuda_ms(lib_f, 10),
+            "device_ms": device_ms(lambda: argmax(feature, index, *extra), 10),
+            "library_device_ms": device_ms(lib_f, 10)})
         rows_b.append({
             "shape": label, "max_abs_err": max_err(df, df_plain),
             "ms": cuda_ms(lambda: pooling.scatter_winner(g, win, n_points),
@@ -223,7 +247,86 @@ def record_rows(record, name, src, replaces, rows) -> None:
                     | {"bound_ms": bound(r["bytes"], r["ops"])[0]})
     record(name, src, replaces, first["max_abs_err"], first["ms"],
            first["plain_ms"], first["bytes"], first["ops"],
-           first.get("library_ms"), also=also or None, shape=first["shape"])
+           first.get("library_ms"), also=also or None, shape=first["shape"],
+           **{k: first[k] for k in ("device_ms", "library_device_ms")
+              if k in first})
+
+
+def fps_kernels(dev, xyz, record) -> tuple:
+    """Phase 3 for K1: the cluster kernel against `fps_plain` (equal to the
+    bit) at every shape the serving (one cloud) and training (12 clouds)
+    paths launch, and at the edge cases: an N that no cluster size divides,
+    rows whose points are all masked, duplicated points (equal distances in
+    every block of a cluster) and more samples than valid points.  Each
+    shape's cluster size R, time and time per step (ms / S) are recorded
+    beside the bound, and R = 16, 8, 4, 2 are timed apart at the SA1 shape.
+    Returns the SA1 picks and the main shape's extra record fields."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, fps
+    tx = train_clouds(dev)
+    ones = torch.ones(1, N_POINTS, dtype=torch.bool, device=dev)
+
+    def picks(x, s):
+        i = fps.fps(x, fps.dist_init(x, None), s).long()
+        return torch.gather(x, 1, i[..., None].expand(-1, -1, 3)).contiguous()
+
+    sa2, sa2_12 = picks(xyz, 5120), picks(tx, 5120)
+    sa3, sa3_12 = picks(sa2, 1024), picks(sa2_12, 1024)
+    nan_x = xyz.clone()
+    nan_x[..., 0] = float("nan")
+    tiles = xyz[:, :1600].repeat(1, 16, 1).contiguous()
+    few = torch.zeros_like(ones)
+    few[:, ::256] = True
+    cases = [  # (label, xyz, mask, S)
+        ("serving SA1 25600->5120, B=1", xyz, None, 5120),
+        ("serving centers, masked 25600->4000, B=1", xyz,
+         xyz[..., 2] > 0.76, N_CENTERS),
+        ("serving SA2 5120->1024, B=1", sa2, None, 1024),
+        ("serving SA3 1024->256, B=1", sa3, None, 256),
+        ("training SA1 25600->5120, B=12", tx, None, 5120),
+        ("training SA2 5120->1024, B=12", sa2_12, None, 1024),
+        ("training SA3 1024->256, B=12", sa3_12, None, 256),
+        ("training centers, masked 25600->64, B=12", tx, tx[..., 2] > 0.76,
+         TRAIN_CENTERS),
+        ("edge: N=25599, which no cluster size divides",
+         xyz[:, :25599].contiguous(), None, 512),
+        ("edge: a fully masked row (all-valid fallback) and a NaN-x row "
+         "(all -1), B=3", torch.cat([xyz, xyz, nan_x]),
+         torch.cat([xyz[..., 2] > 0.76, ~ones, ones]), 256),
+        ("edge: 1,600 points 16 times over (ties across blocks)", tiles,
+         None, 1024),
+        ("edge: 100 valid points, S=300", xyz, few, 300)]
+    rows = []
+    for label, x, mask, S in cases:
+        dist = fps.dist_init(x, mask)
+        B, N = dist.shape
+        occupancy = fps.max_clusters(x.device, N)
+        R = fps.cluster_size(B, N, occupancy)
+        got, ref = fps.fps(x, dist, S), fps.fps_plain(x, dist, S)
+        check(torch.equal(got, ref), f"K1 fps differs ({label}, R={R})")
+        ms = cuda_ms(lambda: fps.fps(x, dist, S), 5 if not rows else 3)
+        print(f"fps {label}: R={R} (clusters the card holds by size "
+              f"{occupancy}), {ms:.4f} ms, {ms / S * 1e3:.3f} us per step")
+        row = {"shape": label, "cluster": R, "max_abs_err": max_err(got, ref),
+               "ms": ms, "ms_per_step": ms / S,
+               "bytes": nbytes(x, dist, got), "ops": B * S * N * 10}
+        if not rows:
+            sa1 = got
+            row["plain_ms"] = cuda_ms(lambda: fps.fps_plain(x, dist, S), 2)
+        rows.append(row)
+    dist, out, sweep = fps.dist_init(xyz, None), torch.empty_like(sa1), {}
+    for R in (16, 8, 4, 2):
+        def forced():
+            _cuda.launch("fps", dev, xyz, dist, out, 1, N_POINTS, 5120, R)
+
+        forced()
+        check(torch.equal(out, sa1), f"K1 fps differs at R={R}")
+        sweep[R] = cuda_ms(forced, 3)
+    print(f"fps SA1 shape by cluster size, ms: {sweep}")
+    record_rows(record, "fps", CSRC + "fps.cu", JAX_OPS + "fps_pallas.py:260",
+                rows)
+    return sa1, {"cluster": rows[0]["cluster"],
+                 "ms_per_step": rows[0]["ms_per_step"],
+                 "ms_by_cluster_size": sweep}
 
 
 def slab_kernels(dev, xyz, record) -> list:
@@ -453,22 +556,24 @@ def slab_kernels(dev, xyz, record) -> list:
               f"embedding_bag yardstick disagrees with K9 ({label})")
         print(f"gather_max_slab {label}: {int(cover.sum())} covered slots of "
               f"{cover.numel()}, {int((~has).sum())} rows without one")
-        return (max_err(got, ref), cuda_ms(kernel, 20), cuda_ms(plain, 3),
-                nbytes(feature, index, off, got), int(cover.sum()) * 256,
-                cuda_ms(embedding_bag, 20))
+        return {"max_abs_err": max_err(got, ref), "ms": cuda_ms(kernel, 20),
+                "plain_ms": cuda_ms(plain, 3),
+                "bytes": nbytes(feature, index, off, got),
+                "ops": int(cover.sum()) * 256,
+                "library_ms": cuda_ms(embedding_bag, 20),
+                "device_ms": device_ms(kernel, 20),
+                "library_device_ms": device_ms(embedding_bag, 20)}
 
     g_idx = torch.where((groups[2] & (groups[1] > 0))[..., None], groups[0], 0)
-    err, ms, plain_ms, bytes_, ops, lib_ms = k9(
-        g_idx, groups[3], slab.GROUP_WIN, slab.GROUP_SPW, "region pool")
     c_idx = torch.where(crops[2][..., None], crops[0], 0)
-    err_c, ms_c, plain_c, bytes_c, ops_c, lib_c = k9(
-        c_idx, crops[3], slab.CROP_WIN, slab.CROP_SPW, "refine pool")
-    record("gather_max_slab", CSRC + "gather_max_slab.cu",
-           JAX_OPS + "slab.py:1072", err, ms, plain_ms, bytes_, ops, lib_ms,
-           also=[{"shape": "refine pool: 4000 x 64 slots, win 256, spw 1",
-                  "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
-                  "bound_ms": bound(bytes_c, ops_c)[0],
-                  "library_ms": lib_c}])
+    rows = [{"shape": "region pool: 4000 x 256 slots, win 128, spw 4"}
+            | k9(g_idx, groups[3], slab.GROUP_WIN, slab.GROUP_SPW,
+                 "region pool"),
+            {"shape": "refine pool: 4000 x 64 slots, win 256, spw 1"}
+            | k9(c_idx, crops[3], slab.CROP_WIN, slab.CROP_SPW,
+                 "refine pool")]
+    record_rows(record, "gather_max_slab", CSRC + "gather_max_slab.cu",
+                JAX_OPS + "slab.py:1072", rows)
 
     # K9's argmax form and the backward, at the pools of a training batch
     # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
@@ -760,11 +865,13 @@ def main() -> None:
     results = {}
 
     def record(name, source, replaces, err, ms, plain_ms, bytes_, ops,
-               library_ms=None, also=None, wrapper_ms=None, shape=None):
+               library_ms=None, also=None, wrapper_ms=None, shape=None,
+               **device):
         """`also`: the numbers of the kernel's other shapes, where it has
         some on its paths (`shape` then names the first).  `wrapper_ms`: the
         whole call where `ms` times the launch on a span table computed
-        beforehand."""
+        beforehand.  `device`: `device_ms` and `library_device_ms`, the
+        times without the host's (`device_ms`), where they were taken."""
         b_ms, b_by = bound(bytes_, ops)
         results[name] = {
             "name": name, "route": "cuda", "source": source,
@@ -775,29 +882,23 @@ def main() -> None:
             results[name]["wrapper_ms"] = wrapper_ms
         if shape:
             results[name]["shape"] = shape
+        results[name] |= device
         if also:
             results[name]["also"] = also
         print(f"{name}: max_abs_err {err} kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
               + (f", library {library_ms:.4f} ms" if library_ms else "")
-              + (f", whole call {wrapper_ms:.4f} ms" if wrapper_ms else ""))
+              + (f", whole call {wrapper_ms:.4f} ms" if wrapper_ms else "")
+              + "".join(f", {k} {v:.4f}" for k, v in device.items()))
+        for row in also or ():
+            print(f"  {row.get('shape')}: "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in row.items()
+                              if isinstance(v, float)))
 
-    # K1: 25600 -> 5120 unmasked (SA1), and the masked 25600 -> 4000
-    dist = fps.dist_init(xyz, None)
-    got = fps.fps(xyz, dist, 5120)
-    ref = fps.fps_plain(xyz, dist, 5120)
-    check(torch.equal(got, ref), "K1 fps differs from its plain version")
-    mask = xyz[..., 2] > 0.76
-    dist_m = fps.dist_init(xyz, mask)
-    check(torch.equal(fps.fps(xyz, dist_m, N_CENTERS),
-                      fps.fps_plain(xyz, dist_m, N_CENTERS)),
-          "K1 masked fps differs from its plain version")
-    sa1_idx = got.long()
-    record("fps", "regnet_for_3d_grasping_torch/csrc/fps.cu",
-           "regnet_for_3d_grasping_tpu/ops/fps_pallas.py:260",
-           max_err(got, ref), cuda_ms(lambda: fps.fps(xyz, dist, 5120), 5),
-           cuda_ms(lambda: fps.fps_plain(xyz, dist, 5120), 2),
-           nbytes(xyz, dist, got), 5120 * N_POINTS * 10)
+    # K1 at every shape the paths launch and at the edge cases
+    sa1_idx, extra = fps_kernels(dev, xyz, record)
+    results["fps"] |= extra
+    sa1_idx = sa1_idx.long()
 
     # K2: SA1 ball query, 5120 centers, r = 0.02, K = 64, L = 512
     centers = xyz[:, sa1_idx[0]].contiguous()
@@ -838,6 +939,7 @@ def main() -> None:
     # (12 clouds x 64 centers) and of a serving forward (4,000 centers).
     # Operations as K6's: the radius test (9) on every pair, hash and argmax
     # (10) on the pairs in radius, which `count` sums exactly
+    dist_m = fps.dist_init(xyz, xyz[..., 2] > 0.76)
     c4000 = xyz[:, fps.fps(xyz, dist_m, N_CENTERS)[0].long()].contiguous()
     tx = train_clouds(dev)
     picks = fps.fps(tx, fps.dist_init(tx, tx[..., 2] > 0.76), TRAIN_CENTERS)

@@ -4,97 +4,219 @@
 // Replaces: regnet_for_3d_grasping_tpu/ops/slab.py, gather_max_slab
 //   (_gmax_slab_kernel, slab.py:1072).
 // Bound on the H100: memory traffic from L2.  Each output value is a max
-//   over up to K gathered rows (S*K*C floats, 1 GB for the region pool at
-//   4,000 x 256 x 256) where the function's own inputs are 26 MB of
-//   features, which fit the 50 MB L2, and 4 MB of indices.
+//   over the covered rows of its query (at most K, 256 at the region pool
+//   of 4,000 x 256 x 256) where the function's own inputs are 26 MB of
+//   features, which fit the 50 MB L2, and 4 MB of indices; the rows read
+//   again by neighbouring queries come from L2, so the floor is the L2 rate
+//   over the covered rows, and a thread that waits on one load at a time
+//   is bound by the L2's latency instead.
 // Design: the TPU kernel fetches, per tile and span block, a 2,048-row
 //   window of features and picks rows out of it with one-hot matrix products
 //   over a 3-way bf16 split, because the TPU has no fast gather; a slot whose
 //   row lies outside its own window gets an all-zero one-hot and so drops
 //   out.  Here it is a direct gather that keeps that cover rule, since the
 //   rule decides the result for rows with no pick (they pool to -1e38) and
-//   for partly filled rows: one block per (batch, query) marks the covered
-//   slots in shared memory once, and each thread owns channels c,
-//   c + blockDim, ... and loops over the covered rows, so every row read is
-//   coalesced along c.  The result is bit-exact (a max of copied values).
-//   Training uses the argmax form (slab.py:996-1014), which also writes the
-//   winner's source row: the lowest covered slot holding the maximum, 0 for
-//   a row with no covered slot.  Its backward is the scatter kernel of
-//   gather_max.cu.
+//   for partly filled rows.  One block of 256 threads per (batch, query):
+//   first it compacts the query's cover into a dense list of rows in shared
+//   memory, in slot order (ballot and prefix count per warp), keeping a row
+//   that the slot before repeats once, as padded regions do, since a max
+//   over copies is the same max; then the block splits into row groups of
+//   C/4 threads, each thread owning four channels read as one 16-byte load,
+//   each group taking every fourth row of the list with four row loads in
+//   flight, and the groups' maxima are combined in shared memory.  No
+//   thread walks an uncovered slot.  The result is bit-exact (a max of
+//   copied values).  Training uses the argmax form (slab.py:996-1014),
+//   which also writes the winner's source row: the lowest covered slot
+//   holding the maximum (a group keeps its first maximal list position, the
+//   combination the lowest position among equal maxima, and the list keeps
+//   slot order with the first of repeated rows), 0 for a row with no
+//   covered slot.  Its backward is the scatter kernel of gather_max.cu.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
+constexpr int kThreads = 256;
 constexpr int kTile = 128;    // queries per tile (one `off` each)
 constexpr int kScan = 2048;   // rows per scan block
+constexpr int kUnroll = 4;    // row loads in flight per thread
 constexpr float kBig = 1e38f;
 
-__global__ void gather_max_slab_kernel(const float* __restrict__ feature,
-                                       const int32_t* __restrict__ index,
-                                       const int32_t* __restrict__ off_blk,
-                                       float* __restrict__ out, int n,
-                                       int c_total, int s_total, int k_total,
-                                       int win, int spw) {
-  extern __shared__ int s_row[];  // [K] covered row, or -1
-  const int b = blockIdx.y, s = blockIdx.x;
-  const size_t row = (size_t)b * s_total + s;
-  const int tiles = (s_total + kTile - 1) / kTile;
-  const int off = off_blk[(size_t)b * tiles + s / kTile];
-  const int rps = (kScan / win) * spw;  // slots per scan block
-  for (int k = threadIdx.x; k < k_total; k += blockDim.x) {
-    const int r = index[row * k_total + k];
-    const int base = (off + k / rps) * kScan + (k % rps) / spw * win;
-    s_row[k] = (r >= base && r < base + win && r < n) ? r : -1;
-  }
-  __syncthreads();
-  feature += (size_t)b * n * c_total;
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    float m = -kBig;
-    for (int k = 0; k < k_total; ++k) {
-      const int r = s_row[k];
-      if (r < 0) continue;
-      const float v = feature[(size_t)r * c_total + c];
-      if (v > m || v != v) m = v;
+template <int V, typename T>
+struct alignas(4 * V) Vec {
+  T v[V];
+};
+
+// Slot k's row when it lies in the slot's own window, else -1.
+__device__ __forceinline__ int covered_row(const int32_t* idx, int k, int off,
+                                           int rps, int spw, int win, int n) {
+  const int r = idx[k];
+  const int base = (off + k / rps) * kScan + (k % rps) / spw * win;
+  return (r >= base && r < base + win && r < n) ? r : -1;
+}
+
+// Writes the covered rows of one query's K slots, in slot order, a row
+// repeated by the slot before it once, to s_list; returns their count.
+__device__ int compact_cover(const int32_t* idx, int off, int rps, int spw,
+                             int win, int n, int k_total, int* s_list,
+                             int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int k0 = 0; k0 < k_total; k0 += blockDim.x) {
+    const int k = k0 + threadIdx.x;
+    const int r = k < k_total ? covered_row(idx, k, off, rps, spw, win, n) : -1;
+    const int prev = (k > 0 && k < k_total)
+                         ? covered_row(idx, k - 1, off, rps, spw, win, n)
+                         : -1;
+    const bool keep = r >= 0 && r != prev;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = total, after = total;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      after += s_warp[w];
     }
-    out[row * c_total + c] = m;
+    if (keep) s_list[before + __popc(ballot & ((1u << lane) - 1))] = r;
+    total = after;
+    __syncthreads();
+  }
+  return total;
+}
+
+// Folds value v at list position i into (m, p): plain max (NaN wins and
+// stays) or, for the argmax form, the first strict maximum.
+template <bool kArgmax>
+__device__ __forceinline__ void take(float& m, int& p, float v, int i) {
+  if (kArgmax) {
+    if (v > m) {
+      m = v;
+      p = i;
+    }
+  } else if (v > m || v != v) {
+    m = v;
   }
 }
 
-__global__ void gather_max_slab_argmax_kernel(
-    const float* __restrict__ feature, const int32_t* __restrict__ index,
-    const int32_t* __restrict__ off_blk, float* __restrict__ out,
-    int32_t* __restrict__ winner, int n, int c_total, int s_total,
-    int k_total, int win, int spw) {
-  extern __shared__ int s_row[];  // [K] covered row, or -1
+// Grid (S, B), kThreads threads; V channels per thread and load (4 when C
+// is a multiple of 4 and the arrays are 16-byte aligned, else 1).
+template <int V, bool kArgmax>
+__global__ void __launch_bounds__(kThreads)
+gather_max_slab_kernel(const float* __restrict__ feature,
+                       const int32_t* __restrict__ index,
+                       const int32_t* __restrict__ off_blk,
+                       float* __restrict__ out, int32_t* __restrict__ winner,
+                       int n, int c_total, int s_total, int k_total, int win,
+                       int spw) {
+  using FV = Vec<V, float>;
+  using IV = Vec<V, int>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  FV* s_max = reinterpret_cast<FV*>(smem);              // [kThreads]
+  IV* s_pos = reinterpret_cast<IV*>(s_max + kThreads);  // [kThreads]
+  int* s_list = reinterpret_cast<int*>(s_pos + (kArgmax ? kThreads : 0));
+  __shared__ int s_warp[kThreads / 32];
+
   const int b = blockIdx.y, s = blockIdx.x;
   const size_t row = (size_t)b * s_total + s;
   const int tiles = (s_total + kTile - 1) / kTile;
   const int off = off_blk[(size_t)b * tiles + s / kTile];
-  const int rps = (kScan / win) * spw;  // slots per scan block
-  for (int k = threadIdx.x; k < k_total; k += blockDim.x) {
-    const int r = index[row * k_total + k];
-    const int base = (off + k / rps) * kScan + (k % rps) / spw * win;
-    s_row[k] = (r >= base && r < base + win && r < n) ? r : -1;
-  }
-  __syncthreads();
-  feature += (size_t)b * n * c_total;
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    float m = -kBig;
-    int w = 0;
-    for (int k = 0; k < k_total; ++k) {
-      const int r = s_row[k];
-      if (r < 0) continue;
-      const float v = feature[(size_t)r * c_total + c];
-      if (v > m) {
-        m = v;
-        w = r;
+  const int cnt = compact_cover(index + row * k_total, off,
+                                (kScan / win) * spw, spw, win, n, k_total,
+                                s_list, s_warp);
+
+  // thread -> (row group g, channel vector j); groups > 1 only when one
+  // pass covers every vector, so the loop below then runs once
+  const int cols = c_total / V;
+  const int cols_t = cols < kThreads ? cols : kThreads;
+  const int groups = kThreads / cols_t;
+  const int g = threadIdx.x / cols_t;
+  const FV* f = reinterpret_cast<const FV*>(feature + (size_t)b * n * c_total);
+  for (int j = threadIdx.x % cols_t; j < cols; j += cols_t) {
+    FV m;
+    IV p;
+    for (int e = 0; e < V; ++e) {
+      m.v[e] = -kBig;
+      p.v[e] = INT_MAX;
+    }
+    if (g < groups) {
+      int i = g;
+      for (; i + (kUnroll - 1) * groups < cnt; i += kUnroll * groups) {
+        FV v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          v[u] = f[(size_t)s_list[i + u * groups] * cols + j];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            take<kArgmax>(m.v[e], p.v[e], v[u].v[e], i + u * groups);
+      }
+      for (; i < cnt; i += groups) {
+        const FV v = f[(size_t)s_list[i] * cols + j];
+#pragma unroll
+        for (int e = 0; e < V; ++e) take<kArgmax>(m.v[e], p.v[e], v.v[e], i);
       }
     }
-    out[row * c_total + c] = m;
-    winner[row * c_total + c] = w;
+    if (groups > 1) {
+      s_max[threadIdx.x] = m;
+      if (kArgmax) s_pos[threadIdx.x] = p;
+      __syncthreads();
+      if (g == 0) {
+        for (int h = 1; h < groups; ++h) {
+          const FV o = s_max[h * cols_t + j];
+          IV q;
+          if (kArgmax) q = s_pos[h * cols_t + j];
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            if (kArgmax) {
+              if (o.v[e] > m.v[e] ||
+                  (o.v[e] == m.v[e] && q.v[e] < p.v[e])) {
+                m.v[e] = o.v[e];
+                p.v[e] = q.v[e];
+              }
+            } else if (o.v[e] > m.v[e] || o.v[e] != o.v[e]) {
+              m.v[e] = o.v[e];
+            }
+          }
+        }
+      }
+    }
+    if (g == 0) {
+      reinterpret_cast<FV*>(out + row * c_total)[j] = m;
+      if (kArgmax) {
+        IV w;
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          w.v[e] = p.v[e] == INT_MAX ? 0 : s_list[p.v[e]];
+        reinterpret_cast<IV*>(winner + row * c_total)[j] = w;
+      }
+    }
   }
+}
+
+template <bool kArgmax>
+int launch(const float* feature, const int32_t* index,
+           const int32_t* off_blk, float* out, int32_t* winner, int batch,
+           int n, int c_total, int s_total, int k_total, int win, int spw,
+           cudaStream_t stream) {
+  const bool vec4 = c_total % 4 == 0 &&
+                    ((uintptr_t)feature | (uintptr_t)out |
+                     (uintptr_t)winner) % 16 == 0;
+  const int v = vec4 ? 4 : 1;
+  const size_t smem = (size_t)kThreads * v * 4 * (kArgmax ? 2 : 1) +
+                      (size_t)k_total * sizeof(int);
+  const dim3 grid(s_total, batch);
+  auto kernel = vec4 ? gather_max_slab_kernel<4, kArgmax>
+                     : gather_max_slab_kernel<1, kArgmax>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, stream>>>(feature, index, off_blk, out,
+                                           winner, n, c_total, s_total,
+                                           k_total, win, spw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -109,11 +231,8 @@ extern "C" int regnet_gather_max_slab(const float* feature,
                                       int batch, int n, int c_total,
                                       int s_total, int k_total, int win,
                                       int spw, cudaStream_t stream) {
-  const int threads = c_total < 256 ? ((c_total + 31) / 32) * 32 : 256;
-  dim3 grid(s_total, batch);
-  gather_max_slab_kernel<<<grid, threads, k_total * sizeof(int), stream>>>(
-      feature, index, off_blk, out, n, c_total, s_total, k_total, win, spw);
-  return (int)cudaGetLastError();
+  return launch<false>(feature, index, off_blk, out, nullptr, batch, n,
+                       c_total, s_total, k_total, win, spw, stream);
 }
 
 // The same, and winner [B, S, C] int32: the row of the lowest covered slot
@@ -122,11 +241,6 @@ extern "C" int regnet_gather_max_slab_argmax(
     const float* feature, const int32_t* index, const int32_t* off_blk,
     float* out, int32_t* winner, int batch, int n, int c_total, int s_total,
     int k_total, int win, int spw, cudaStream_t stream) {
-  const int threads = c_total < 256 ? ((c_total + 31) / 32) * 32 : 256;
-  dim3 grid(s_total, batch);
-  gather_max_slab_argmax_kernel<<<grid, threads, k_total * sizeof(int),
-                                  stream>>>(feature, index, off_blk, out,
-                                            winner, n, c_total, s_total,
-                                            k_total, win, spw);
-  return (int)cudaGetLastError();
+  return launch<true>(feature, index, off_blk, out, winner, batch, n,
+                      c_total, s_total, k_total, win, spw, stream);
 }

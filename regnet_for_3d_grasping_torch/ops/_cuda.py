@@ -39,7 +39,7 @@ _P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # kernel name -> (source, C entry point, argtypes); every entry point
 # returns the cudaGetLastError() after its launch, and takes the stream last
 SIGNATURES = {
-    "fps": ("fps", "regnet_fps", (_P, _P, _P, _I, _I, _I, _P)),
+    "fps": ("fps", "regnet_fps", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "fps_grouped": ("fps", "regnet_fps_grouped",
                     (_P, _P, _P, _I, _I, _I, _I, _P)),
     "ball_query": ("ball_query", "regnet_ball_query",
@@ -70,6 +70,9 @@ SIGNATURES = {
         "gather_max_slab", "regnet_gather_max_slab_argmax",
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
+# C entry points that launch nothing (occupancy queries), not counted;
+# each returns its answer, or minus the CUDA error
+QUERIES = {"fps_max_clusters": ("fps", "regnet_fps_max_clusters", (_I, _I))}
 KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
@@ -138,7 +141,7 @@ def _fn(name: str):
         with _lock:
             build()
             libs = {src: ctypes.CDLL(str(_lib_path(src))) for src in SOURCES}
-            for n, (src, sym, argtypes) in SIGNATURES.items():
+            for n, (src, sym, argtypes) in (SIGNATURES | QUERIES).items():
                 f = getattr(libs[src], sym)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
@@ -153,13 +156,29 @@ def launch(name: str, device: torch.device, *args) -> None:
     fn = _fn(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*cargs, stream)
+    # the raw stream, and a device switch only when `device` is not the
+    # current one: a Stream object and a device context cost the host
+    # more than many of these kernels take on the card
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    cargs.append(torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        rc = fn(*cargs)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*cargs)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
     launches[name] += 1
+
+
+def query(name: str, device: torch.device, *args) -> int:
+    """The answer of the query `name` on `device` for int `args` (minus
+    the CUDA error where there is none)."""
+    fn = _fn(name)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,
@@ -170,8 +189,8 @@ def check(t: torch.Tensor, what: str, dtype: torch.dtype,
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, t.shape)):
+    if t.shape != shape and (t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape))):
         raise ValueError(f"{what}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():

@@ -5,17 +5,27 @@ or K10 `fps_grouped` for the stratified ``groups > 1`` form) and to the
 plain version `fps_plain` on a CPU tensor.  The JAX scan path and its
 Pallas kernels agree bit for bit (``fps_pallas.py:80-82``, ``:189-191``),
 so this routes every size through the kernels.
+
+K1 runs each cloud on a thread-block cluster of R blocks, each holding a
+contiguous chunk of the cloud in shared memory; `cluster_size` picks R.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from regnet_for_3d_grasping_torch.ops import _cuda
 
 _INF = 1e10
-# shared memory a block can use on the H100, less the kernel's static part
-_MAX_SMEM_POINTS = (232448 - 1024) // 4
+# shared memory a block can use on the H100, less the kernels' static part
+_SMEM = 232448 - 2048
+_MAX_SMEM_POINTS = _SMEM // 4       # K10: a slice's distance field
+_MAX_BLOCK_POINTS = _SMEM // 16     # K1: a chunk's x, y, z and distance
+CLUSTER_SIZES = (16, 8, 4, 2, 1)    # 16 is the H100's non-portable size
+# fewer points than this per block only add records to the exchange
+_MIN_BLOCK_POINTS = 64
+_max_clusters_cache: dict = {}
 
 
 def dist_init(xyz: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -58,18 +68,60 @@ def farthest_point_sample(xyz: torch.Tensor, num_samples: int,
 def fps(xyz: torch.Tensor, dist: torch.Tensor,
         num_samples: int) -> torch.Tensor:
     """Kernel K1: xyz [B, N, 3] f32, dist [B, N] sentinel field ->
-    [B, S] int32.  CPU tensors take `fps_plain`."""
+    [B, S] int32, each cloud on a cluster of `cluster_size` blocks.  CPU
+    tensors take `fps_plain`."""
     if xyz.device.type == "cpu":
         return fps_plain(xyz, dist, num_samples)
     B, N, _ = xyz.shape
     _cuda.check(xyz, "fps xyz", torch.float32, (B, N, 3))
     _cuda.check(dist, "fps dist", torch.float32, (B, N))
-    if not 0 < N <= _MAX_SMEM_POINTS or num_samples < 1:
-        raise ValueError(f"fps: N={N} must be in (0, {_MAX_SMEM_POINTS}] "
-                         f"and S={num_samples} positive")
+    if N < 1 or num_samples < 1:
+        raise ValueError(f"fps: N={N} and S={num_samples} must be positive")
+    cluster = cluster_size(B, N, max_clusters(xyz.device, N))
     out = torch.empty(B, num_samples, dtype=torch.int32, device=xyz.device)
-    _cuda.launch("fps", xyz.device, xyz, dist, out, B, N, num_samples)
+    _cuda.launch("fps", xyz.device, xyz, dist, out, B, N, num_samples,
+                 cluster)
     return out
+
+
+def max_clusters(device: torch.device, n: int) -> dict:
+    """{R: how many K1 clusters of R blocks over `n` points the card holds
+    at once}, from the CUDA occupancy calculator (minus the CUDA error for
+    a size it refuses, as one whose chunk exceeds a block's shared memory);
+    cached per device and `n`."""
+    key = (device.index, n)
+    if key not in _max_clusters_cache:
+        _max_clusters_cache[key] = {
+            r: _cuda.query("fps_max_clusters", device, n, r)
+            for r in CLUSTER_SIZES}
+    return _max_clusters_cache[key]
+
+
+def cluster_size(batch: int, n: int, occupancy: dict) -> int:
+    """K1's blocks per cloud for `batch` clouds of `n` points on a card that
+    holds `occupancy` {R: clusters of R blocks at once}.  Of the sizes whose
+    chunks fit a block's shared memory and hold at least `_MIN_BLOCK_POINTS`
+    points (any size for R = 1), the one that needs the fewest waves of
+    clusters, the largest on a tie: the largest R whose `batch` clusters
+    are all co-resident, when there is one."""
+    fits = [r for r in CLUSTER_SIZES
+            if -(-n // r) <= _MAX_BLOCK_POINTS
+            and (r == 1 or n // r >= _MIN_BLOCK_POINTS)
+            and occupancy.get(r, 0) > 0]
+    if not fits:
+        raise ValueError(f"fps: no cluster size launches {batch} clouds of "
+                         f"N={n} points (occupancy {occupancy})")
+    return min(fits, key=lambda r: (-(-batch // occupancy[r]), -r))
+
+
+def fps_key(value, index) -> np.ndarray:
+    """Twin of ``csrc/fps.cu`` `fps_key`: the uint64 key that orders
+    (distance descending, index ascending) as K1's argmax does: the f32
+    bits mapped to unsigned order above the complemented index."""
+    u = np.asarray(value, np.float32).view(np.uint32).astype(np.uint64)
+    u = np.where(u & 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    low = ~np.asarray(index, np.int64) & 0xFFFFFFFF
+    return (u << np.uint64(32)) | low.astype(np.uint64)
 
 
 def fps_grouped(xyz: torch.Tensor, dist: torch.Tensor, num_samples: int,
