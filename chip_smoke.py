@@ -294,7 +294,9 @@ def fps_kernels(dev, xyz, record) -> tuple:
          torch.cat([xyz[..., 2] > 0.76, ~ones, ones]), 256),
         ("edge: 1,600 points 16 times over (ties across blocks)", tiles,
          None, 1024),
-        ("edge: 100 valid points, S=300", xyz, few, 300)]
+        ("edge: 100 valid points, S=300", xyz, few, 300),
+        ("edge: 10 points, fewer than blocks, S=12",
+         xyz[:, :10].contiguous(), None, 12)]
     rows = []
     for label, x, mask, S in cases:
         dist = fps.dist_init(x, mask)
@@ -556,9 +558,14 @@ def slab_kernels(dev, xyz, record) -> list:
               f"embedding_bag yardstick disagrees with K9 ({label})")
         print(f"gather_max_slab {label}: {int(cover.sum())} covered slots of "
               f"{cover.numel()}, {int((~has).sum())} rows without one")
+        # bytes: the feature rows the covered slots touch, not all of them
+        touched = torch.unique(flat_idx).numel()
+        print(f"gather_max_slab {label}: {touched} of {N_POINTS} feature "
+              f"rows touched")
         return {"max_abs_err": max_err(got, ref), "ms": cuda_ms(kernel, 20),
                 "plain_ms": cuda_ms(plain, 3),
-                "bytes": nbytes(feature, index, off, got),
+                "bytes": (touched * feature.shape[-1] * feature.element_size()
+                          + nbytes(index, off, got)),
                 "ops": int(cover.sum()) * 256,
                 "library_ms": cuda_ms(embedding_bag, 20),
                 "device_ms": device_ms(kernel, 20),
@@ -574,6 +581,16 @@ def slab_kernels(dev, xyz, record) -> list:
                  "refine pool")]
     record_rows(record, "gather_max_slab", CSRC + "gather_max_slab.cu",
                 JAX_OPS + "slab.py:1072", rows)
+    # the kernel reads 4 channels a load: the wrapper refuses a C that is
+    # not a multiple of 4 and features that are not 16-byte aligned
+    shifted = torch.empty(feature.numel() + 1, device=dev)[1:]
+    for bad in (feature[..., :255].contiguous(), shifted.view(feature.shape)):
+        try:
+            slab.gather_max_slab(bad, g_idx, groups[3], slab.GROUP_WIN,
+                                 slab.GROUP_SPW)
+        except ValueError:
+            continue
+        check(False, "K9 took features it cannot read 4 channels a load")
 
     # K9's argmax form and the backward, at the pools of a training batch
     # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
@@ -850,6 +867,14 @@ def main() -> None:
     spent = _cuda.build()
     print(f"build: {time.perf_counter() - t0:.2f}s "
           f"({', '.join(f'{k} {v:.1f}s' for k, v in spent.items())})")
+    # the launches take the current stream through torch's private raw
+    # stream query: it must name the stream torch's public API names
+    side = torch.cuda.Stream(dev)
+    for s in (torch.cuda.current_stream(dev), side):
+        with torch.cuda.stream(s):
+            check(_cuda.raw_stream(torch.cuda.current_device())
+                  == s.cuda_stream,
+                  "the raw stream is not torch's current stream")
 
     # --- 3. each kernel against its plain version --------------------------
     from regnet_for_3d_grasping_torch.geometry import region
@@ -1008,7 +1033,9 @@ def main() -> None:
            "regnet_for_3d_grasping_tpu/ops/pooling.py:216", max_err(got, ref),
            cuda_ms(lambda: pooling.gather_max(feature, index), 20),
            cuda_ms(lambda: pooling.gather_max_plain(feature, index), 5),
-           nbytes(feature, index, got), index.numel() * 256,
+           # the feature rows that the indices touch, not all of them
+           torch.unique(index).numel() * 256 * feature.element_size()
+           + nbytes(index, got), index.numel() * 256,
            cuda_ms(embedding_bag, 20))
 
     # K4's argmax form and the backward, at the pools of a training batch

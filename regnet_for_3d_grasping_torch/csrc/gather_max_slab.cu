@@ -42,10 +42,11 @@ constexpr int kThreads = 256;
 constexpr int kTile = 128;    // queries per tile (one `off` each)
 constexpr int kScan = 2048;   // rows per scan block
 constexpr int kUnroll = 4;    // row loads in flight per thread
+constexpr int V = 4;          // channels per thread and 16-byte load
 constexpr float kBig = 1e38f;
 
-template <int V, typename T>
-struct alignas(4 * V) Vec {
+template <typename T>
+struct alignas(16) Vec {
   T v[V];
 };
 
@@ -100,9 +101,9 @@ __device__ __forceinline__ void take(float& m, int& p, float v, int i) {
   }
 }
 
-// Grid (S, B), kThreads threads; V channels per thread and load (4 when C
-// is a multiple of 4 and the arrays are 16-byte aligned, else 1).
-template <int V, bool kArgmax>
+// Grid (S, B), kThreads threads; C a multiple of V and the arrays 16-byte
+// aligned (the launch refuses anything else).
+template <bool kArgmax>
 __global__ void __launch_bounds__(kThreads)
 gather_max_slab_kernel(const float* __restrict__ feature,
                        const int32_t* __restrict__ index,
@@ -110,8 +111,8 @@ gather_max_slab_kernel(const float* __restrict__ feature,
                        float* __restrict__ out, int32_t* __restrict__ winner,
                        int n, int c_total, int s_total, int k_total, int win,
                        int spw) {
-  using FV = Vec<V, float>;
-  using IV = Vec<V, int>;
+  using FV = Vec<float>;
+  using IV = Vec<int>;
   extern __shared__ __align__(16) unsigned char smem[];
   FV* s_max = reinterpret_cast<FV*>(smem);              // [kThreads]
   IV* s_pos = reinterpret_cast<IV*>(s_max + kThreads);  // [kThreads]
@@ -201,15 +202,13 @@ int launch(const float* feature, const int32_t* index,
            const int32_t* off_blk, float* out, int32_t* winner, int batch,
            int n, int c_total, int s_total, int k_total, int win, int spw,
            cudaStream_t stream) {
-  const bool vec4 = c_total % 4 == 0 &&
-                    ((uintptr_t)feature | (uintptr_t)out |
-                     (uintptr_t)winner) % 16 == 0;
-  const int v = vec4 ? 4 : 1;
-  const size_t smem = (size_t)kThreads * v * 4 * (kArgmax ? 2 : 1) +
+  if (c_total % V != 0 ||
+      ((uintptr_t)feature | (uintptr_t)out | (uintptr_t)winner) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kThreads * V * 4 * (kArgmax ? 2 : 1) +
                       (size_t)k_total * sizeof(int);
   const dim3 grid(s_total, batch);
-  auto kernel = vec4 ? gather_max_slab_kernel<4, kArgmax>
-                     : gather_max_slab_kernel<1, kArgmax>;
+  auto kernel = gather_max_slab_kernel<kArgmax>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -221,8 +220,9 @@ int launch(const float* feature, const int32_t* index,
 
 }  // namespace
 
-// feature [B, N, C] f32, index [B, S, K] int32, off_blk [B, ceil(S/128)]
-// int32 -> out [B, S, C]: the max over the slots k whose row lies in the
+// feature [B, N, C] f32 (C a multiple of 4, 16-byte aligned, as out and
+// winner), index [B, S, K] int32, off_blk [B, ceil(S/128)] int32 ->
+// out [B, S, C]: the max over the slots k whose row lies in the
 // slot's own window [(off + k / rps) * 2048 + (k % rps) / spw * win, + win),
 // -1e38 where no slot is covered.
 extern "C" int regnet_gather_max_slab(const float* feature,

@@ -150,19 +150,26 @@ def _fn(name: str):
     return fn
 
 
+def raw_stream(index: int) -> int:
+    """The handle of the current stream of card `index`.  torch's private
+    ``_cuda_getCurrentRawStream`` (checked against torch 2.11+cu128, and
+    against the public ``current_stream().cuda_stream`` by
+    ``chip_smoke.py``) builds no Stream object, which costs the host more
+    than many of these kernels take on the card."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel `name` on `device`'s current stream with `args`
     (tensors are passed as device pointers)."""
     fn = _fn(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    # the raw stream, and a device switch only when `device` is not the
-    # current one: a Stream object and a device context cost the host
-    # more than many of these kernels take on the card
-    index = device.index if device.index is not None else (
-        torch.cuda.current_device())
-    cargs.append(torch._C._cuda_getCurrentRawStream(index))
-    if index == torch.cuda.current_device():
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    cargs.append(raw_stream(index))
+    # a device context only when `device` is not the current one
+    if index == current:
         rc = fn(*cargs)
     else:
         with torch.cuda.device(index):
@@ -189,8 +196,8 @@ def check(t: torch.Tensor, what: str, dtype: torch.dtype,
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
-    if t.shape != shape and (t.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, t.shape))):
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{what}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():

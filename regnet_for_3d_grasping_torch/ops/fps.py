@@ -23,8 +23,6 @@ _SMEM = 232448 - 2048
 _MAX_SMEM_POINTS = _SMEM // 4       # K10: a slice's distance field
 _MAX_BLOCK_POINTS = _SMEM // 16     # K1: a chunk's x, y, z and distance
 CLUSTER_SIZES = (16, 8, 4, 2, 1)    # 16 is the H100's non-portable size
-# fewer points than this per block only add records to the exchange
-_MIN_BLOCK_POINTS = 64
 _max_clusters_cache: dict = {}
 
 
@@ -99,19 +97,16 @@ def max_clusters(device: torch.device, n: int) -> dict:
 
 def cluster_size(batch: int, n: int, occupancy: dict) -> int:
     """K1's blocks per cloud for `batch` clouds of `n` points on a card that
-    holds `occupancy` {R: clusters of R blocks at once}.  Of the sizes whose
-    chunks fit a block's shared memory and hold at least `_MIN_BLOCK_POINTS`
-    points (any size for R = 1), the one that needs the fewest waves of
-    clusters, the largest on a tie: the largest R whose `batch` clusters
-    are all co-resident, when there is one."""
+    holds `occupancy` {R: clusters of R blocks at once}.  Of the sizes that
+    launch (a chunk fits a block's shared memory, the card holds at least
+    one cluster), the largest whose `batch` clusters are all co-resident,
+    else the largest.  A block whose chunk is empty offers no candidate."""
     fits = [r for r in CLUSTER_SIZES
-            if -(-n // r) <= _MAX_BLOCK_POINTS
-            and (r == 1 or n // r >= _MIN_BLOCK_POINTS)
-            and occupancy.get(r, 0) > 0]
+            if -(-n // r) <= _MAX_BLOCK_POINTS and occupancy.get(r, 0) > 0]
     if not fits:
         raise ValueError(f"fps: no cluster size launches {batch} clouds of "
                          f"N={n} points (occupancy {occupancy})")
-    return min(fits, key=lambda r: (-(-batch // occupancy[r]), -r))
+    return next((r for r in fits if occupancy[r] >= batch), fits[0])
 
 
 def fps_key(value, index) -> np.ndarray:

@@ -592,6 +592,10 @@ def _check_gmax_slab(fs, index, off_blk, win, spw) -> torch.Tensor:
     if fs.device.type != "cpu":
         _cuda.check(fs, "gather_max_slab fs", torch.float32, (B, N, C))
         _cuda.check(index, "gather_max_slab index", torch.int32, (B, S, K))
+        if C % 4 or fs.data_ptr() % 16:
+            raise ValueError(f"gather_max_slab: the kernel reads 4 channels "
+                             f"a load: C={C} must be a multiple of 4 and fs "
+                             f"16-byte aligned")
     return off_blk
 
 

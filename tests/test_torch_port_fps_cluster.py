@@ -35,16 +35,16 @@ TWO_PER_SM = {16: 16, 8: 32, 4: 66, 2: 132, 1: 264}
     (1, 25600, ONE_PER_SM, 16),      # serving SA1 and the centers
     (1, 5120, ONE_PER_SM, 16),       # serving SA2
     (1, 1024, ONE_PER_SM, 16),       # serving SA3: chunks of 64
-    (1, 512, ONE_PER_SM, 8),         # chunks of 64 at least
+    (1, 512, ONE_PER_SM, 16),
     (12, 25600, ONE_PER_SM, 8),      # training: 12 x 16 blocks do not fit
     (12, 25600, TWO_PER_SM, 16),     # ... unless two blocks share an SM
     (12, 5120, ONE_PER_SM, 8),
     (12, 1024, TWO_PER_SM, 16),
     (1, 25600, {16: -1, 8: 16, 4: 33, 2: 66}, 8),   # 16 refused
-    (40, 25600, ONE_PER_SM, 2),      # fewest waves: 40 clusters of 2 fit
-    (40, 25600, TWO_PER_SM, 4),
-    (200, 25600, ONE_PER_SM, 2),     # 2 waves of R=2 beat 4 of R=8
-    (1, 40, ONE_PER_SM, 1),          # too small to split
+    (12, 25600, {16: 4, 8: 8, 4: 16, 2: 33, 1: 66}, 4),
+    (12, 25600, {16: 4, 8: 8, 4: 8, 2: 8, 1: -1}, 16),  # none holds 12
+    (12, 25600, {16: -1, 8: 8, 4: 8, 2: 8, 1: -1}, 8),
+    (1, 10, ONE_PER_SM, 16),         # fewer points than blocks
     (1, 25601, ONE_PER_SM, 16),      # N that no R divides
 ])
 def test_cluster_size(batch, n, occupancy, want):
@@ -130,6 +130,9 @@ def fps_case(name: str):
     elif name == "exhausted":
         mask = np.zeros((3, N), bool)    # S beyond the valid count
         mask[:, [3, 11, 19, 20, 33]] = True
+    elif name == "tiny":
+        xyz = np.ascontiguousarray(xyz[:, :10])  # fewer points than R = 16
+        S = 12
     return xyz, mask, S
 
 
@@ -142,7 +145,7 @@ def jax_fps(name: str) -> np.ndarray:
 
 @pytest.mark.parametrize("R", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("name", ["unmasked", "duplicates", "masked",
-                                  "exhausted"])
+                                  "exhausted", "tiny"])
 def test_cluster_decomposition_matches_plain_and_jax(name, R):
     xyz, mask, S = fps_case(name)
     d = fps.dist_init(torch.from_numpy(xyz),
