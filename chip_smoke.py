@@ -11,16 +11,20 @@ result unless every phase passed):
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
-   slab-sorted cloud) and, for K1 (at every shape the serving and training
-   paths launch, and at its edge cases, with the cluster size chosen for
-   each), the grouping kernel K11 and the argmax and backward forms of the
-   pools K4 and K9, of the training paths (12 clouds, 64 centers), with
-   their median times, a bound computed from the
-   shapes (for the slab kernels from the pairs their span tables scan and
-   the pairs that pass), and a library call where one computes the same
-   function.  K6-K8 are timed, like their plain versions, on a span table
-   computed beforehand, which is the work the bound counts; the whole call
-   with its span table, fill and certificate is ``wrapper_ms``.  And once, on a
+   slab-sorted cloud) and, for K1 and K10 (at every shape the serving and
+   training paths launch, and at their edge cases, with the cluster size
+   chosen for each, and every cluster size timed apart at the main
+   shapes), K6 and K7, the grouping kernel K11 and the argmax and backward
+   forms of the pools K4 and K9, of the training paths (12 clouds, 64
+   centers), with their median times, a bound computed from the shapes
+   (for the slab kernels from the pairs their span tables scan and the
+   pairs that pass), and a library call where one computes the same
+   function.  A K6 or K7 call (span table, selection, fill) is held against
+   ``slab_bounds``, the plain selection and ``finish_select``, span table
+   included, and its device activities are counted with ``torch.profiler``
+   (at most 3); K8 is timed on a span table computed beforehand, which is
+   the work the bound counts, and its whole call with its span table and
+   certificate is ``wrapper_ms``.  And once, on a
    cloud scaled past the slab 3-NN's bound, the refused certificate and the
    FP layer's fallback to the full scan (``--kernels-only`` stops here);
 4. the full-scan path: the port's infer CLI on 3 tabletop clouds with the
@@ -134,11 +138,11 @@ def all_equal(got, ref) -> bool:
 
 def scanned_pairs(ss: torch.Tensor, m: int, tile: int, scan: int,
                   n: int) -> int:
-    """(query, row) pairs a span table scans: per tile its real queries
-    times the rows of its blocks [start, stop)."""
-    start, stop = ss[0, :, 0].long(), ss[0, :, 1].long()
+    """(query, row) pairs a span table [B, T, >=2] scans: per tile its real
+    queries times the rows of its blocks [start, stop)."""
+    start, stop = ss[..., 0].long(), ss[..., 1].long()
     rows = torch.clamp(stop * scan, max=n) - start * scan
-    queries = torch.clamp(m - torch.arange(len(rows), device=ss.device)
+    queries = torch.clamp(m - torch.arange(rows.shape[-1], device=ss.device)
                           * tile, max=tile)
     return int((rows * queries).sum())
 
@@ -238,9 +242,15 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
     return rows_b
 
 
+ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bytes", "ops",
+            "library_ms", "device_ms", "library_device_ms")
+
+
 def record_rows(record, name, src, replaces, rows) -> None:
     """One record from per-shape rows: the first is the main path's shape,
-    the others go under ``also`` with their own bounds."""
+    the others go under ``also`` with their own bounds.  The first row's
+    other fields (cluster size, sweeps, launches per call) are kept as
+    they are."""
     first, also = rows[0], []
     for r in rows[1:]:
         also.append({k: v for k, v in r.items() if k not in ("bytes", "ops")}
@@ -248,20 +258,21 @@ def record_rows(record, name, src, replaces, rows) -> None:
     record(name, src, replaces, first["max_abs_err"], first["ms"],
            first["plain_ms"], first["bytes"], first["ops"],
            first.get("library_ms"), also=also or None, shape=first["shape"],
+           extra={k: v for k, v in first.items() if k not in ROW_KEYS},
            **{k: first[k] for k in ("device_ms", "library_device_ms")
               if k in first})
 
 
-def fps_kernels(dev, xyz, record) -> tuple:
+def fps_kernels(dev, xyz, record) -> torch.Tensor:
     """Phase 3 for K1: the cluster kernel against `fps_plain` (equal to the
     bit) at every shape the serving (one cloud) and training (12 clouds)
     paths launch, and at the edge cases: an N that no cluster size divides,
     rows whose points are all masked, duplicated points (equal distances in
     every block of a cluster) and more samples than valid points.  Each
     shape's cluster size R, time and time per step (ms / S) are recorded
-    beside the bound, and R = 16, 8, 4, 2 are timed apart at the SA1 shape.
-    Returns the SA1 picks and the main shape's extra record fields."""
-    from regnet_for_3d_grasping_torch.ops import _cuda, fps
+    beside the bound, and every R whose chunk fits a block is timed apart at
+    the three serving shapes (`cluster_sweep`).  Returns the SA1 picks."""
+    from regnet_for_3d_grasping_torch.ops import fps
     tx = train_clouds(dev)
     ones = torch.ones(1, N_POINTS, dtype=torch.bool, device=dev)
 
@@ -314,21 +325,182 @@ def fps_kernels(dev, xyz, record) -> tuple:
         if not rows:
             sa1 = got
             row["plain_ms"] = cuda_ms(lambda: fps.fps_plain(x, dist, S), 2)
+        if label.startswith("serving SA"):
+            row["ms_by_cluster_size"] = cluster_sweep(
+                "fps", label, x, dist, got, B, N, S)
         rows.append(row)
-    dist, out, sweep = fps.dist_init(xyz, None), torch.empty_like(sa1), {}
-    for R in (16, 8, 4, 2):
-        def forced():
-            _cuda.launch("fps", dev, xyz, dist, out, 1, N_POINTS, 5120, R)
-
-        forced()
-        check(torch.equal(out, sa1), f"K1 fps differs at R={R}")
-        sweep[R] = cuda_ms(forced, 3)
-    print(f"fps SA1 shape by cluster size, ms: {sweep}")
     record_rows(record, "fps", CSRC + "fps.cu", JAX_OPS + "fps_pallas.py:260",
                 rows)
-    return sa1, {"cluster": rows[0]["cluster"],
-                 "ms_per_step": rows[0]["ms_per_step"],
-                 "ms_by_cluster_size": sweep}
+    return sa1
+
+
+def cluster_sweep(kernel, label, x, dist, got, B, N, S, *groups) -> dict:
+    """{R: ms} of K1 (`kernel` "fps") or K10 ("fps_grouped", `groups` the
+    slices) forced to every cluster size R whose chunk fits a block, each
+    run equal to `got`."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, fps
+    out, sweep = torch.empty_like(got), {}
+    n = N // groups[0] if groups else N
+    for r in fps.CLUSTER_SIZES:
+        if -(-n // r) > fps._MAX_BLOCK_POINTS:
+            continue
+
+        def forced():
+            _cuda.launch(kernel, x.device, x, dist, out, B, N, S, *groups, r)
+
+        forced()
+        check(torch.equal(out, got), f"{kernel} differs at R={r} ({label})")
+        sweep[r] = cuda_ms(forced, 10)
+    print(f"{kernel} {label} by cluster size, ms: {sweep}")
+    return sweep
+
+
+def kernel_profile(calls: dict, reps: int = 5) -> dict:
+    """{label: (device activities per call, {kernel name: device ms per
+    call})} of the functions `calls` {label: fn}, each called `reps` times
+    inside its own ``record_function`` range under one torch.profiler
+    session (the card's events of a range are those that start inside it:
+    each range ends with a synchronize).  Every kernel launch and every
+    copy or memset that a call puts on the card counts."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in calls.items():
+            with record_function(label):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    # the card's events, less the ranges' own annotations on the card
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in calls]
+    out = {}
+    for label in calls:
+        rng = next(e.time_range for e in events if e.name == label)
+        names = {}
+        inside = [e for e in device
+                  if rng.start <= e.time_range.start <= rng.end]
+        for e in inside:
+            m = re.search(r"::(\w+_kernel)", e.name)
+            key = m.group(1) if m else e.name[:60]
+            names[key] = names.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+        out[label] = (len(inside) / reps,
+                      {k: v / reps for k, v in names.items()})
+    return out
+
+
+def select_case(name, label, sc, call, plain, public, inputs, test_ops
+                ) -> tuple:
+    """Phase 3 for one K6 or K7 shape: `call` (the selection and its span
+    table) against `plain` (the same from `slab_bounds`, the plain
+    selection and `finish_select`), indices, counts, masks, offsets and the
+    span table exact, and the public wrapper equal to both; times of the
+    call, with and without the host, and of the plain version.  The bound
+    counts `test_ops` per scanned pair and 10 per passing pair (hash and
+    argmax).  Returns (the outputs, the record row, the public call), the
+    last for `select_launches`."""
+    from regnet_for_3d_grasping_torch.ops import slab
+    got, ref = call(), plain()
+    check(torch.equal(got[4], ref[4]), f"{name}: the card's span table "
+          f"differs from slab_bounds ({label})")
+    check(all_equal(got, ref) and all_equal(public(), ref[:4]),
+          f"{name} differs from its plain version ({label})")
+    check(torch.equal(got[4][..., 2], got[3]), f"{name}: off_blk is not the "
+          f"span table's origin column ({label})")
+    M, N = got[0].shape[1], sc.xyz.shape[1]
+    pairs = scanned_pairs(got[4], M, 128, 2048, N)
+    passing = int(got[1].sum())
+    print(f"{name} {label}: {pairs} pairs scanned of "
+          f"{got[0].shape[0] * M * N}, {passing} passing, "
+          f"{int(got[2].sum())} rows with a pick")
+    row = {"shape": label, "max_abs_err": max_err(got, ref),
+           "ms": cuda_ms(public, 20), "plain_ms": cuda_ms(plain, 3),
+           "device_ms": device_ms(public, 20),
+           "bytes": nbytes(sc.xyz, sc.cell_row, *inputs, *got),
+           "ops": pairs * test_ops + passing * 10}
+    return got[:4], row, public
+
+
+def select_launches(cases: dict) -> None:
+    """The device activities of one K6 or K7 call, at every shape of
+    `cases` {label: (record row, public call)}, from one profiler session:
+    the three launches (span table, selection, fill) and nothing else,
+    each kernel's device time added to the row."""
+    prof = kernel_profile({label: fn for label, (_, fn) in cases.items()})
+    for label, (row, _) in cases.items():
+        n_act, per_kernel = prof[label]
+        print(f"{label}: {n_act:g} device activities a call, device ms "
+              f"{per_kernel}")
+        check(n_act == 3 and "slab_select_kernel" in per_kernel,
+              f"{n_act} device activities in one call ({label}), expected "
+              f"the 3 launches of the span table, selection and fill: "
+              f"{per_kernel}")
+        row["launches_per_call"] = n_act
+        row["kernel_device_ms"] = per_kernel
+
+
+def fps_grouped_kernels(dev, sx, record) -> tuple:
+    """Phase 3 for K10, K1's cluster kernel over the slices: against
+    `fps_grouped_plain` (equal to the bit) at the two serving shapes (SA1,
+    25,600 -> 5,120, and the masked centers, -> 4,000; 8 slices of 3,200
+    points), at slab training's SA1 (12 sorted clouds, 96 slices) and at the
+    edge cases: a slice whose points are all masked (it falls back to
+    all-valid on its own) and slices of fewer points than blocks.  Each
+    shape's cluster size R, time and time per step are recorded, and every
+    R is timed apart at both serving shapes and the training one.  Returns
+    the SA1 and centers picks and the training batch in slab order."""
+    from regnet_for_3d_grasping_torch.ops import fps, slab
+    G, L = FPS_GROUPS, N_POINTS // FPS_GROUPS
+    _, sc12 = slab.sort_cloud(train_clouds(dev), SLAB_CELL,
+                              generator=torch.Generator().manual_seed(11))
+    z = sx[..., 2] > 0.76
+    holes = z.clone()
+    holes[:, 2 * L:3 * L] = False           # slice 2: no valid point
+    cases = [  # (label, xyz, mask, S)
+        ("serving SA1 25600->5120, B=1, G=8", sx, None, 5120),
+        ("serving centers, masked 25600->4000, B=1, G=8", sx, z, N_CENTERS),
+        ("training SA1 25600->5120, B=12, G=8 (96 slices)", sc12.xyz, None,
+         5120),
+        ("edge: a slice with every point masked, ->4000", sx, holes,
+         N_CENTERS),
+        ("edge: 8 slices of 10 points, fewer than blocks, S=96",
+         sx[:, :80].contiguous(), None, 96)]
+    rows, picks = [], []
+    for label, x, mask, S in cases:
+        B, N, _ = x.shape
+        dist = fps.dist_init(x.reshape(B * G, N // G, 3),
+                             None if mask is None
+                             else mask.reshape(B * G, N // G)).reshape(B, N)
+        occupancy = fps.max_clusters(x.device, N // G)
+        R = fps.cluster_size(B * G, N // G, occupancy)
+        got = fps.fps_grouped(x, dist, S, G)
+        ref = fps.fps_grouped_plain(x, dist, S, G)
+        check(torch.equal(got, ref), f"K10 grouped fps differs ({label}, "
+              f"R={R})")
+        ms = cuda_ms(lambda: fps.fps_grouped(x, dist, S, G), 10)
+        print(f"fps_grouped {label}: R={R} (clusters the card holds by size "
+              f"{occupancy}), {ms:.4f} ms, {ms / (S // G) * 1e3:.3f} us per "
+              f"step")
+        row = {"shape": label, "cluster": R, "max_abs_err": max_err(got, ref),
+               "ms": ms, "ms_per_step": ms / (S // G),
+               "bytes": nbytes(x, dist, got), "ops": B * S * (N // G) * 10}
+        if len(rows) < 2:
+            picks.append(got)
+            row["plain_ms"] = cuda_ms(
+                lambda: fps.fps_grouped_plain(x, dist, S, G), 2)
+        if len(rows) < 3:
+            row["ms_by_cluster_size"] = cluster_sweep(
+                "fps_grouped", label, x, dist, got, B, N, S, G)
+        rows.append(row)
+    record_rows(record, "fps_grouped", CSRC + "fps.cu",
+                JAX_OPS + "fps_pallas.py:211", rows)
+    return picks[0], picks[1], sc12
 
 
 def slab_kernels(dev, xyz, record) -> list:
@@ -347,115 +519,104 @@ def slab_kernels(dev, xyz, record) -> list:
         order = torch.sort(t[..., 0], dim=-1, stable=True).indices
         return t[:, order[0]].contiguous()
 
-    # K10: SA1 shape (unmasked 25,600 -> 5,120) and centers shape (masked
-    # 25,600 -> 4,000), 8 slices of 3,200 points
-    dist = fps.dist_init(sx.reshape(G, L, 3), None).reshape(1, N_POINTS)
-    got = fps.fps_grouped(sx, dist, 5120, G)
-    ref = fps.fps_grouped_plain(sx, dist, 5120, G)
-    check(torch.equal(got, ref), "K10 grouped fps differs (SA1 shape)")
-    sa1 = got
-    mask = sx[..., 2] > 0.76
-    dist_m = fps.dist_init(sx.reshape(G, L, 3),
-                           mask.reshape(G, L)).reshape(1, N_POINTS)
-    got_m = fps.fps_grouped(sx, dist_m, N_CENTERS, G)
-    check(torch.equal(got_m, fps.fps_grouped_plain(sx, dist_m, N_CENTERS, G)),
-          "K10 grouped fps differs (masked centers shape)")
-    record("fps_grouped", CSRC + "fps.cu", JAX_OPS + "fps_pallas.py:211",
-           max_err(got, ref),
-           cuda_ms(lambda: fps.fps_grouped(sx, dist, 5120, G), 10),
-           cuda_ms(lambda: fps.fps_grouped_plain(sx, dist, 5120, G), 2),
-           nbytes(sx, dist, got), 5120 // G * N_POINTS * 10,
-           also=[{"shape": "masked 25600->4000, G=8",
-                  "ms": cuda_ms(lambda: fps.fps_grouped(
-                      sx, dist_m, N_CENTERS, G), 10)}])
+    sa1, got_m, sc12 = fps_grouped_kernels(dev, sx, record)
 
     # K6: the SA1 ball query (5,120 x-sorted centroids, r 0.02, K 64, win
-    # 256, spw 2, distinct) and the region grouping (4,000 x-sorted centers,
-    # r 0.008, K 256, win 128, spw 4).  Operations: the radius test (9) on
-    # every scanned pair; the hash (8) and its place in the window's argmax
-    # (2) only on the pairs that pass, which `count` sums exactly
-    def k6(centers, seed, radius, K, win, spw, distinct, label):
-        ss = slab.select_spans(sc, centers, radius, SLAB_CELL, K, win, spw)
+    # 256, spw 2, distinct), the region grouping (4,000 x-sorted centers,
+    # r 0.008, K 256, win 128, spw 4) and the grouping of a slab training
+    # batch (12 sorted clouds, 64 x-sorted centers each).  Operations: the
+    # radius test (9) on every scanned pair; the hash (8) and its place in
+    # the window's argmax (2) only on the pairs that pass, which `count`
+    # sums exactly
+    def k6(sc_, centers, seed, radius, K, win, spw, distinct, label):
         r2 = float(np.float32(float(radius) ** 2))
 
+        def call():
+            return slab.group_slab_with_spans(sc_, centers, seed, radius, K,
+                                              SLAB_CELL, win, spw, distinct)
+
         def plain():
-            return slab.finish_select(*slab.group_slab_plain(
-                sx, centers, ss, seed, r2, K, win, spw, distinct), ss)
+            ss = slab.select_spans(sc_, centers, radius, SLAB_CELL, K, win,
+                                   spw)
+            return (*slab.finish_select(*slab.group_slab_plain(
+                sc_.xyz, centers, ss, seed, r2, K, win, spw, distinct), ss),
+                    ss)
 
-        def kernel():
-            return slab.finish_select(*slab.group_slab_spans(
-                sx, centers, ss, seed, r2, K, win, spw, distinct), ss)
-
-        def wrapper():
-            return slab.group_slab(sc, centers, seed, radius, K, SLAB_CELL,
+        def public():
+            return slab.group_slab(sc_, centers, seed, radius, K, SLAB_CELL,
                                    win, spw, distinct)
 
-        got, ref = kernel(), plain()
-        check(all_equal(got, ref) and all_equal(wrapper(), ref),
-              f"K6 group_slab differs ({label})")
-        pairs = scanned_pairs(ss, centers.shape[1], 128, 2048, N_POINTS)
-        passing = int(got[1].sum())
-        print(f"group_slab {label}: {pairs} pairs scanned of "
-              f"{centers.shape[1] * N_POINTS}, {passing} in radius, "
-              f"{int(got[2].sum())} rows with a pick")
-        return (got, max_err(got[:2], ref[:2]), cuda_ms(kernel, 20),
-                cuda_ms(plain, 3), nbytes(sx, centers, ss, *got),
-                pairs * 9 + passing * 10, cuda_ms(wrapper, 20))
+        return select_case("group_slab", label, sc_, call, plain, public,
+                           (centers,), 9)
 
+    picks12 = fps.fps(sc12.xyz, fps.dist_init(sc12.xyz, None), TRAIN_CENTERS)
+    check(torch.equal(picks12, fps.fps_plain(
+        sc12.xyz, fps.dist_init(sc12.xyz, None), TRAIN_CENTERS)),
+        "K1 fps differs at batch 12")
+    c12 = torch.gather(sc12.xyz, 1,
+                       picks12.long()[..., None].expand(-1, -1, 3))
+    c12 = torch.gather(c12, 1, torch.sort(
+        c12[..., 0], dim=-1, stable=True).indices[..., None].expand(
+            -1, -1, 3)).contiguous()
     centroids = x_sorted(sx[:, sa1[0].long()])
     c4000 = x_sorted(sx[:, got_m[0].long()])
-    _, err_b, ms_b, plain_b, bytes_b, ops_b, wrap_b = k6(
-        centroids, 0x5A1B, 0.02, 64, slab.BALL_WIN, slab.BALL_SPW, True,
-        "SA1 geometry")
-    groups, err, ms, plain_ms, bytes_, ops, wrap = k6(
-        c4000, 21, 0.008, 256, slab.GROUP_WIN, slab.GROUP_SPW, False,
-        "region geometry")
-    record("group_slab", src, JAX_OPS + "slab.py:425", err, ms, plain_ms,
-           bytes_, ops, wrapper_ms=wrap, also=[{
-               "shape": "SA1 ball query: 5120 centroids, K=64, distinct",
-               "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-               "bound_ms": bound(bytes_b, ops_b)[0], "wrapper_ms": wrap_b}])
+    calls = {}
+    groups, *calls["group_slab: region grouping"] = k6(
+        sc, c4000, 21, 0.008, 256, slab.GROUP_WIN, slab.GROUP_SPW, False,
+        "region grouping: 4000 centers, K=256, win 128, spw 4")
+    _, *calls["group_slab: SA1"] = k6(
+        sc, centroids, 0x5A1B, 0.02, 64, slab.BALL_WIN, slab.BALL_SPW, True,
+        "SA1 ball query: 5120 centroids, K=64, win 256, spw 2, distinct")
+    g12, *calls["group_slab: training"] = k6(
+        sc12, c12, 31, 0.008, 256, slab.GROUP_WIN, slab.GROUP_SPW, False,
+        "region grouping, training: 12 x 64 centers")
 
-    # K7: crop of 4,000 proposals around those centers.  Operations: the
-    # frame transform and box test (22) on every scanned pair, hash and
-    # argmax (10) on the pairs inside the box
-    gen = torch.Generator().manual_seed(8)
-    axis = torch.nn.functional.normalize(
-        torch.randn(1, N_CENTERS, 3, generator=gen), dim=-1).to(dev)
-    theta = ((torch.rand(1, N_CENTERS, 1, generator=gen) * 2 - 1)
-             * np.pi).to(dev)
-    frames, bases = grasps_to_frames(torch.cat([c4000, axis, theta], -1))
-    frames, bases = frames.contiguous(), bases.contiguous()
+    # K7: crop of 4,000 proposals around those centers, and of the 12 x 64
+    # proposals of a training batch.  Operations: the frame transform and
+    # box test (22) on every scanned pair, hash and argmax (10) on the pairs
+    # inside the box
     box = (0.0, 0.03, 0.04, 0.005)
     box32 = tuple(float(np.float32(v)) for v in box)
-    ss = slab.select_spans(sc, bases, slab.crop_bound(box), SLAB_CELL, 64,
-                           slab.CROP_WIN, slab.CROP_SPW)
-    f9 = frames.reshape(1, N_CENTERS, 9)
 
-    def crop_plain():
-        return slab.finish_select(*slab.crop_slab_plain(
-            sx, f9, bases, ss, 12345, box32, 64), ss)
+    def k7(sc_, centers, seed, gen_seed, label):
+        B, M = centers.shape[:2]
+        gen = torch.Generator().manual_seed(gen_seed)
+        axis = torch.nn.functional.normalize(
+            torch.randn(B, M, 3, generator=gen), dim=-1).to(dev)
+        theta = ((torch.rand(B, M, 1, generator=gen) * 2 - 1)
+                 * np.pi).to(dev)
+        frames, bases = grasps_to_frames(torch.cat([centers, axis, theta],
+                                                   -1))
+        frames, bases = frames.contiguous(), bases.contiguous()
+        f9 = frames.reshape(B, M, 9)
 
-    def crop_kernel():
-        return slab.finish_select(*slab.crop_slab_spans(
-            sx, f9, bases, ss, 12345, box32, 64), ss)
+        def call():
+            return slab.crop_slab_with_spans(sc_, frames, bases, seed, box,
+                                             64, SLAB_CELL)
 
-    def crop_wrapper():
-        return slab.crop_slab(sc, frames, bases, 12345, box, 64, SLAB_CELL)
+        def plain():
+            ss = slab.select_spans(sc_, bases, slab.crop_bound(box),
+                                   SLAB_CELL, 64, slab.CROP_WIN,
+                                   slab.CROP_SPW)
+            return (*slab.finish_select(*slab.crop_slab_plain(
+                sc_.xyz, f9, bases, ss, seed, box32, 64), ss), ss)
 
-    crops, ref = crop_kernel(), crop_plain()
-    check(all_equal(crops, ref) and all_equal(crop_wrapper(), ref),
-          "K7 crop_slab differs")
-    pairs = scanned_pairs(ss, N_CENTERS, 128, 2048, N_POINTS)
-    inside = int(crops[1].sum())
-    print(f"crop_slab: {pairs} pairs scanned of {N_CENTERS * N_POINTS}, "
-          f"{inside} inside points, "
-          f"{int(((crops[1] > 5) & crops[2]).sum())} valid proposals")
-    record("crop_slab", src, JAX_OPS + "slab.py:425", max_err(crops[:2],
-                                                              ref[:2]),
-           cuda_ms(crop_kernel, 20), cuda_ms(crop_plain, 3),
-           nbytes(sx, frames, bases, ss, *crops), pairs * 22 + inside * 10,
-           wrapper_ms=cuda_ms(crop_wrapper, 20))
+        def public():
+            return slab.crop_slab(sc_, frames, bases, seed, box, 64,
+                                  SLAB_CELL)
+
+        return select_case("crop_slab", label, sc_, call, plain, public,
+                           (frames, bases), 22)
+
+    crops, *calls["crop_slab: crop"] = k7(
+        sc, c4000, 12345, 8, "crop: 4000 proposals, K=64, win 256, spw 1")
+    k12, *calls["crop_slab: training"] = k7(
+        sc12, c12, 32, 12, "crop, training: 12 x 64 proposals")
+    select_launches(calls)
+    for name in ("group_slab", "crop_slab"):
+        record_rows(record, name, src, JAX_OPS + "slab.py:425",
+                    [row for label, (row, _) in calls.items()
+                     if label.startswith(name)])
 
     # K8: FP3, 25,600 sorted queries against the 5,120 x-sorted centroids,
     # with the bounded spans (the default) and the flat ones
@@ -596,37 +757,6 @@ def slab_kernels(dev, xyz, record) -> list:
     # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
     # indices, held against their plain versions at this batch too) and at
     # the 4,000-center region pool
-    tx = train_clouds(dev)
-    _, sc12 = slab.sort_cloud(tx, SLAB_CELL,
-                              generator=torch.Generator().manual_seed(11))
-    picks = fps.fps(sc12.xyz, fps.dist_init(sc12.xyz, None), TRAIN_CENTERS)
-    check(torch.equal(picks, fps.fps_plain(
-        sc12.xyz, fps.dist_init(sc12.xyz, None), TRAIN_CENTERS)),
-        "K1 fps differs at batch 12")
-    c12 = torch.gather(sc12.xyz, 1, picks.long()[..., None].expand(-1, -1, 3))
-    c12 = torch.gather(c12, 1, torch.sort(
-        c12[..., 0], dim=-1, stable=True).indices[..., None].expand(
-            -1, -1, 3)).contiguous()
-    ss = slab.select_spans(sc12, c12, 0.008, SLAB_CELL, 256, slab.GROUP_WIN,
-                           slab.GROUP_SPW)
-    r2 = float(np.float32(0.008 ** 2))
-    g12 = slab.group_slab(sc12, c12, 31, 0.008, 256, SLAB_CELL)
-    check(all_equal(g12, slab.finish_select(*slab.group_slab_plain(
-        sc12.xyz, c12, ss, 31, r2, 256, slab.GROUP_WIN, slab.GROUP_SPW,
-        False), ss)), "K6 group_slab differs at batch 12")
-    gen = torch.Generator().manual_seed(12)
-    axis = torch.nn.functional.normalize(
-        torch.randn(TRAIN_B, TRAIN_CENTERS, 3, generator=gen), dim=-1).to(dev)
-    theta = ((torch.rand(TRAIN_B, TRAIN_CENTERS, 1, generator=gen) * 2 - 1)
-             * np.pi).to(dev)
-    fr12, base12 = grasps_to_frames(torch.cat([c12, axis, theta], -1))
-    fr12, base12 = fr12.contiguous(), base12.contiguous()
-    ss = slab.select_spans(sc12, base12, slab.crop_bound(box), SLAB_CELL, 64,
-                           slab.CROP_WIN, slab.CROP_SPW)
-    k12 = slab.crop_slab(sc12, fr12, base12, 32, box, 64, SLAB_CELL)
-    check(all_equal(k12, slab.finish_select(*slab.crop_slab_plain(
-        sc12.xyz, fr12.reshape(TRAIN_B, TRAIN_CENTERS, 9), base12, ss, 32,
-        box32, 64), ss)), "K7 crop_slab differs at batch 12")
     print(f"training batch in slab order: {int(g12[1].sum())} points in "
           f"radius, {int((g12[2] & (g12[1] > 0)).sum())} of "
           f"{TRAIN_B * TRAIN_CENTERS} regions with a pick, "
@@ -644,7 +774,8 @@ def slab_kernels(dev, xyz, record) -> list:
     return pool_kernels(
         record, "gather_max_slab_argmax", CSRC + "gather_max_slab.cu",
         JAX_OPS + "slab.py:1072", slab.gather_max_slab_argmax,
-        slab.gather_max_slab_argmax_plain, cases, N_POINTS, slab.slab_cover)
+        slab.gather_max_slab_argmax_plain, cases, N_POINTS,
+        slab.slab_cover)
 
 
 def serve(argv_extra, tmp, label):
@@ -891,12 +1022,13 @@ def main() -> None:
 
     def record(name, source, replaces, err, ms, plain_ms, bytes_, ops,
                library_ms=None, also=None, wrapper_ms=None, shape=None,
-               **device):
+               extra=None, **device):
         """`also`: the numbers of the kernel's other shapes, where it has
         some on its paths (`shape` then names the first).  `wrapper_ms`: the
         whole call where `ms` times the launch on a span table computed
-        beforehand.  `device`: `device_ms` and `library_device_ms`, the
-        times without the host's (`device_ms`), where they were taken."""
+        beforehand (K8).  `extra`: other fields of the main shape, kept as
+        they are.  `device`: `device_ms` and `library_device_ms`, the times
+        without the host's (`device_ms`), where they were taken."""
         b_ms, b_by = bound(bytes_, ops)
         results[name] = {
             "name": name, "route": "cuda", "source": source,
@@ -907,7 +1039,7 @@ def main() -> None:
             results[name]["wrapper_ms"] = wrapper_ms
         if shape:
             results[name]["shape"] = shape
-        results[name] |= device
+        results[name] |= device | (extra or {})
         if also:
             results[name]["also"] = also
         print(f"{name}: max_abs_err {err} kernel {ms:.4f} ms, plain "
@@ -921,9 +1053,7 @@ def main() -> None:
                               if isinstance(v, float)))
 
     # K1 at every shape the paths launch and at the edge cases
-    sa1_idx, extra = fps_kernels(dev, xyz, record)
-    results["fps"] |= extra
-    sa1_idx = sa1_idx.long()
+    sa1_idx = fps_kernels(dev, xyz, record).long()
 
     # K2: SA1 ball query, 5120 centers, r = 0.02, K = 64, L = 512
     centers = xyz[:, sa1_idx[0]].contiguous()

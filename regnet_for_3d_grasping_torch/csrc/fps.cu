@@ -1,5 +1,5 @@
 // K1 — masked iterative farthest point sampling, and K10 — its grouped
-// (stratified) form.
+// (stratified) form, both on one kernel (fps_cluster_kernel).
 //
 // Replaces: regnet_for_3d_grasping_tpu/ops/fps_pallas.py, fps_pallas
 //   (_fps_kernel_v2, fps_pallas.py:260, dispatched from ops/fps.py:134) and
@@ -12,8 +12,9 @@
 //   whose result every block needs before the next step.
 // K1 design (fps_cluster_kernel): each cloud is a thread-block cluster of R
 //   blocks (R = 16, 8, 4, 2 or 1, chosen by the wrapper from the batch and
-//   N), each owning a contiguous chunk of about N/R points whose
-//   coordinates and running distance live in shared memory for the whole
+//   N: ops/fps.cluster_size), each owning a contiguous chunk of about N/R
+//   points whose coordinates and running distance live in shared memory
+//   for the whole
 //   loop, so after the first load no step reads the cloud from L2 and the
 //   field is spread over R SMs instead of one.  A step is the chunk's
 //   distance update (about 4 points per thread), a first-index argmax in
@@ -30,18 +31,22 @@
 //   unnecessary.  Distances are diff-squares summed as
 //   ((dx*dx + dy*dy) + dz*dz) with explicit round-to-nearest intrinsics, the
 //   JAX order, so every pick is bit-identical to the reference.
-// K10 design (fps_grouped_kernel): G independent exact runs of S/G samples
-//   over the G contiguous slices of N/G points.  The TPU kernel advances all
-//   slices in one program because a TPU core runs one program at a time;
-//   here each (batch, slice) is a block of 1024 threads running the loop on
-//   its slice, with the slice's distance field in shared memory and its
-//   coordinates read through L1/L2, so the slices run on G SMs at once and
-//   the dependent steps drop from S to S/G.  Indices come out slice-major
-//   with the slice's offset g*N/G added.
+// K10 design: G independent exact runs of S/G samples over the G
+//   contiguous slices of N/G points.  The TPU kernel advances all slices in
+//   one program because a TPU core runs one program at a time; here K10 is
+//   K1 itself over the free view [B*G, N/G] of the cloud: each slice is one
+//   cluster of R blocks (R chosen by the wrapper for B*G clusters of N/G
+//   points), and the kernel's `groups` argument adds the slice's offset
+//   (b % G) * N/G to every pick, so the output [B*G, S/G] is the
+//   slice-major [B, S] with offsets.  The slices run at once and the
+//   dependent steps drop from S to S/G.  A slice is small, so the step is
+//   the exchange, which grows with R: the wrapper gives a block at least 512
+//   points (ops/fps.MIN_CHUNK), R = 4 at the serving shapes (8 slices of
+//   3,200 points; 0.53 ms at 25,600 -> 5,120 against 0.60 at R = 16 on the
+//   H100).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <climits>
 #include <cmath>
 #include <cstdint>
 
@@ -198,7 +203,8 @@ __device__ __forceinline__ float update(float& slot, float4 p, float cx,
 __global__ void __launch_bounds__(kThreads)
 fps_cluster_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ dist_init,
-                   int32_t* __restrict__ out, int n, int s_total) {
+                   int32_t* __restrict__ out, int n, int s_total,
+                   int groups) {
   extern __shared__ float4 pts[];  // the chunk: x, y, z, running distance
   __shared__ Exchange ex[2];
   __shared__ unsigned long long wkey[32];
@@ -207,6 +213,7 @@ fps_cluster_kernel(const float* __restrict__ xyz,
   const int r_total = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / r_total;
+  const int offset = (b % groups) * n;  // K10: the slice's first row
   const int lo = (int)((long long)rank * n / r_total);
   const int len = (int)((long long)(rank + 1) * n / r_total) - lo;
   xyz += (size_t)b * n * 3;
@@ -236,7 +243,7 @@ fps_cluster_kernel(const float* __restrict__ xyz,
   int far = cluster_argmax(cluster, bv, bi, lo, pts, wkey, ex, 0, cx, cy, cz);
 
   for (int s = 0; s < s_total; ++s) {
-    if (rank == 0 && threadIdx.x == 0) out[s] = far;
+    if (rank == 0 && threadIdx.x == 0) out[s] = far + offset;
     if (s + 1 == s_total) break;
     bv = -INFINITY;
     bi = -1;
@@ -308,95 +315,6 @@ cudaError_t cluster_config(int n, int cluster, int blocks, cudaStream_t stream,
   return cudaSuccess;
 }
 
-__device__ __forceinline__ void take_better(float& v, int& i, float ov,
-                                            int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-// First-index argmax over the block; every thread gets the winner.
-__device__ int block_argmax(float v, int i, float* sv, int* si, int* sout) {
-  for (int off = 16; off > 0; off >>= 1)
-    take_better(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                __shfl_down_sync(0xffffffffu, i, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    sv[warp] = v;
-    si[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? sv[lane] : -INFINITY;
-    i = lane < nw ? si[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1)
-      take_better(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                  __shfl_down_sync(0xffffffffu, i, off));
-    if (lane == 0) *sout = i;
-  }
-  __syncthreads();
-  return *sout;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fps_grouped_kernel(const float* __restrict__ xyz,
-                   const float* __restrict__ dist_init,
-                   int32_t* __restrict__ out, int n, int s_total,
-                   int groups) {
-  extern __shared__ float dist[];
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  __shared__ int sfar;
-
-  // block = (batch element, slice): a slice is n points, s_total samples
-  const int b = blockIdx.x;
-  const int offset = (b % groups) * n;
-  xyz += (size_t)b * n * 3;
-  dist_init += (size_t)b * n;
-  out += (size_t)b * s_total;
-
-  // start: first-index argmax of the sentinel field (1e10 valid, -1 masked)
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float d = dist_init[j];
-    dist[j] = d;
-    if (d > bv) {
-      bv = d;
-      bi = j;
-    }
-  }
-  int far = block_argmax(bv, bi, sv, si, &sfar);
-
-  for (int s = 0; s < s_total; ++s) {
-    if (threadIdx.x == 0) out[s] = far + offset;
-    if (s + 1 == s_total) break;
-    const float cx = xyz[3 * far], cy = xyz[3 * far + 1],
-                cz = xyz[3 * far + 2];
-    bv = -INFINITY;
-    bi = INT_MAX;
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float dx = __fsub_rn(xyz[3 * j], cx);
-      const float dy = __fsub_rn(xyz[3 * j + 1], cy);
-      const float dz = __fsub_rn(xyz[3 * j + 2], cz);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      float cur = dist[j];
-      if (!(cur < 0.f)) {
-        cur = d < cur ? d : cur;
-        dist[j] = cur;
-      }
-      if (cur > bv) {
-        bv = cur;
-        bi = j;
-      }
-    }
-    far = block_argmax(bv, bi, sv, si, &sfar);
-  }
-}
-
 }  // namespace
 
 // K1: xyz [B, N, 3] f32, dist_init [B, N] f32 -> out [B, S] int32, each
@@ -411,7 +329,7 @@ extern "C" int regnet_fps(const float* xyz, const float* dist_init,
       cluster_config(n, cluster, batch * cluster, stream, &cfg, &attr);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, dist_init, out, n,
-                             s_total);
+                             s_total, 1);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -435,17 +353,22 @@ extern "C" int regnet_fps_max_clusters(int n, int cluster) {
 
 // K10: xyz [B, N, 3], dist_init [B, N] (each slice's own sentinel field),
 // N and S multiples of `groups` -> out [B, S] int32, slice-major:
-// out[b, g*S/G + i] = g*N/G + (i-th pick of slice g).
+// out[b, g*S/G + i] = g*N/G + (i-th pick of slice g).  K1's kernel over
+// the [B*G, N/G] view, each slice on a cluster of `cluster` blocks.
 extern "C" int regnet_fps_grouped(const float* xyz, const float* dist_init,
                                   int32_t* out, int batch, int n, int s_total,
-                                  int groups, cudaStream_t stream) {
+                                  int groups, int cluster,
+                                  cudaStream_t stream) {
+  if (groups < 1 || n % groups || s_total % groups)
+    return (int)cudaErrorInvalidValue;
   const int slice = n / groups;
-  const size_t smem = (size_t)slice * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(slice, cluster, batch * groups * cluster,
+                                   stream, &cfg, &attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, dist_init, out,
+                             slice, s_total / groups, groups);
   if (err != cudaSuccess) return (int)err;
-  fps_grouped_kernel<<<batch * groups, kThreads, smem, stream>>>(
-      xyz, dist_init, out, slice, s_total / groups, groups);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@ kernels' plain PyTorch versions:
   K5  crop.closing_region_crop           csrc/crop.cu
   K6-K9  slab.*                          csrc/slab_select.cu,
                                          three_nn_slab.cu, gather_max_slab.cu
-  K10 fps.fps_grouped                    csrc/fps.cu
+      (K6 and K7 build their span table and fill their empty slots on the
+      card: three launches a call)
+  K10 fps.fps_grouped                    csrc/fps.cu (K1's kernel, slices)
   K11 group.group_regions_fused          csrc/group.cu
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain

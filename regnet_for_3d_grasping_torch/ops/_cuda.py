@@ -41,7 +41,7 @@ _P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     "fps": ("fps", "regnet_fps", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "fps_grouped": ("fps", "regnet_fps_grouped",
-                    (_P, _P, _P, _I, _I, _I, _I, _P)),
+                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "ball_query": ("ball_query", "regnet_ball_query",
                    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "three_nn": ("three_nn", "regnet_three_nn",
@@ -51,11 +51,11 @@ SIGNATURES = {
     "crop": ("crop", "regnet_crop", (_P, _P, _P, _U, _P, _P, _I, _I, _I, _I,
                                      _I, _F, _F, _F, _F, _P)),
     "group_slab": ("slab_select", "regnet_group_slab",
-                   (_P, _P, _P, _U, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _F, _P)),
+                   (_P, _P, _P, _U, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _F, _F, _F, _P)),
     "crop_slab": ("slab_select", "regnet_crop_slab",
-                  (_P, _P, _P, _P, _U, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                   _F, _F, _F, _P)),
+                  (_P, _P, _P, _P, _U, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _I, _F, _F, _F, _F, _F, _F, _P)),
     "three_nn_slab": ("three_nn_slab", "regnet_three_nn_slab",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "gather_max_slab": ("gather_max_slab", "regnet_gather_max_slab",

@@ -8,6 +8,8 @@ so this routes every size through the kernels.
 
 K1 runs each cloud on a thread-block cluster of R blocks, each holding a
 contiguous chunk of the cloud in shared memory; `cluster_size` picks R.
+K10 is the same kernel over the [B*G, N/G] view of the slices, with the
+slice offsets added in the kernel.
 """
 
 from __future__ import annotations
@@ -18,11 +20,14 @@ import torch
 from regnet_for_3d_grasping_torch.ops import _cuda
 
 _INF = 1e10
-# shared memory a block can use on the H100, less the kernels' static part
+# shared memory a block can use on the H100, less the kernel's static part
 _SMEM = 232448 - 2048
-_MAX_SMEM_POINTS = _SMEM // 4       # K10: a slice's distance field
-_MAX_BLOCK_POINTS = _SMEM // 16     # K1: a chunk's x, y, z and distance
+_MAX_BLOCK_POINTS = _SMEM // 16     # a chunk's x, y, z and distance
 CLUSTER_SIZES = (16, 8, 4, 2, 1)    # 16 is the H100's non-portable size
+# the least chunk a block takes: below it the step is the exchange, which
+# grows with R (K10's 3,200-point slices: R = 4 beats R = 16 by 10-12 % on
+# the H100, PERF.md)
+MIN_CHUNK = 512
 _max_clusters_cache: dict = {}
 
 
@@ -99,13 +104,16 @@ def cluster_size(batch: int, n: int, occupancy: dict) -> int:
     """K1's blocks per cloud for `batch` clouds of `n` points on a card that
     holds `occupancy` {R: clusters of R blocks at once}.  Of the sizes that
     launch (a chunk fits a block's shared memory, the card holds at least
-    one cluster), the largest whose `batch` clusters are all co-resident,
-    else the largest.  A block whose chunk is empty offers no candidate."""
+    one cluster) and give a block at least `MIN_CHUNK` points (the smallest
+    that launches where none does), the largest whose `batch` clusters are
+    all co-resident, else the largest.  A block whose chunk is empty offers
+    no candidate."""
     fits = [r for r in CLUSTER_SIZES
             if -(-n // r) <= _MAX_BLOCK_POINTS and occupancy.get(r, 0) > 0]
     if not fits:
         raise ValueError(f"fps: no cluster size launches {batch} clouds of "
                          f"N={n} points (occupancy {occupancy})")
+    fits = [r for r in fits if -(-n // r) >= MIN_CHUNK] or fits[-1:]
     return next((r for r in fits if occupancy[r] >= batch), fits[0])
 
 
@@ -123,20 +131,22 @@ def fps_grouped(xyz: torch.Tensor, dist: torch.Tensor, num_samples: int,
                 groups: int) -> torch.Tensor:
     """Kernel K10: xyz [B, N, 3] f32, dist [B, N] (each slice's own
     sentinel field) -> [B, S] int32, slice-major with the slice offsets
-    added.  CPU tensors take `fps_grouped_plain`."""
+    added: K1's kernel over the [B*G, N/G] slices, each on a cluster of
+    `cluster_size` blocks.  CPU tensors take `fps_grouped_plain`."""
     B, N, _ = xyz.shape
-    L, s_per = N // groups, num_samples // groups
     if xyz.device.type == "cpu":
         return fps_grouped_plain(xyz, dist, num_samples, groups)
     _cuda.check(xyz, "fps_grouped xyz", torch.float32, (B, N, 3))
     _cuda.check(dist, "fps_grouped dist", torch.float32, (B, N))
-    if (N % groups or num_samples % groups or s_per < 1
-            or not 0 < L <= _MAX_SMEM_POINTS):
+    if N % groups or num_samples % groups or not 0 < groups <= min(
+            N, num_samples):
         raise ValueError(f"fps_grouped: N={N}, S={num_samples} must be "
                          f"positive multiples of groups={groups}")
+    L = N // groups
+    cluster = cluster_size(B * groups, L, max_clusters(xyz.device, L))
     out = torch.empty(B, num_samples, dtype=torch.int32, device=xyz.device)
     _cuda.launch("fps_grouped", xyz.device, xyz, dist, out, B, N,
-                 num_samples, groups)
+                 num_samples, groups, cluster)
     return out
 
 

@@ -18,9 +18,11 @@ Kernels (CUDA tensors) and their plain PyTorch versions (CPU tensors):
 
 The JAX package runs K6-K8 over two grid layouts (a full grid with skipped
 steps and a flat grid of live steps) that scan the same blocks in the same
-order; here one kernel whose thread block walks ``[start, stop)`` stands for
-both.  Span tables, padding rules, the fill of empty slots and the 3-NN
-exactness certificate are plain PyTorch in the wrappers.
+order; here one kernel over every ``(tile, scan block)`` stands for both.  A
+K6 or K7 call builds its span table, selects and fills its empty slots on
+the card in three launches (``csrc/slab_select.cu``); `slab_bounds` and
+`finish_select` are their plain versions.  K8's span table and its
+exactness certificate are plain PyTorch in the wrapper.
 """
 
 from __future__ import annotations
@@ -188,6 +190,16 @@ def select_spans(sc: SortedCloud, centers: torch.Tensor, bound: float,
     """The [B, T, 3] span table (`slab_bounds`) of a selection with K slots
     at (win, spw) geometry around `centers` [B, M, 3]; raises on shapes the
     selectors do not take."""
+    span_b = check_select(sc, centers, K, win, spw)
+    qx = _pad_queries(centers[..., :1], _TM, 1e10)[..., 0]
+    return slab_bounds(sc.cell_row, qx, bound, cell,
+                       n_scan_blocks(sc.xyz.shape[1]), span_b)
+
+
+def check_select(sc: SortedCloud, centers: torch.Tensor, K: int, win: int,
+                 spw: int) -> int:
+    """Raise on a selection the selectors do not take; returns its
+    selection span in blocks."""
     N, M = sc.xyz.shape[1], centers.shape[1]
     span_b = span_blocks_for(K, win, spw)
     nblk = n_scan_blocks(N)
@@ -198,8 +210,7 @@ def select_spans(sc: SortedCloud, centers: torch.Tensor, bound: float,
                          f"cloud's {nblk}")
     if M == 0:
         raise ValueError("no queries")
-    qx = _pad_queries(centers[..., :1], _TM, 1e10)[..., 0]
-    return slab_bounds(sc.cell_row, qx, bound, cell, nblk, span_b)
+    return span_b
 
 
 def group_slab(sc: SortedCloud, centers: torch.Tensor, seed: int,
@@ -214,31 +225,48 @@ def group_slab(sc: SortedCloud, centers: torch.Tensor, seed: int,
     rows into sc.xyz (empty slots hold the query's first pick, 0 when
     nothing was selectable), count [B, M] int32 exact in-radius population,
     sel_any [B, M] bool, off_blk [B, T] int32 selection-span origins for
-    `gather_max_slab`.  CPU tensors take `group_slab_plain`."""
+    `gather_max_slab`."""
+    return group_slab_with_spans(sc, centers, seed, radius, group_num, cell,
+                                 win, spw, distinct)[:4]
+
+
+def group_slab_with_spans(sc: SortedCloud, centers: torch.Tensor, seed: int,
+                          radius: float, group_num: int, cell: float,
+                          win: int = GROUP_WIN, spw: int = GROUP_SPW,
+                          distinct: bool = False):
+    """`group_slab`, and its span table [B, T, 3] int32 (start, stop, off)
+    last.  On the card one C call: span table, selection and fill (three
+    launches).  CPU tensors take `slab_bounds`, `group_slab_plain` and
+    `finish_select`."""
     c = centers[..., :3].float().contiguous()
-    ss = select_spans(sc, c, radius, cell, group_num, win, spw)
+    span_b = check_select(sc, c, group_num, win, spw)
     r2 = float(np.float32(float(radius) ** 2))
-    return finish_select(*group_slab_spans(
-        sc.xyz, c, ss, seed, r2, group_num, win, spw, distinct), ss)
+    if c.device.type == "cpu":
+        ss = select_spans(sc, c, radius, cell, group_num, win, spw)
+        return (*finish_select(*group_slab_plain(
+            sc.xyz, c, ss, seed, r2, group_num, win, spw, distinct), ss), ss)
+    out = _select_outputs(sc, c, group_num, "group_slab")
+    _cuda.launch("group_slab", c.device, sc.xyz, sc.cell_row, c,
+                 int(seed) & _U32, *out, *sc.xyz.shape[:2], c.shape[1],
+                 group_num, span_b, win, spw, int(distinct), r2, radius, cell)
+    return out
 
 
-def group_slab_spans(xyz, centers, ss, seed, r2, K, win, spw, distinct):
-    """K6 over a given span table `ss` (`select_spans`): the launch alone.
-    Returns raw (index [B, M, K] with -1 in empty slots, count, first
-    in-span pick or -1).  CPU tensors take `group_slab_plain`."""
-    if centers.device.type == "cpu":
-        return group_slab_plain(xyz, centers, ss, seed, r2, K, win, spw,
-                                distinct)
-    (B, N, _), M = xyz.shape, centers.shape[1]
-    _cuda.check(xyz, "group_slab xyz", torch.float32, (B, N, 3))
-    _cuda.check(centers, "group_slab centers", torch.float32, (B, M, 3))
-    idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
-    cnt = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
-    first = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
-    _cuda.launch("group_slab", xyz.device, xyz, centers, ss,
-                 int(seed) & _U32, idx, cnt, first, B, N, M, K,
-                 span_blocks_for(K, win, spw), win, spw, int(distinct), r2)
-    return idx, cnt, first
+def _select_outputs(sc: SortedCloud, centers: torch.Tensor, K: int,
+                    what: str) -> tuple:
+    """Check K6/K7's cloud and allocate (index, count, sel_any, off_blk,
+    span table) for M queries."""
+    (B, N, _), M = sc.xyz.shape, centers.shape[1]
+    _cuda.check(sc.xyz, f"{what} xyz", torch.float32, (B, N, 3))
+    _cuda.check(sc.cell_row, f"{what} cell_row", torch.int32, (B, N))
+    _cuda.check(centers, f"{what} centers", torch.float32, (B, M, 3))
+    T = -(-M // _TM)
+    dev = centers.device
+    return (torch.empty(B, M, K, dtype=torch.int32, device=dev),
+            torch.empty(B, M, dtype=torch.int32, device=dev),
+            torch.empty(B, M, dtype=torch.bool, device=dev),
+            torch.empty(B, T, dtype=torch.int32, device=dev),
+            torch.empty(B, T, 3, dtype=torch.int32, device=dev))
 
 
 def ball_query_slab(sc: SortedCloud, centers: torch.Tensor, seed: int,
@@ -266,35 +294,33 @@ def crop_slab(sc: SortedCloud, frame: torch.Tensor, center: torch.Tensor,
 
     frame [B, M, 3, 3] (columns = gripper axes), center [B, M, 3], box
     (xlo, xhi, |y|max, |z|max).  One pick per 256-row window.  Returns
-    (index, count, sel_any, off_blk) as `group_slab`.  CPU tensors take
-    `crop_slab_plain`."""
+    (index, count, sel_any, off_blk) as `group_slab`."""
+    return crop_slab_with_spans(sc, frame, center, seed, box, gripper_num,
+                                cell)[:4]
+
+
+def crop_slab_with_spans(sc: SortedCloud, frame: torch.Tensor,
+                         center: torch.Tensor, seed: int, box: tuple,
+                         gripper_num: int, cell: float):
+    """`crop_slab`, and its span table [B, T, 3] last.  On the card one C
+    call of three launches; CPU tensors take `slab_bounds`,
+    `crop_slab_plain` and `finish_select`."""
     B, M = center.shape[:2]
     f = frame.float().reshape(B, M, 9).contiguous()
     c = center.float().contiguous()
-    ss = select_spans(sc, c, crop_bound(box), cell, gripper_num, CROP_WIN,
-                      CROP_SPW)
+    span_b = check_select(sc, c, gripper_num, CROP_WIN, CROP_SPW)
     box32 = tuple(float(np.float32(v)) for v in box)
-    return finish_select(*crop_slab_spans(
-        sc.xyz, f, c, ss, seed, box32, gripper_num), ss)
-
-
-def crop_slab_spans(xyz, frames, centers, ss, seed, box, K):
-    """K7 over a given span table `ss`: the launch alone, frames [B, M, 9]
-    and the box in f32 values.  Returns raw (index, count, first) as
-    `group_slab_spans`.  CPU tensors take `crop_slab_plain`."""
-    if centers.device.type == "cpu":
-        return crop_slab_plain(xyz, frames, centers, ss, seed, box, K)
-    (B, N, _), M = xyz.shape, centers.shape[1]
-    _cuda.check(xyz, "crop_slab xyz", torch.float32, (B, N, 3))
-    _cuda.check(frames, "crop_slab frames", torch.float32, (B, M, 9))
-    _cuda.check(centers, "crop_slab centers", torch.float32, (B, M, 3))
-    idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
-    cnt = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
-    first = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
-    _cuda.launch("crop_slab", xyz.device, xyz, frames, centers, ss,
-                 int(seed) & _U32, idx, cnt, first, B, N, M, K,
-                 crop_span_blocks(K), *box)
-    return idx, cnt, first
+    if c.device.type == "cpu":
+        ss = select_spans(sc, c, crop_bound(box), cell, gripper_num,
+                          CROP_WIN, CROP_SPW)
+        return (*finish_select(*crop_slab_plain(
+            sc.xyz, f, c, ss, seed, box32, gripper_num), ss), ss)
+    out = _select_outputs(sc, c, gripper_num, "crop_slab")
+    _cuda.check(f, "crop_slab frames", torch.float32, (B, M, 9))
+    _cuda.launch("crop_slab", c.device, sc.xyz, sc.cell_row, f, c,
+                 int(seed) & _U32, *out, B, sc.xyz.shape[1], M, gripper_num,
+                 span_b, *box32, crop_bound(box), cell)
+    return out
 
 
 def _select_plain(xyz, ss, seed, M, K, win, spw, distinct, test):

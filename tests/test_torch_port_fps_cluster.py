@@ -1,8 +1,10 @@
-"""The decompositions behind two of the port's CUDA kernels, on the CPU.
+"""The decompositions behind three of the port's CUDA kernels, on the CPU.
 
 K1 (``csrc/fps.cu`` `fps_cluster_kernel`) splits each cloud into R
 contiguous chunks, one per block of a thread-block cluster, takes each
-chunk's argmax by a packed 64-bit key and reduces the R records.  K9
+chunk's argmax by a packed 64-bit key and reduces the R records.  K10 is
+the same kernel over the [B*G, N/G] view of the G slices, each slice's
+picks offset by its first row.  K9
 (``csrc/gather_max_slab.cu``) compacts each query's covered slots into a
 list of rows before it gathers, and splits that list over row groups.  The
 kernels run only on the card; here numpy emulations of those decompositions
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from regnet_for_3d_grasping_tpu.ops import fps as jfps
+from regnet_for_3d_grasping_tpu.ops.fps_pallas import fps_pallas_grouped
 
 from regnet_for_3d_grasping_torch.ops import fps, slab
 
@@ -33,19 +36,25 @@ TWO_PER_SM = {16: 16, 8: 32, 4: 66, 2: 132, 1: 264}
 
 @pytest.mark.parametrize("batch,n,occupancy,want", [
     (1, 25600, ONE_PER_SM, 16),      # serving SA1 and the centers
-    (1, 5120, ONE_PER_SM, 16),       # serving SA2
-    (1, 1024, ONE_PER_SM, 16),       # serving SA3: chunks of 64
-    (1, 512, ONE_PER_SM, 16),
+    (1, 5120, ONE_PER_SM, 8),        # serving SA2: chunks of 640
+    (1, 1024, ONE_PER_SM, 2),        # serving SA3: chunks of 512
+    (1, 512, ONE_PER_SM, 1),
     (12, 25600, ONE_PER_SM, 8),      # training: 12 x 16 blocks do not fit
     (12, 25600, TWO_PER_SM, 16),     # ... unless two blocks share an SM
     (12, 5120, ONE_PER_SM, 8),
-    (12, 1024, TWO_PER_SM, 16),
+    (12, 1024, TWO_PER_SM, 2),
     (1, 25600, {16: -1, 8: 16, 4: 33, 2: 66}, 8),   # 16 refused
     (12, 25600, {16: 4, 8: 8, 4: 16, 2: 33, 1: 66}, 4),
     (12, 25600, {16: 4, 8: 8, 4: 8, 2: 8, 1: -1}, 16),  # none holds 12
     (12, 25600, {16: -1, 8: 8, 4: 8, 2: 8, 1: -1}, 8),
-    (1, 10, ONE_PER_SM, 16),         # fewer points than blocks
+    (1, 10, ONE_PER_SM, 1),          # fewer points than MIN_CHUNK
     (1, 25601, ONE_PER_SM, 16),      # N that no R divides
+    (8, 3200, ONE_PER_SM, 4),        # K10, serving: 8 slices of 3,200
+    (96, 3200, ONE_PER_SM, 1),       # K10, slab training: 12 x 8 slices
+    (96, 3200, TWO_PER_SM, 2),
+    (1, 8177, ONE_PER_SM, 16),       # the least chunk: 512 at R = 16
+    (1, 8176, ONE_PER_SM, 8),        # ... 511: R = 8
+    (1, 600, {16: 8, 8: 16, 4: 33, 2: 66, 1: -1}, 2),  # none gives 512
 ])
 def test_cluster_size(batch, n, occupancy, want):
     assert fps.cluster_size(batch, n, occupancy) == want
@@ -156,7 +165,75 @@ def test_cluster_decomposition_matches_plain_and_jax(name, R):
     np.testing.assert_array_equal(got, jax_fps(name))
 
 
-# --- (d) the compacted gather of K9 -----------------------------------------
+# --- (d) K10: the cluster kernel over the slices ----------------------------
+
+def grouped_cluster_fps(xyz: np.ndarray, dist: np.ndarray, S: int, G: int,
+                        R: int):
+    """numpy emulation of K10: `cluster_fps` over the [B*G, N/G] view,
+    cluster b's picks offset by (b % G) * N/G as the kernel stores them,
+    the [B*G, S/G] result read as [B, S]."""
+    B, N, _ = xyz.shape
+    L = N // G
+    out = cluster_fps(xyz.reshape(B * G, L, 3), dist.reshape(B * G, L),
+                      S // G, R)
+    return (out + (np.arange(B * G) % G * L)[:, None]).reshape(B, S)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_case(name: str):
+    """(xyz [B, N, 3], mask [B, N] or None, S, G) of a small grouped case."""
+    rng = np.random.RandomState(sum(map(ord, name)) + 1)
+    B, G, L, S = 2, 4, 40, 48
+    xyz = rng.rand(B, G * L, 3).astype(np.float32)
+    mask = None
+    if name == "masked":                 # as at the center pick
+        mask = xyz[..., 2] > 0.4
+    elif name == "slice-masked":         # slice 1 of cloud 0: no valid point
+        mask = xyz[..., 2] > 0.4
+        mask[0, L:2 * L] = False
+    elif name == "tiny-slices":          # 10 points a slice, S/G beyond it
+        L = 10
+        xyz = np.ascontiguousarray(xyz[:, :G * L])
+    return xyz, mask, S, G
+
+
+@functools.lru_cache(maxsize=None)
+def jax_grouped(name: str) -> np.ndarray:
+    """JAX's grouped FPS and its Pallas kernel in interpret mode, which
+    must agree."""
+    xyz, mask, S, G = grouped_case(name)
+    B, N, _ = xyz.shape
+    jm = None if mask is None else jnp.asarray(mask)
+    ref = np.asarray(jfps.farthest_point_sample(jnp.asarray(xyz), S, jm,
+                                                groups=G))
+    dist = jfps._dist_init(jnp.asarray(xyz).reshape(B * G, N // G, 3),
+                           None if jm is None else jm.reshape(B * G, N // G))
+    pal = np.asarray(fps_pallas_grouped(jnp.asarray(xyz), dist.reshape(B, N),
+                                        S, G, interpret=True))
+    np.testing.assert_array_equal(pal, ref)
+    return ref
+
+
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name", ["unmasked", "masked", "slice-masked",
+                                  "tiny-slices"])
+def test_grouped_cluster_decomposition_matches_plain_and_jax(name, R):
+    xyz, mask, S, G = grouped_case(name)
+    B, N, _ = xyz.shape
+    d = fps.dist_init(torch.from_numpy(xyz).reshape(B * G, N // G, 3),
+                      None if mask is None else
+                      torch.from_numpy(mask).reshape(B * G, N // G))
+    d = d.reshape(B, N)
+    got = grouped_cluster_fps(xyz, d.numpy(), S, G, R)
+    plain = fps.fps_grouped_plain(torch.from_numpy(xyz), d, S, G).numpy()
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, jax_grouped(name))
+    # slice-major: the picks of slice g lie in [g*N/G, (g+1)*N/G)
+    assert (got.reshape(B, G, -1) // (N // G)
+            == np.arange(G)[None, :, None]).all()
+
+
+# --- (e) the compacted gather of K9 -----------------------------------------
 
 def compacted_pool(fs, index, off_blk, win, spw, groups, argmax):
     """numpy emulation of `gather_max_slab_kernel`: per query the covered

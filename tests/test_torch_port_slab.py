@@ -87,6 +87,153 @@ def assert_all_equal(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
+# --- twins of the card's decomposition of K6 / K7 ---------------------------
+# csrc/slab_select.cu builds a call's span table on the card, selects with
+# one block per (tile, scan block, group of 32 queries) and fills the empty
+# slots in a last pass.  These emulate those three launches step for step.
+
+def _cell_id32(x, cell) -> int:
+    return int(np.clip(np.floor(np.float32(x) / np.float32(cell)), -1e6, 1e6))
+
+
+def _warp_search(row: np.ndarray, key: int, upper: bool) -> int:
+    """`warp_search`: 32 evenly spaced probes a pass, keeping the stretch
+    between the last probe below the answer and the next."""
+    lo, hi = 0, len(row)
+    while lo < hi:
+        step = -(-(hi - lo) // 32)
+        p = lo + np.arange(32) * step
+        v = row[np.minimum(p, len(row) - 1)]
+        c = int(((p < hi) & ((v <= key) if upper else (v < key))).sum())
+        if c == 0:
+            hi = lo
+        else:
+            hi, lo = min(lo + c * step, hi), lo + (c - 1) * step + 1
+    return lo
+
+
+def spans_twin(cell_row, qx, bound, cell, nblk, span_b) -> np.ndarray:
+    """`slab_spans_kernel`: qx [B, Mp] (pad queries at 1e10) -> [B, T, 3]
+    int32, per tile the real queries' x-range widened by `bound` in f32,
+    its cell ids, the two searches and the kernel's integer rules."""
+    cell_row, qx = np.asarray(cell_row), np.asarray(qx, np.float32)
+    B, Mp = qx.shape
+    out = np.zeros((B, Mp // 128, 3), np.int32)
+    for b in range(B):
+        for t in range(Mp // 128):
+            q = qx[b, t * 128:(t + 1) * 128]
+            real = q < np.float32(1e9)
+            lo = hi = np.float32(1e9)
+            if real.any():
+                lo = q[real].min() - np.float32(bound)
+                hi = q[real].max() + np.float32(bound)
+            srow = _warp_search(cell_row[b], _cell_id32(lo, cell), False)
+            erow = _warp_search(cell_row[b], _cell_id32(hi, cell), True)
+            start = min(srow // 2048, nblk - 1)
+            stop = min(max(-(-erow // 2048), start + 1), nblk)
+            mid = (srow + erow) // 4096
+            off = (min(start, nblk - span_b) if stop - start <= span_b
+                   else min(max(mid - span_b // 2, 0), nblk - span_b))
+            out[b, t] = start, stop, off
+    return out
+
+
+def blocked_select(xyz, ss, seed, M, K, win, spw, distinct, test):
+    """`slab_select_kernel` then `slab_fill_kernel`: each (tile, scan block
+    kb, group of 32 queries) inside its tile's [start, stop) adds its
+    partial counts, and when kb lies in [off, off + span) writes every slot
+    it owns, (kb - off, window, stream), its pick or -1: the window's
+    largest key (23-bit hash + 1) << 8 | (255 - place in window), the
+    stream's reshuffle or the previous winner dropped.  Slots no block
+    writes hold garbage (-7) until the fill pass, which reads only the
+    scanned span blocks' slots.  Returns (index, count, sel_any, off)."""
+    B, N, _ = xyz.shape
+    nblk, nwin = -(-N // 2048), 2048 // win
+    rps = nwin * spw
+    span_b = K // rps
+    idx = torch.full((B, M, K), -7, dtype=torch.int64)
+    cnt = torch.zeros(B, M, dtype=torch.int64)
+    place = torch.arange(2048) % win
+    for b in range(B):
+        for t, (start, stop, off) in enumerate(np.asarray(ss[b]).tolist()):
+            for kb in range(nblk):
+                for q0 in range(t * 128, t * 128 + 128, 32):
+                    q1 = min(q0 + 32, M)
+                    if q0 >= M or not start <= kb < stop:
+                        continue
+                    r0, r1 = kb * 2048, min(kb * 2048 + 2048, N)
+                    mask = torch.zeros(q1 - q0, 2048, dtype=torch.bool)
+                    mask[:, :r1 - r0] = test(b, q0, q1, xyz[b, r0:r1])
+                    cnt[b, q0:q1] += mask.sum(-1)
+                    if not off <= kb < off + span_b:
+                        continue
+                    h = slab._hash23(torch.arange(q0, q1)[:, None],
+                                     torch.arange(r0, r0 + 2048)[None], seed)
+                    key = torch.where(mask, ((h + 1) << 8) | (255 - place), 0)
+                    key = key.reshape(q1 - q0, nwin, win)
+                    slots = (kb - off) * rps + torch.arange(nwin) * spw
+                    for s in range(spw):
+                        k = key
+                        if s and not distinct:
+                            k = torch.where(key > 0, (((((key >> 8) - 1)
+                                            * slab._STREAM_ODD[s]) & 0x7FFFFF)
+                                            + 1) << 8 | (key & 255), 0)
+                        best = k.amax(-1)
+                        row = r0 + torch.arange(nwin) * win + 255 - (best & 255)
+                        idx[b, q0:q1, slots + s] = torch.where(best > 0, row,
+                                                               -1)
+                        if distinct:
+                            key = torch.where((key == best[..., None])
+                                              & (best[..., None] > 0), 0, key)
+    # the fill pass
+    tile = torch.as_tensor(np.asarray(ss))[:, torch.arange(M) // 128]
+    start, stop, off = tile[..., 0:1], tile[..., 1:2], tile[..., 2:3]
+    j = torch.arange(K)
+    scanned = ((j >= (start - off).clamp(min=0) * rps)
+               & (j < torch.minimum(stop - off, torch.tensor(span_b)) * rps))
+    raw = torch.where(scanned, idx, -1)
+    has = raw >= 0
+    first = torch.where(has.any(-1), torch.gather(
+        raw, -1, has.to(torch.uint8).argmax(-1, keepdim=True))[..., 0], -1)
+    out = torch.where(has, raw, first.clamp(min=0)[..., None])
+    return (out.to(torch.int32), cnt.to(torch.int32), first >= 0,
+            torch.as_tensor(np.asarray(ss))[..., 2].contiguous())
+
+
+def ball_test(centers, r2):
+    def test(b, q0, q1, x):
+        d = [x[None, :, i] - centers[b, q0:q1, None, i] for i in range(3)]
+        return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2] <= r2
+    return test
+
+
+def box_test(frames, centers, box):
+    xlo, xhi, yabs, zabs = (float(np.float32(v)) for v in box)
+
+    def test(b, q0, q1, x):
+        f = frames[b, q0:q1].reshape(-1, 9)
+        r = [x[None, :, i] - centers[b, q0:q1, None, i] for i in range(3)]
+        loc = [(f[:, j, None] * r[0] + f[:, 3 + j, None] * r[1])
+               + f[:, 6 + j, None] * r[2] for j in range(3)]
+        return ((loc[0] > xlo) & (loc[0] < xhi) & (loc[1].abs() < yabs)
+                & (loc[2].abs() < zabs))
+    return test
+
+
+def card_decomposition(sc, centers, bound, K, win, spw, distinct, seed,
+                       test):
+    """The three launches' twins on the port's SortedCloud: (index, count,
+    sel_any, off) and the span table."""
+    M = centers.shape[1]
+    qx = np.pad(np.asarray(centers)[..., 0], ((0, 0), (0, (-M) % 128)),
+                constant_values=1e10)
+    ss = spans_twin(sc.cell_row, qx, bound, CELL,
+                    slab.n_scan_blocks(sc.xyz.shape[1]),
+                    slab.span_blocks_for(K, win, spw))
+    return blocked_select(sc.xyz, ss, seed, M, K, win, spw, distinct,
+                          test), ss
+
+
 # --- sort_cloud, slab_bounds ------------------------------------------------
 
 @pytest.mark.parametrize("channels", [3, 6])
@@ -144,6 +291,9 @@ def test_slab_bounds_matches_jax(M, bound, span):
     got = slab.slab_bounds(sc.cell_row, t(qx), bound, CELL, 9, span)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # the card's span table, built per tile with two warp searches
+    np.testing.assert_array_equal(
+        spans_twin(sc.cell_row, qx, bound, CELL, 9, span), np.asarray(ref))
 
 
 def test_slab_bounds_all_pad_tile():
@@ -156,6 +306,32 @@ def test_slab_bounds_all_pad_tile():
     got = slab.slab_bounds(sc.cell_row, t(qx), 0.03, CELL, 2, 1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert got[0, 1, 1] - got[0, 1, 0] == 1
+    np.testing.assert_array_equal(
+        spans_twin(sc.cell_row, qx, 0.03, CELL, 2, 1), np.asarray(ref))
+
+
+@pytest.mark.parametrize("span", [1, 4])
+def test_span_table_twin_queries_at_both_ends(span):
+    """Tiles whose queries reach the cloud's first and last rows (and
+    beyond, by the bound): the searches return 0 and N, the table clamps
+    to [0, nblk), and a span wider than `span` blocks is centred."""
+    pts = flat_cloud(2, 18432, 12)
+    jsc, sc = jsort(pts, 8)
+    xs = np.asarray(jsc.xyz)[..., 0]
+    rng = np.random.RandomState(span)
+    qx = np.stack([np.sort(np.concatenate([
+        xs[b, :40], xs[b, -40:], rng.choice(xs[b], 120, False)]))
+        for b in range(2)]).astype(np.float32)
+    qx = np.pad(qx, ((0, 0), (0, 56)), constant_values=1e10)
+    ref = np.asarray(jslab.slab_bounds(jsc.cell_row, jnp.asarray(qx), 0.05,
+                                       CELL, 9, span))
+    got = spans_twin(sc.cell_row, qx, 0.05, CELL, 9, span)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        slab.slab_bounds(sc.cell_row, t(qx), 0.05, CELL, 9, span).numpy(),
+        ref)
+    assert got[:, 0, 0].max() == 0 and got[:, -1, 1].min() == 9
+    assert (got[..., 1] - got[..., 0] > span).any()
 
 
 def test_span_block_rules():
@@ -197,6 +373,11 @@ def test_k6_group_slab_matches_pallas(group_data, grid_span):
                            256, CELL, grid_span=grid_span, interpret=True)
     got = slab.group_slab(sc, t(centers), 5, 0.03, 256, CELL)
     assert_all_equal(got, ref)
+    r2 = float(np.float32(0.03 ** 2))
+    emu, _ = card_decomposition(sc, t(centers), 0.03, 256, slab.GROUP_WIN,
+                                slab.GROUP_SPW, False, 5,
+                                ball_test(t(centers), r2))
+    assert_all_equal(emu, ref)
     idx, cnt, sel, off = got
     assert idx.dtype == cnt.dtype == off.dtype == torch.int32
     assert sel.dtype == torch.bool
@@ -214,6 +395,10 @@ def test_k6_group_slab_unaligned_queries_and_batch():
                            128, CELL, interpret=True)
     got = slab.group_slab(sc, t(centers), 3, 0.03, 128, CELL)
     assert_all_equal(got, ref)
+    emu, _ = card_decomposition(sc, t(centers), 0.03, 128, slab.GROUP_WIN,
+                                slab.GROUP_SPW, False, 3, ball_test(
+                                    t(centers), float(np.float32(0.03 ** 2))))
+    assert_all_equal(emu, ref)
 
 
 def test_k6_ball_query_slab_matches_pallas():
@@ -225,6 +410,10 @@ def test_k6_ball_query_slab_matches_pallas():
                                 CELL, interpret=True)
     got = slab.ball_query_slab(sc, t(c), 9, 0.04, 64, CELL)
     assert_all_equal(got, ref)
+    emu, _ = card_decomposition(sc, t(c), 0.04, 64, slab.BALL_WIN,
+                                slab.BALL_SPW, True, 9, ball_test(
+                                    t(c), float(np.float32(0.04 ** 2))))
+    assert_all_equal((emu[0], torch.clamp(emu[1], max=64)), ref)
     # without replacement: more distinct rows than with replacement
     rep = slab.group_slab(sc, t(c), 9, 0.04, 64, CELL, win=slab.BALL_WIN,
                           spw=slab.BALL_SPW, distinct=False)[0]
@@ -234,6 +423,27 @@ def test_k6_ball_query_slab_matches_pallas():
 
     assert (n_distinct(got[0]) >= n_distinct(rep)).all()
     assert n_distinct(got[0]).sum() > n_distinct(rep).sum()
+
+
+@pytest.mark.parametrize("grid_span", [None, 6])
+def test_k6_distinct_matches_pallas_and_card_decomposition(group_data,
+                                                          grid_span):
+    """win 256 / spw 2 without replacement (SA1's geometry) over both of
+    the JAX grids, with its span table: the plain version, the twins of
+    the card's three launches and the Pallas kernel agree exactly."""
+    jsc, sc, centers = group_data
+    ref = jslab.group_slab(jsc, jnp.asarray(centers), jnp.uint32(7), 0.03,
+                           64, CELL, win=256, spw=2, distinct=True,
+                           grid_span=grid_span, interpret=True)
+    got = slab.group_slab_with_spans(sc, t(centers), 7, 0.03, 64, CELL,
+                                     win=256, spw=2, distinct=True)
+    assert_all_equal(got[:4], ref)
+    emu, ss = card_decomposition(sc, t(centers), 0.03, 64, 256, 2, True, 7,
+                                 ball_test(t(centers),
+                                           float(np.float32(0.03 ** 2))))
+    assert_all_equal(emu, ref)
+    np.testing.assert_array_equal(got[4].numpy(), ss)
+    assert (got[0] >= 0).all() and got[2][:-5].all()
 
 
 def test_k6_seed_changes_the_picks(group_data):
@@ -265,6 +475,10 @@ def test_k7_crop_slab_matches_pallas(crop_data, grid_span):
                           interpret=True)
     got = slab.crop_slab(sc, t(frames), t(centers), 9, box, 64, CELL)
     assert_all_equal(got, ref)
+    emu, _ = card_decomposition(sc, t(centers), slab.crop_bound(box), 64,
+                                slab.CROP_WIN, slab.CROP_SPW, False, 9,
+                                box_test(t(frames), t(centers), box))
+    assert_all_equal(emu, ref)
     assert got[2].any() and not got[2].all()
 
 
