@@ -14,12 +14,17 @@ result unless every phase passed):
    slab-sorted cloud) and, for K1 and K10 (at every shape the serving and
    training paths launch, and at their edge cases, with the cluster size
    chosen for each, and every cluster size timed apart at the main
-   shapes), K6 and K7, the grouping kernel K11 and the argmax and backward
-   forms of the pools K4 and K9, of the training paths (12 clouds, 64
-   centers), with their median times, a bound computed from the shapes
-   (for the slab kernels from the pairs their span tables scan and the
-   pairs that pass), and a library call where one computes the same
-   function.  A K6 or K7 call (span table, selection, fill) is held against
+   shapes), K6 and K7, the grouping kernel K11 and the crop K5 (also at a
+   validation forward's 64 centers, and both at small edge shapes, with
+   the grid `ops/bucket_scan.scan_grid` picks, pairs per ns and the bound's
+   share printed, and each call's device activities counted: scan and
+   fill) and the argmax and backward forms of the pools K4 and K9, of the
+   training paths (12 clouds, 64 centers), with their median times, a
+   bound computed from the shapes (for the slab kernels from the pairs
+   their span tables scan and the pairs that pass; for K11 and K5 from the
+   operations an exact test needs on the run's pairs and the pairs that
+   pass), and a library call where one computes the same function.  A K6
+   or K7 call (span table, selection, fill) is held against
    ``slab_bounds``, the plain selection and ``finish_select``, span table
    included, and its device activities are counted with ``torch.profiler``
    (at most 3); K8 is timed on a span table computed beforehand, which is
@@ -427,12 +432,16 @@ def select_case(name, label, sc, call, plain, public, inputs, test_ops
     return got[:4], row, public
 
 
-def select_launches(cases: dict) -> None:
+def select_launches(cases: dict, scan_calls: dict) -> None:
     """The device activities of one K6 or K7 call, at every shape of
-    `cases` {label: (record row, public call)}, from one profiler session:
-    the three launches (span table, selection, fill) and nothing else,
-    each kernel's device time added to the row."""
-    prof = kernel_profile({label: fn for label, (_, fn) in cases.items()})
+    `cases` {label: (record row, public call)}: the three launches (span
+    table, selection, fill) and nothing else, each kernel's device time
+    added to the row; and of one K11 or K5 call, at every shape of
+    `scan_calls` {label: call}: its two launches (scan and fill), no copy,
+    no memset.  One profiler session for all (a later session in the same
+    process can lose or misplace device events)."""
+    prof = kernel_profile({label: fn for label, (_, fn) in cases.items()}
+                          | scan_calls)
     for label, (row, _) in cases.items():
         n_act, per_kernel = prof[label]
         print(f"{label}: {n_act:g} device activities a call, device ms "
@@ -443,6 +452,138 @@ def select_launches(cases: dict) -> None:
               f"{per_kernel}")
         row["launches_per_call"] = n_act
         row["kernel_device_ms"] = per_kernel
+    for label in scan_calls:
+        n_act, per_kernel = prof[label]
+        print(f"{label}: {n_act:g} device activities a call, device ms "
+              f"{per_kernel}")
+        check(n_act == 2 and {"bucket_scan_kernel", "bucket_fill_kernel"}
+              <= set(per_kernel), f"{n_act} device activities in one call "
+              f"({label}), expected the scan and the fill: {per_kernel}")
+
+
+def radius_test_ops(x, c, r2: float, chunk: int = 256) -> tuple:
+    """The float operations an exact radius test (K11's, d = center -
+    point) needs on this run's pairs, and the pairs inside the x slab: dx,
+    its square and a compare (3) on every pair, since the rounded sum of
+    squares is at least dx*dx; dy, dz, their squares, two adds and the
+    compare (7) only where dx*dx <= r2."""
+    slab = 0
+    for m0 in range(0, c.shape[1], chunk):
+        dx = c[:, m0:m0 + chunk, None, 0] - x[:, None, :, 0]
+        slab += int((dx * dx <= r2).sum())
+    pairs = c.shape[0] * c.shape[1] * x.shape[1]
+    return pairs * 3 + slab * 7, slab
+
+
+def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
+    """The float operations an exact box test (K5's, crop_plain's products)
+    needs on this run's pairs, and the pairs inside the z slab and inside
+    the z and x slabs: the offset and the frame's z row, its abs and a
+    compare (10) on every pair; the x row and its two compares (7) only
+    inside the z slab; the y row, abs and compare (7) only inside both."""
+    xlo, xhi, _, zabs = (float(np.float32(v)) for v in box)
+    in_z = in_zx = 0
+    for m0 in range(0, frames.shape[1], chunk):
+        f = frames[:, m0:m0 + chunk]
+        c = bases[:, m0:m0 + chunk]
+        r = [x[:, None, :, i] - c[:, :, None, i] for i in range(3)]
+
+        def row(j):
+            return (f[:, :, 0, j, None] * r[0] + f[:, :, 1, j, None] * r[1]
+                    ) + f[:, :, 2, j, None] * r[2]
+
+        z = row(2).abs() < zabs
+        l0 = row(0)
+        in_z += int(z.sum())
+        in_zx += int((z & (l0 > xlo) & (l0 < xhi)).sum())
+    pairs = frames.shape[0] * frames.shape[1] * x.shape[1]
+    return pairs * 10 + in_z * 7 + in_zx * 7, (in_z, in_zx)
+
+
+def bucket_scan_case(name, label, call, plain, inputs, test_ops, kernel,
+                     k, bucket) -> dict:
+    """Phase 3 for one K11 or K5 shape: the call against its plain version
+    (indices and counts equal to the bit); its time with and without the
+    host, and the plain version's; the grid that ``ops/bucket_scan.
+    scan_grid`` picks with `kernel`'s constants; pairs per ns and the
+    bound's share of the device time.  The bound counts `test_ops`, the
+    operations of an exact test on this run's pairs (`radius_test_ops`,
+    `box_test_ops`), and 10 per passing pair (hash and argmax), which
+    `count` sums exactly."""
+    from regnet_for_3d_grasping_torch.ops import bucket_scan
+    got, ref = call(), plain()
+    check(all_equal(got, ref),
+          f"{name} differs from its plain version ({label})")
+    (batch, m), n = got[1].shape, inputs[0].shape[1]
+    dev = got[0].device
+    grid = bucket_scan.scan_grid(batch, m, n, k, bucket,
+                                 bucket_scan.sm_count(dev),
+                                 *bucket_scan.limits(kernel, dev))
+    pairs, passing = batch * m * n, int(got[1].sum())
+    row = {"shape": label, "max_abs_err": max_err(got, ref),
+           "ms": cuda_ms(call, 20), "plain_ms": cuda_ms(plain, 3),
+           "device_ms": device_ms(call, 20),
+           "bytes": nbytes(*inputs, *got),
+           "ops": test_ops + passing * 10, "grid": list(grid)}
+    row["pairs_per_ns"] = pairs / row["device_ms"] / 1e6
+    row["bound_share"] = bound(row["bytes"], row["ops"])[0] / row["device_ms"]
+    print(f"{name} {label}: tile {grid[0]} x range {grid[1]}, {pairs} "
+          f"pairs, {passing} passing, {int((got[1] > 0).sum())} of {m * batch}"
+          f" rows non-empty, {row['ops']} operations, "
+          f"{row['pairs_per_ns']:.1f} pairs/ns, bound share "
+          f"{row['bound_share']:.3f}")
+    return row
+
+
+def bucket_scan_edges(dev) -> None:
+    """K11 and K5 against their plain versions at small shapes: M not a
+    multiple of any tile, M = 1, B = 3, N not a multiple of L, K*L > N,
+    L = 512 for both (K5's serving width), the last center far from every
+    point; points exactly on the radius of center 0 (0.125 - 0.0625 =
+    0.0625: d2 = r2) and just outside it, and, in center 0's identity
+    frame, exactly on the box's faces (all outside) beside two inside; a
+    frame that is not orthonormal."""
+    from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
+    from regnet_for_3d_grasping_torch.ops import crop, group, sampling
+    g = torch.Generator().manual_seed(7)
+    box = (0.0, 0.03125, 0.015625, 0.0078125)
+    for B, N, M, K in ((3, 1100, 130, 16), (1, 1100, 1, 16),
+                       (2, 5000, 77, 64), (3, 700, 65, 8),
+                       (2, 3500, 70, 8)):
+        x = torch.rand(B, N, 3, generator=g) * 0.25
+        c = x[:, torch.randperm(N, generator=g)[:M]].clone()
+        c[:, -1] = 5.0
+        if M > 1:
+            c[:, 0] = 0.125
+            x[:, 3] = torch.tensor([0.0625, 0.125, 0.125])
+            x[:, 4] = torch.tensor([0.125, 0.125, 0.0625 - 2 ** -26])
+            x[:, 5:11] = torch.tensor([
+                [0.125 + box[1], 0.125, 0.125], [0.125, 0.125, 0.125],
+                [0.140625, 0.125 + box[2], 0.125],
+                [0.140625, 0.125, 0.125 - box[3]],
+                [0.140625, 0.125, 0.125],
+                [0.140625, 0.1328125, 0.12890625]])
+        axis = torch.nn.functional.normalize(
+            torch.randn(B, M, 3, generator=g), dim=-1)
+        theta = (torch.rand(B, M, 1, generator=g) * 2 - 1) * np.pi
+        frames, bases = grasps_to_frames(torch.cat([c, axis, theta], -1))
+        frames[:, 0] = torch.eye(3)
+        bases[:, 0] = c[:, 0]
+        if M > 2:   # a frame that is not orthonormal
+            frames[:, 1] = torch.randn(B, 3, 3, generator=g)
+        x, c, frames, bases = (t.to(dev).contiguous()
+                               for t in (x, c, frames, bases))
+        L = sampling.pallas_bucket_stride(N, K)
+        got = group.group_regions_fused(x, c, 9, 0.0625, K, L)
+        ref = group.group_regions_fused_plain(x, c, 9, 0.0625, K, L)
+        check(all_equal(got, ref), f"K11 differs at edge shape B={B} N={N} "
+              f"M={M} K={K} L={L}")
+        gc = crop.closing_region_crop(x, frames, bases, 9, box, K, L)
+        rc = crop.crop_plain(x, frames, bases, 9, box, K, L)
+        check(all_equal(gc, rc), f"K5 differs at edge shape B={B} N={N} "
+              f"M={M} K={K} L={L}")
+        print(f"edge B={B} N={N} M={M} K={K} L={L}: K11 {int(got[1].sum())}"
+              f" in radius, K5 {int(gc[1].sum())} inside; both equal")
 
 
 def fps_grouped_kernels(dev, sx, record) -> tuple:
@@ -503,9 +644,11 @@ def fps_grouped_kernels(dev, sx, record) -> tuple:
     return picks[0], picks[1], sc12
 
 
-def slab_kernels(dev, xyz, record) -> list:
-    """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order.
-    Returns the rows of the pools' backward at K9's shapes."""
+def slab_kernels(dev, xyz, record, scan_calls) -> list:
+    """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order (and
+    the launch count of K11's and K5's calls `scan_calls`, in K6/K7's
+    profiler session).  Returns the rows of the pools' backward at K9's
+    shapes."""
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
     from regnet_for_3d_grasping_torch.ops import fps, slab
 
@@ -612,7 +755,7 @@ def slab_kernels(dev, xyz, record) -> list:
         sc, c4000, 12345, 8, "crop: 4000 proposals, K=64, win 256, spw 1")
     k12, *calls["crop_slab: training"] = k7(
         sc12, c12, 32, 12, "crop, training: 12 x 64 proposals")
-    select_launches(calls)
+    select_launches(calls, scan_calls)
     for name in ("group_slab", "crop_slab"):
         record_rows(record, name, src, JAX_OPS + "slab.py:425",
                     [row for label, (row, _) in calls.items()
@@ -1090,53 +1233,50 @@ def main() -> None:
            nbytes(xyz, centers, *got), N_POINTS * 5120 * 10,
            cuda_ms(cdist_topk, 20))
 
-    # K11: the region grouping (r 0.008, K 256, L 128) of a training batch
-    # (12 clouds x 64 centers) and of a serving forward (4,000 centers).
-    # Operations as K6's: the radius test (9) on every pair, hash and argmax
-    # (10) on the pairs in radius, which `count` sums exactly
+    # K11: the region grouping (r 0.008, K 256, L 128) of a serving forward
+    # (4,000 centers), a training batch (12 clouds x 64 centers) and a
+    # validation forward (1 x 64).  Operations: an exact radius test on
+    # this run's pairs (`radius_test_ops`), hash and argmax (10) on the
+    # pairs in radius
     dist_m = fps.dist_init(xyz, xyz[..., 2] > 0.76)
     c4000 = xyz[:, fps.fps(xyz, dist_m, N_CENTERS)[0].long()].contiguous()
     tx = train_clouds(dev)
     picks = fps.fps(tx, fps.dist_init(tx, tx[..., 2] > 0.76), TRAIN_CENTERS)
     c12 = torch.gather(tx, 1, picks.long()[..., None].expand(-1, -1, 3))
+    c64 = xyz[:, fps.fps(xyz, dist_m, TRAIN_CENTERS)[0].long()].contiguous()
     Lg = sampling.pallas_bucket_stride(N_POINTS, 256)
-    rows = []
+    bucket_scan_edges(dev)
+    rows, scan_calls = [], {}
     for label, x, c in (
+            ("serving: 4000 centers x 25600 points", xyz, c4000),
             ("training: 12 clouds x 64 centers x 25600 points", tx, c12),
-            ("serving: 4000 centers x 25600 points", xyz, c4000)):
-        def kernel():
+            ("validation: 1 cloud x 64 centers", xyz, c64)):
+        def kernel(x=x, c=c):
             return group.group_regions_fused(x, c, 21, 0.008, 256, Lg)
 
-        def plain():
+        def plain(x=x, c=c):
             return group.group_regions_fused_plain(x, c, 21, 0.008, 256, Lg)
 
-        def plain_path():
-            # the chunked path that grouping took before this kernel
+        def plain_path(x=x, c=c):
+            # the chunked path that grouping took before K11
             seeds = list(range(region.group_chunks(c.shape[1])))
             return region.group_regions(seeds, x, c, 256, 0.008)
 
-        got, ref = kernel(), plain()
-        check(all_equal(got, ref), f"K11 group_regions differs ({label})")
-        in_radius = int(got[1].sum())
-        print(f"group_regions {label}: {in_radius} pairs in radius, "
-              f"{int((got[1] > 0).sum())} of {got[1].numel()} regions "
-              f"non-empty")
+        test_ops, slab = radius_test_ops(x, c, group.radius2(0.008))
+        print(f"group_regions {label}: {slab} pairs inside the x slab")
+        row = bucket_scan_case("group_regions", label, kernel, plain, (x, c),
+                               test_ops, "group_regions", 256, Lg)
         threshold = region.GROUP_KERNEL_MIN_WORK
         region.GROUP_KERNEL_MIN_WORK = 1 << 62
         try:
-            replaced_ms = cuda_ms(plain_path, 3)
+            row["replaced_plain_path_ms"] = cuda_ms(plain_path, 3)
         finally:
             region.GROUP_KERNEL_MIN_WORK = threshold
-        rows.append({
-            "shape": label, "max_abs_err": max_err(got, ref),
-            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
-            "bytes": nbytes(x, c, *got),
-            "ops": c.shape[0] * c.shape[1] * N_POINTS * 9 + in_radius * 10,
-            "replaced_plain_path_ms": replaced_ms})
+        rows.append(row)
+        scan_calls[f"group_regions {label}"] = kernel
     record_rows(record, "group_regions", CSRC + "group.cu",
                 JAX_OPS + "group_pallas.py:119", rows)
-    results["group_regions"]["replaced_plain_path_ms"] = rows[0][
-        "replaced_plain_path_ms"]
+    got = group.group_regions_fused(xyz, c4000, 21, 0.008, 256, Lg)
 
     # K4: region pool (4000 x 256 slots x 256 channels) and refine pool
     groups = region.group_regions([21], xyz, c4000, 256, 0.008)
@@ -1198,32 +1338,43 @@ def main() -> None:
         N_POINTS)) and float(f.grad.sum()) == pooled.numel(),
         "the pool's gradient is not the scatter of its winners")
 
-    # K5: crop of 4000 proposals around the selected centers
-    axis = torch.nn.functional.normalize(torch.randn(1, N_CENTERS, 3,
-                                                     device=dev), dim=-1)
-    theta = (torch.rand(1, N_CENTERS, 1, device=dev) * 2 - 1) * np.pi
-    frames, bases = grasps_to_frames(torch.cat([c4000, axis, theta], -1))
-    frames, bases = frames.contiguous(), bases.contiguous()
+    # K5: crop of 4000 proposals around the selected centers (the serving
+    # path), and of the training and validation shapes' 64 proposals
+    # (there the crop takes its plain path: checked, not on a path)
     box = (0.0, 0.03, 0.04, 0.005)
-    got = crop.closing_region_crop(xyz, frames, bases, 12345, box, 64, L)
-    ref = crop.crop_plain(xyz, frames, bases, 12345, box, 64, L)
-    check(all(torch.equal(g, r) for g, r in zip(got, ref)),
-          "K5 crop differs from its plain version")
-    inside = int(got[1].sum())
-    print(f"crop: {inside} inside points, "
-          f"{int((got[1] > 5).sum())} proposals with > 5")
-    record("crop", "regnet_for_3d_grasping_torch/csrc/crop.cu",
-           "regnet_for_3d_grasping_tpu/ops/crop_pallas.py:145",
-           max_err(got, ref),
-           cuda_ms(lambda: crop.closing_region_crop(
-               xyz, frames, bases, 12345, box, 64, L), 20),
-           cuda_ms(lambda: crop.crop_plain(
-               xyz, frames, bases, 12345, box, 64, L), 5),
-           nbytes(xyz, frames, bases, *got),
-           N_CENTERS * N_POINTS * 22 + inside * 8)
+    rows = []
+    for label, x, c in (
+            ("serving: 4000 proposals x 25600 points", xyz, c4000),
+            ("training: 12 clouds x 64 proposals", tx, c12),
+            ("validation: 1 cloud x 64 proposals", xyz, c64)):
+        B, M = c.shape[:2]
+        gen = torch.Generator().manual_seed(M)
+        axis = torch.nn.functional.normalize(
+            torch.randn(B, M, 3, generator=gen), dim=-1).to(dev)
+        theta = ((torch.rand(B, M, 1, generator=gen) * 2 - 1) * np.pi
+                 ).to(dev)
+        frames, bases = grasps_to_frames(torch.cat([c, axis, theta], -1))
+        frames, bases = frames.contiguous(), bases.contiguous()
+
+        def kernel(x=x, frames=frames, bases=bases):
+            return crop.closing_region_crop(x, frames, bases, 12345, box,
+                                            64, L)
+
+        def plain(x=x, frames=frames, bases=bases):
+            return crop.crop_plain(x, frames, bases, 12345, box, 64, L)
+
+        test_ops, (in_z, in_zx) = box_test_ops(x, frames, bases, box)
+        print(f"crop {label}: {in_z} pairs inside the z slab, {in_zx} "
+              f"inside the z and x slabs")
+        rows.append(bucket_scan_case("crop", label, kernel, plain,
+                                     (x, frames, bases), test_ops, "crop",
+                                     64, L))
+        scan_calls[f"crop {label}"] = kernel
+    record_rows(record, "crop", CSRC + "crop.cu",
+                JAX_OPS + "crop_pallas.py:145", rows)
 
     # K6-K10 on the same cloud in slab order
-    backward_rows += slab_kernels(dev, xyz, record)
+    backward_rows += slab_kernels(dev, xyz, record, scan_calls)
     record_rows(record, "gather_max_backward", CSRC + "gather_max.cu",
                 JAX_OPS + "pooling.py:285 (the XLA scatter-add of the "
                 "custom VJPs, also slab.py:1090)", backward_rows)

@@ -134,15 +134,18 @@ def device_kernels(prof) -> list:
 
 def own_kernels(rows: list) -> list:
     """The rows of the kernels of ``csrc/``: they live in anonymous
-    namespaces at global scope (so do a few of PyTorch's), under the names
-    their sources define."""
+    namespaces at global scope (so do a few of PyTorch's) or in the named
+    namespaces of its headers, under the names their sources define."""
     import re
 
     from regnet_for_3d_grasping_torch.ops._cuda import CSRC
-    names = {m for src in CSRC.glob("*.cu") for m in re.findall(
-        r"\b(\w+_kernel)\s*\(", src.read_text())}
+    texts = [src.read_text() for pattern in ("*.cu", "*.cuh")
+             for src in CSRC.glob(pattern)]
+    names = {m for t in texts for m in re.findall(r"\b(\w+_kernel)\s*\(", t)}
+    spaces = {"(anonymous namespace)"} | {
+        m for t in texts for m in re.findall(r"namespace (\w+) \{", t)}
     return [e for e in rows if any(
-        f"(anonymous namespace)::{n}" in e.key for n in names)]
+        f"{s}::{n}" in e.key for s in spaces for n in names)]
 
 
 def profile_train(args) -> None:

@@ -7,6 +7,8 @@ kernels' plain PyTorch versions:
   K4  pooling.gather_max                 csrc/gather_max.cu
       (forward, argmax form, and the first-winner backward shared with K9)
   K5  crop.closing_region_crop           csrc/crop.cu
+      (K5 and K11 share the bucket scan of csrc/bucket_scan.cuh, grid by
+      bucket_scan.scan_grid: a scan and a fill, two launches a call)
   K6-K9  slab.*                          csrc/slab_select.cu,
                                          three_nn_slab.cu, gather_max_slab.cu
       (K6 and K7 build their span table and fill their empty slots on the

@@ -1,11 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
 Each ``csrc/<source>.cu`` has a plain C interface with one entry point per
-kernel.  On first use all of them are compiled together, one ``nvcc``
-process per source, into ``csrc/build/`` (named by a hash of source and
-flags, so an edit rebuilds), and loaded with ``ctypes``.  Nothing is built
-or imported at module import time: this module is imported on machines
-without a card.
+kernel (headers ``csrc/*.cuh`` hold what several share).  On first use all
+of them are compiled together, one ``nvcc`` process per source, into
+``csrc/build/`` (named by a hash of source, headers and flags, so an edit
+rebuilds), and loaded with ``ctypes``.  Nothing is built or imported at
+module import time: this module is imported on machines without a card.
 
 Every launch goes through `launch`, which adds one to ``launches[name]``
 and raises if the C entry point reports a CUDA error.  ``fallbacks`` counts
@@ -48,8 +48,8 @@ SIGNATURES = {
                  (_P, _P, _P, _P, _I, _I, _I, _P)),
     "gather_max": ("gather_max", "regnet_gather_max",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "crop": ("crop", "regnet_crop", (_P, _P, _P, _U, _P, _P, _I, _I, _I, _I,
-                                     _I, _F, _F, _F, _F, _P)),
+    "crop": ("crop", "regnet_crop", (_P, _P, _P, _U, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _F, _F, _F, _P)),
     "group_slab": ("slab_select", "regnet_group_slab",
                    (_P, _P, _P, _U, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, _I, _I, _F, _F, _F, _P)),
@@ -61,7 +61,8 @@ SIGNATURES = {
     "gather_max_slab": ("gather_max_slab", "regnet_gather_max_slab",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "group_regions": ("group", "regnet_group_regions",
-                      (_P, _P, _U, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+                      (_P, _P, _U, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _P)),
     "gather_max_argmax": ("gather_max", "regnet_gather_max_argmax",
                           (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max_backward": ("gather_max", "regnet_gather_max_backward",
@@ -70,9 +71,17 @@ SIGNATURES = {
         "gather_max_slab", "regnet_gather_max_slab_argmax",
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
-# C entry points that launch nothing (occupancy queries), not counted;
-# each returns its answer, or minus the CUDA error
-QUERIES = {"fps_max_clusters": ("fps", "regnet_fps_max_clusters", (_I, _I))}
+# C entry points that launch nothing (an occupancy query, the bucket scan's
+# compile-time constants), not counted; each returns its answer, or minus
+# the CUDA error
+QUERIES = {
+    "fps_max_clusters": ("fps", "regnet_fps_max_clusters", (_I, _I)),
+    "group_regions_per_warp": ("group", "regnet_group_regions_per_warp", ()),
+    "group_regions_stage_cols": ("group", "regnet_group_regions_stage_cols",
+                                 ()),
+    "crop_per_warp": ("crop", "regnet_crop_per_warp", ()),
+    "crop_stage_cols": ("crop", "regnet_crop_stage_cols", ()),
+}
 KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
@@ -100,8 +109,11 @@ def nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{source}.cu").read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the headers count for every source: an edit of one rebuilds them all
+    h = hashlib.sha256(b"".join(
+        p.read_bytes() for p in [CSRC / f"{source}.cu",
+                                 *sorted(CSRC.glob("*.cuh"))])
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source}-{h}.so"
 
 

@@ -1,6 +1,8 @@
 """Gripper closing-region crop, the fused form (JAX ``ops/crop_pallas.py``).
 
-Kernel K5 (``csrc/crop.cu``) and its plain version `crop_plain`.  For each
+Kernel K5 (``csrc/crop.cu``, the center-tiled bucket scan of
+``csrc/bucket_scan.cuh`` with a box test; grid by
+`ops.bucket_scan.scan_grid`) and its plain version `crop_plain`.  For each
 proposal m and bucket b of L points: move every point into the gripper
 frame, test the closing box, and pick the inside point with the largest
 23-bit counter-hash noise (first index on ties); the count of inside
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from regnet_for_3d_grasping_torch.ops import _cuda
+from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
 from regnet_for_3d_grasping_torch.ops.sampling import fill_empty_buckets
 
 _U32 = 0xFFFFFFFF
@@ -36,11 +38,12 @@ def closing_region_crop(xyz: torch.Tensor, frames: torch.Tensor,
     _cuda.check(centers, "crop centers", torch.float32, (B, M, 3))
     if K * L < N or M == 0:
         raise ValueError(f"crop: K*L={K * L} must cover N={N}")
+    tile, rng, partial = bucket_scan.scan_args("crop", xyz, M, K, L)
     idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
     count = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
     _cuda.launch("crop", xyz.device, xyz, frames, centers,
-                 int(seed) & _U32, idx, count, B, N, M, K, L,
-                 *(float(np.float32(v)) for v in box))
+                 int(seed) & _U32, idx, count, partial, B, N, M, K, L, tile,
+                 rng, *(float(np.float32(v)) for v in box))
     return idx, count
 
 

@@ -1,7 +1,9 @@
 """Radius grouping of the proposal regions, the fused form (JAX
 ``ops/group_pallas.py``).
 
-Kernel K11 (``csrc/group.cu``) and its plain version
+Kernel K11 (``csrc/group.cu``, the center-tiled bucket scan of
+``csrc/bucket_scan.cuh`` with a radius test; grid by
+`ops.bucket_scan.scan_grid`) and its plain version
 `group_regions_fused_plain`.  For each center m and bucket b of L columns:
 test ``d2 <= r2`` on exact differences, and pick the in-radius column with
 the largest 23-bit counter-hash noise (first column on ties); the count of
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from regnet_for_3d_grasping_torch.ops import _cuda
+from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
 from regnet_for_3d_grasping_torch.ops.sampling import fill_empty_buckets
 
 _U32 = 0xFFFFFFFF
@@ -42,10 +44,12 @@ def group_regions_fused(xyz: torch.Tensor, centers: torch.Tensor, seed: int,
     _cuda.check(centers, "group_regions centers", torch.float32, (B, M, 3))
     if K * L < N or M == 0:
         raise ValueError(f"group_regions: K*L={K * L} must cover N={N}")
+    tile, rng, partial = bucket_scan.scan_args("group_regions", xyz, M, K, L)
     idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
     count = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
     _cuda.launch("group_regions", xyz.device, xyz, centers,
-                 int(seed) & _U32, idx, count, B, N, M, K, L, radius2(radius))
+                 int(seed) & _U32, idx, count, partial, B, N, M, K, L, tile,
+                 rng, radius2(radius))
     return idx, count
 
 
