@@ -14,16 +14,24 @@ result unless every phase passed):
    slab-sorted cloud) and, for K1 and K10 (at every shape the serving and
    training paths launch, and at their edge cases, with the cluster size
    chosen for each, and every cluster size timed apart at the main
-   shapes), K6 and K7, the grouping kernel K11 and the crop K5 (also at a
-   validation forward's 64 centers, and both at small edge shapes, with
-   the grid `ops/bucket_scan.scan_grid` picks, pairs per ns and the bound's
-   share printed, and each call's device activities counted: scan and
-   fill) and the argmax and backward forms of the pools K4 and K9, of the
+   shapes), K6 and K7, the SA1 ball query K2 (also at a training batch of
+   12 clouds), the grouping kernel K11 and the crop K5 (also at a
+   validation forward's 64 centers; the three at small edge shapes, some
+   with buckets wider than 1,024 columns or than a block stages, with
+   the grid `ops/bucket_scan.scan_grid` picks, pairs per ns and the
+   bound's share printed, and each call's device activities counted: scan
+   and fill), the FP3 3-NN K3 (at serving, at a training batch and on the
+   slab fallback's x-sorted keys, with the grid `ops/knn.split_grid`
+   picks, pairs per ns, the bound's share, the kernel timed at several
+   grids, edge shapes, and each call's device activities counted:
+   split, and merge where it splits the keys) and the argmax and backward
+   forms of the pools K4 and K9, of the
    training paths (12 clouds, 64 centers), with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
-   their span tables scan and the pairs that pass; for K11 and K5 from the
-   operations an exact test needs on the run's pairs and the pairs that
-   pass), and a library call where one computes the same function.  A K6
+   their span tables scan and the pairs that pass; for K11, K5, K2 and K3
+   from the operations an exact test needs on the run's pairs and the
+   pairs that pass), and a library call where one computes the same
+   function.  A K6
    or K7 call (span table, selection, fill) is held against
    ``slab_bounds``, the plain selection and ``finish_select``, span table
    included, and its device activities are counted with ``torch.profiler``
@@ -366,10 +374,15 @@ def kernel_profile(calls: dict, reps: int = 5) -> dict:
     inside its own ``record_function`` range under one torch.profiler
     session (the card's events of a range are those that start inside it:
     each range ends with a synchronize).  Every kernel launch and every
-    copy or memset that a call puts on the card counts."""
+    copy or memset that a call puts on the card counts.  A range idles
+    `gap` seconds before its first call and after its synchronize: the
+    card's timestamps, brought onto the host's clock, landed an event of
+    one range inside its neighbour when the ranges touched (2.2 activities
+    a call in one run of a two-launch call)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile, record_function
+    gap = 0.005
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -377,9 +390,11 @@ def kernel_profile(calls: dict, reps: int = 5) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for label, fn in calls.items():
             with record_function(label):
+                time.sleep(gap)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(gap)
     events = prof.events()
     # the card's events, less the ranges' own annotations on the card
     device = [e for e in events
@@ -436,12 +451,15 @@ def select_launches(cases: dict, scan_calls: dict) -> None:
     """The device activities of one K6 or K7 call, at every shape of
     `cases` {label: (record row, public call)}: the three launches (span
     table, selection, fill) and nothing else, each kernel's device time
-    added to the row; and of one K11 or K5 call, at every shape of
-    `scan_calls` {label: call}: its two launches (scan and fill), no copy,
-    no memset.  One profiler session for all (a later session in the same
-    process can lose or misplace device events)."""
+    added to the row; and of one call of K11, K5, K2 or K3 at every shape
+    of `scan_calls` {label: (call, the kernels it launches)}: those
+    launches (K11, K5, K2: scan and fill; K3: the split, and the merge
+    where it splits the keys), no copy, no memset.  One profiler session
+    for all (a later session in the same process can lose or misplace
+    device events)."""
     prof = kernel_profile({label: fn for label, (_, fn) in cases.items()}
-                          | scan_calls)
+                          | {label: fn for label, (fn, _) in
+                             scan_calls.items()})
     for label, (row, _) in cases.items():
         n_act, per_kernel = prof[label]
         print(f"{label}: {n_act:g} device activities a call, device ms "
@@ -452,27 +470,38 @@ def select_launches(cases: dict, scan_calls: dict) -> None:
               f"{per_kernel}")
         row["launches_per_call"] = n_act
         row["kernel_device_ms"] = per_kernel
-    for label in scan_calls:
+    for label, (_, kernels) in scan_calls.items():
         n_act, per_kernel = prof[label]
         print(f"{label}: {n_act:g} device activities a call, device ms "
               f"{per_kernel}")
-        check(n_act == 2 and {"bucket_scan_kernel", "bucket_fill_kernel"}
-              <= set(per_kernel), f"{n_act} device activities in one call "
-              f"({label}), expected the scan and the fill: {per_kernel}")
+        check(n_act == len(kernels) and set(kernels) == set(per_kernel),
+              f"{n_act} device activities in one call ({label}), expected "
+              f"{sorted(kernels)}: {per_kernel}")
 
 
-def radius_test_ops(x, c, r2: float, chunk: int = 256) -> tuple:
-    """The float operations an exact radius test (K11's, d = center -
-    point) needs on this run's pairs, and the pairs inside the x slab: dx,
-    its square and a compare (3) on every pair, since the rounded sum of
-    squares is at least dx*dx; dy, dz, their squares, two adds and the
-    compare (7) only where dx*dx <= r2."""
-    slab = 0
+def radius_test_ops(x, c, r2: float, strict: bool = False,
+                    chunk: int = 256) -> tuple:
+    """The float operations an exact radius test (K11's d2 <= r2, or K2's
+    d2 < r2 with `strict`; d = center - point squares as point - center
+    does) needs on this run's pairs, the pairs inside the x slab and the
+    pairs in radius: dx, its square and a compare (3) on every pair, since
+    the rounded sum of squares is at least dx*dx; dy, dz, their squares,
+    two adds and the compare (7) only inside the slab (dx*dx <= r2, or
+    < r2)."""
+    slab = inside = 0
     for m0 in range(0, c.shape[1], chunk):
-        dx = c[:, m0:m0 + chunk, None, 0] - x[:, None, :, 0]
-        slab += int((dx * dx <= r2).sum())
+        d = [c[:, m0:m0 + chunk, None, i] - x[:, None, :, i]
+             for i in range(3)]
+        xx = d[0] * d[0]
+        d2 = (xx + d[1] * d[1]) + d[2] * d[2]
+        if strict:
+            slab += int((xx < r2).sum())
+            inside += int((d2 < r2).sum())
+        else:
+            slab += int((xx <= r2).sum())
+            inside += int((d2 <= r2).sum())
     pairs = c.shape[0] * c.shape[1] * x.shape[1]
-    return pairs * 3 + slab * 7, slab
+    return pairs * 3 + slab * 7, slab, inside
 
 
 def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
@@ -480,9 +509,10 @@ def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
     needs on this run's pairs, and the pairs inside the z slab and inside
     the z and x slabs: the offset and the frame's z row, its abs and a
     compare (10) on every pair; the x row and its two compares (7) only
-    inside the z slab; the y row, abs and compare (7) only inside both."""
-    xlo, xhi, _, zabs = (float(np.float32(v)) for v in box)
-    in_z = in_zx = 0
+    inside the z slab; the y row, abs and compare (7) only inside both.
+    Also the pairs inside the box."""
+    xlo, xhi, yabs, zabs = (float(np.float32(v)) for v in box)
+    in_z = in_zx = inside = 0
     for m0 in range(0, frames.shape[1], chunk):
         f = frames[:, m0:m0 + chunk]
         c = bases[:, m0:m0 + chunk]
@@ -494,62 +524,73 @@ def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
 
         z = row(2).abs() < zabs
         l0 = row(0)
+        zx = z & (l0 > xlo) & (l0 < xhi)
         in_z += int(z.sum())
-        in_zx += int((z & (l0 > xlo) & (l0 < xhi)).sum())
+        in_zx += int(zx.sum())
+        inside += int((zx & (row(1).abs() < yabs)).sum())
     pairs = frames.shape[0] * frames.shape[1] * x.shape[1]
-    return pairs * 10 + in_z * 7 + in_zx * 7, (in_z, in_zx)
+    return pairs * 10 + in_z * 7 + in_zx * 7, (in_z, in_zx), inside
 
 
-def bucket_scan_case(name, label, call, plain, inputs, test_ops, kernel,
+def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
                      k, bucket) -> dict:
-    """Phase 3 for one K11 or K5 shape: the call against its plain version
-    (indices and counts equal to the bit); its time with and without the
-    host, and the plain version's; the grid that ``ops/bucket_scan.
-    scan_grid`` picks with `kernel`'s constants; pairs per ns and the
-    bound's share of the device time.  The bound counts `test_ops`, the
-    operations of an exact test on this run's pairs (`radius_test_ops`,
-    `box_test_ops`), and 10 per passing pair (hash and argmax), which
-    `count` sums exactly."""
-    from regnet_for_3d_grasping_torch.ops import bucket_scan
+    """Phase 3 for one K11, K5 or K2 shape: the call against its plain
+    version (indices and counts equal to the bit); its time with and
+    without the host, and the plain version's; the grid that
+    ``ops/bucket_scan.scan_grid`` picks with `kernel`'s constants; pairs
+    per ns and the bound's share of the device time.  The bound counts
+    `ops`: an exact test on this run's pairs (`radius_test_ops`,
+    `box_test_ops`) and the pick's work on the `passing` pairs."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
     got, ref = call(), plain()
     check(all_equal(got, ref),
           f"{name} differs from its plain version ({label})")
     (batch, m), n = got[1].shape, inputs[0].shape[1]
     dev = got[0].device
     grid = bucket_scan.scan_grid(batch, m, n, k, bucket,
-                                 bucket_scan.sm_count(dev),
+                                 _cuda.sm_count(dev),
                                  *bucket_scan.limits(kernel, dev))
-    pairs, passing = batch * m * n, int(got[1].sum())
+    pairs = batch * m * n
     row = {"shape": label, "max_abs_err": max_err(got, ref),
            "ms": cuda_ms(call, 20), "plain_ms": cuda_ms(plain, 3),
            "device_ms": device_ms(call, 20),
-           "bytes": nbytes(*inputs, *got),
-           "ops": test_ops + passing * 10, "grid": list(grid)}
+           "bytes": nbytes(*inputs, *got), "ops": ops, "grid": list(grid)}
     row["pairs_per_ns"] = pairs / row["device_ms"] / 1e6
     row["bound_share"] = bound(row["bytes"], row["ops"])[0] / row["device_ms"]
     print(f"{name} {label}: tile {grid[0]} x range {grid[1]}, {pairs} "
           f"pairs, {passing} passing, {int((got[1] > 0).sum())} of {m * batch}"
           f" rows non-empty, {row['ops']} operations, "
           f"{row['pairs_per_ns']:.1f} pairs/ns, bound share "
-          f"{row['bound_share']:.3f}")
+          f"{row['bound_share']:.3f}, call {row['ms']:.4f} ms, device "
+          f"{row['device_ms']:.4f} ms")
     return row
 
 
 def bucket_scan_edges(dev) -> None:
-    """K11 and K5 against their plain versions at small shapes: M not a
-    multiple of any tile, M = 1, B = 3, N not a multiple of L, K*L > N,
-    L = 512 for both (K5's serving width), the last center far from every
-    point; points exactly on the radius of center 0 (0.125 - 0.0625 =
-    0.0625: d2 = r2) and just outside it, and, in center 0's identity
+    """K11, K5 and K2 against their plain versions at small shapes: M not
+    a multiple of any tile, M = 1, B = 3, N not a multiple of L, K*L > N,
+    L = 512 (the serving width of K5 and K2), L = 1,280 (two 1,024-column
+    segments a bucket), L = 4,608 (wider than a block stages: windows of
+    3,072 columns, the last bucket cut at N), the last center far from
+    every point, more points in radius than K (K2 caps its count); points
+    exactly on the radius of center 0 (0.125 - 0.0625 = 0.0625: d2 = r2,
+    inside for K11, outside for K2) and just outside it, and, in center 0's
+    identity
     frame, exactly on the box's faces (all outside) beside two inside; a
-    frame that is not orthonormal."""
+    frame that is not orthonormal.  Then K2 through `ball_query` at
+    N = 25,600 with K = 8, 16 and 24 (L = 3,200, 1,664 and 1,152), M =
+    1,400: shapes the dispatcher sends to the kernel, with buckets wider
+    than 1,024 columns."""
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
-    from regnet_for_3d_grasping_torch.ops import crop, group, sampling
+    from regnet_for_3d_grasping_torch.ops import (ball_query, crop, group,
+                                                  sampling)
     g = torch.Generator().manual_seed(7)
     box = (0.0, 0.03125, 0.015625, 0.0078125)
+    r2 = float(np.float32(0.0625 ** 2))
     for B, N, M, K in ((3, 1100, 130, 16), (1, 1100, 1, 16),
                        (2, 5000, 77, 64), (3, 700, 65, 8),
-                       (2, 3500, 70, 8)):
+                       (2, 3500, 70, 8), (2, 5000, 70, 4),
+                       (1, 9000, 33, 2)):
         x = torch.rand(B, N, 3, generator=g) * 0.25
         c = x[:, torch.randperm(N, generator=g)[:M]].clone()
         c[:, -1] = 5.0
@@ -582,8 +623,295 @@ def bucket_scan_edges(dev) -> None:
         rc = crop.crop_plain(x, frames, bases, 9, box, K, L)
         check(all_equal(gc, rc), f"K5 differs at edge shape B={B} N={N} "
               f"M={M} K={K} L={L}")
+        gb = ball_query.ball_query_bucketed(x, c, r2, K, L)
+        rb = ball_query.ball_query_bucketed_plain(x, c, r2, K, L)
+        check(all_equal(gb, rb), f"K2 differs at edge shape B={B} N={N} "
+              f"M={M} K={K} L={L}")
         print(f"edge B={B} N={N} M={M} K={K} L={L}: K11 {int(got[1].sum())}"
-              f" in radius, K5 {int(gc[1].sum())} inside; both equal")
+              f" in radius, K5 {int(gc[1].sum())} inside, K2 "
+              f"{int((gb[1] == K).sum())} of {B * M} counts capped at K; all "
+              f"equal")
+    x = torch.rand(1, 25600, 3, generator=g).to(dev) * 0.25
+    c = x[:, :1400].contiguous()
+    r = 0.01    # about 7 points in radius: first hits in every segment
+    for K in (8, 16, 24):
+        L = sampling.pallas_bucket_stride(25600, K)
+        check(ball_query.use_kernel(1400, 25600, K) and L > 1024,
+              f"K2 edge K={K}: not a kernel shape with L > 1024")
+        got = ball_query.ball_query(x, c, r, K)
+        ref = ball_query.ball_query_bucketed_plain(
+            x, c, float(np.float32(r * r)), K, L)
+        check(all_equal(got, ref), f"K2 differs at N=25600 K={K} L={L}")
+        print(f"edge K2 through ball_query N=25600 M=1400 K={K} L={L}: "
+              f"{int((got[1] == K).sum())} of 1400 counts capped; equal")
+
+
+def ball_query_kernels(xyz, centers, tx, c12, record, scan_calls) -> None:
+    """Phase 3 for K2, the SA1 ball query (r 0.02, K 64, L 512) on the
+    bucket scan, against its plain version at serving (the cloud's 5,120
+    SA1 `centers`) and at a training batch (the 12 clouds `tx` and their
+    5,120 SA1 centers `c12`), with the grid, pairs/ns and the bound's
+    share (its edge shapes run in `bucket_scan_edges`); its two launches a
+    call are counted in `select_launches`.  The bound counts an exact
+    strict radius test on this run's pairs (`radius_test_ops`) and, on
+    each pair in radius, its count and its place in the bucket's first-hit
+    minimum (2)."""
+    from regnet_for_3d_grasping_torch.ops import ball_query, sampling
+    r2 = float(np.float32(0.02 * 0.02))
+    L = sampling.pallas_bucket_stride(N_POINTS, 64)
+    rows = []
+    for label, x, c in (
+            ("serving: 5120 centers x 25600 points", xyz, centers),
+            ("training: 12 clouds x 5120 centers x 25600 points", tx,
+             c12)):
+        def kernel(x=x, c=c):
+            return ball_query.ball_query_bucketed(x, c, r2, 64, L)
+
+        def plain(x=x, c=c):
+            return ball_query.ball_query_bucketed_plain(x, c, r2, 64, L)
+
+        test_ops, slab, inside = radius_test_ops(x, c, r2, strict=True)
+        print(f"ball_query {label}: {slab} pairs inside the x slab, {inside} "
+              f"in radius")
+        rows.append(bucket_scan_case("ball_query", label, kernel, plain,
+                                     (x, c), test_ops + 2 * inside, inside,
+                                     "ball_query", 64, L))
+        scan_calls[f"ball_query {label}"] = (
+            kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
+    record_rows(record, "ball_query", CSRC + "ball_query.cu",
+                JAX_OPS + "ball_query_pallas.py:154", rows)
+
+
+def sa1_centers(x) -> torch.Tensor:
+    """[B, 5120, 3]: the SA1 centers of the clouds `x` (unmasked FPS)."""
+    from regnet_for_3d_grasping_torch.ops import fps
+    i = fps.fps(x, fps.dist_init(x, None), 5120).long()
+    return torch.gather(x, 1, i[..., None].expand(-1, -1, 3)).contiguous()
+
+
+def three_nn_forced(q, k, Q, S) -> tuple:
+    """(launch, idx, dist): K3 on a given grid, into outputs of its own
+    (the grid sweeps and the edge shapes)."""
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    (B, N1, _), N2 = q.shape, k.shape[1]
+    idx = torch.empty(B, N1, 3, dtype=torch.int32, device=q.device)
+    dist = torch.empty(B, N1, 3, device=q.device)
+    pi = torch.empty(B, S, 3, N1, dtype=torch.int32, device=q.device)
+    pd = torch.empty(B, S, 3, N1, device=q.device)
+
+    def launch():
+        _cuda.launch("three_nn", q.device, q, k, idx, dist, pi, pd, B, N1, N2,
+                     Q, S)
+    return launch, idx, dist
+
+
+def three_nn_insertions(q, k, ranges: int, tiles: int = 8) -> tuple:
+    """How often K3's steps take their insertion branch, replayed in numpy
+    on the first cloud for `tiles` tiles of 256 queries spread evenly over
+    it, each range from an empty best three, with three_nn.cu's constants:
+    (the mean insertions a query, the share of a warp's steps in which one
+    of its queries takes the branch; a warp holds 32 queries and the 32
+    that are 128 further)."""
+    import re
+    src = (ROOT / CSRC / "three_nn.cu").read_text()
+    chunk, step = (int(re.search(rf"\b{n} = (\d+);", src).group(1))
+                   for n in ("kChunk", "kStep"))
+    first = np.linspace(0, q.shape[1] // 256 - 1, tiles).round().astype(int)
+    qq = q[0].cpu().numpy()[(first[:, None] * 256
+                             + np.arange(256)).ravel()]
+    kk = k[0].cpu().numpy()
+    warps = np.array([t * 256 + w * 32 + np.arange(32) + h * 128
+                      for t in range(tiles) for w in range(4)
+                      for h in range(2)]).reshape(-1, 64)
+    inf = np.float32(3e38)
+
+    def dist(keys):
+        d = [keys[None, :, i] - qq[:, None, i] for i in range(3)]
+        return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+
+    span, inserted, taken = -(-kk.shape[0] // ranges), 0, []
+    for r0 in range(0, kk.shape[0], span):
+        best = np.full((len(qq), 3), inf, np.float32)
+        for c0 in range(r0, min(kk.shape[0], r0 + span), chunk):
+            d = dist(kk[c0:min(kk.shape[0], r0 + span, c0 + chunk)])
+            d = np.pad(d, ((0, 0), (0, -d.shape[1] % step)),
+                       constant_values=np.nan)
+            for s0 in range(0, d.shape[1], step):
+                with np.errstate(invalid="ignore"):
+                    hit = (d[:, s0:s0 + step] < best[:, 2:]).any(1)
+                taken.append(hit[warps].any(1))
+                for x in d[hit, s0:s0 + step].T:      # strict, in key order
+                    b = best[hit]
+                    c = x[:, None] < b
+                    inserted += int(c[:, 2].sum())
+                    b0, b1 = b[:, :1], b[:, 1:2]
+                    x1 = x[:, None]
+                    best[hit] = np.where(c[:, :1], np.c_[x1, b0, b1],
+                                         np.where(c[:, 1:2], np.c_[b0, x1, b1],
+                                                  np.where(c[:, 2:],
+                                                           np.c_[b[:, :2], x1],
+                                                           b)))
+    return inserted / len(qq), float(np.mean(taken))
+
+
+def three_nn_case(label, q, k, ranges, sorted_keys=False) -> dict:
+    """Phase 3 for one K3 shape: the call against `three_nn_plain`
+    (indices equal, distances within rtol 1e-6); its time with and without
+    the host, and the plain version's; the grid (Q, S) of
+    ``ops/knn.split_grid`` (`sorted_keys`: the keys sorted in x, as the
+    slab fallback passes them); pairs/ns and the bound's share; and the device
+    time of the kernel at Q = 1 and 2 and every S of `ranges` and the
+    rule's, each equal to the call to the bit.  The bound counts
+    what any exact scan does: dx, its square and a compare (3) on every
+    pair; the rest of the distance and the compare (7) only on a pair
+    whose dx*dx is under its query's final third distance (taken from the
+    plain version's output), since the rounded sum is at least dx*dx."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, knn
+    def kernel():
+        return knn.three_nn_kernel(q, k, sorted_keys)
+
+    got, ref = kernel(), knn.three_nn_plain(q, k)
+    check(torch.equal(got[0], ref[0]), f"K3 3-NN indices differ ({label})")
+    check(torch.allclose(got[1], ref[1], rtol=1e-6, atol=0),
+          f"K3 3-NN distances differ beyond rtol 1e-6 ({label})")
+    (B, N1, _), N2 = q.shape, k.shape[1]
+    threads, max_q = knn.limits(q.device)
+    grid = knn.split_grid(B, N1, N2, _cuda.sm_count(q.device), threads,
+                          max_q, sorted_keys)
+    d3 = ref[1][..., 2]
+    slab = 0
+    for q0 in range(0, N1, 1024):
+        dx = k[:, None, :, 0] - q[:, q0:q0 + 1024, None, 0]
+        slab += int((dx * dx < d3[:, q0:q0 + 1024, None]).sum())
+    pairs = B * N1 * N2
+    row = {"shape": label, "max_abs_err": max_err(got, ref),
+           "ms": cuda_ms(kernel, 20),
+           "plain_ms": cuda_ms(lambda: knn.three_nn_plain(q, k), 3),
+           "device_ms": device_ms(kernel, 20),
+           "bytes": nbytes(q, k, *got), "ops": pairs * 3 + slab * 7,
+           "grid": list(grid)}
+    row["pairs_per_ns"] = pairs / row["device_ms"] / 1e6
+    row["bound_share"] = bound(row["bytes"], row["ops"])[0] / row["device_ms"]
+    sweep = {}
+    for Q in (1, max_q):
+        for S in sorted(set(ranges) | {grid[1]}):
+            launch, idx, dist = three_nn_forced(q, k, Q, S)
+            launch()
+            check(torch.equal(idx, got[0]) and torch.equal(dist, got[1]),
+                  f"K3 differs at Q={Q} S={S} ({label})")
+            sweep[f"Q={Q} S={S}"] = device_ms(launch, 10)
+    row["device_ms_by_grid"] = sweep
+    row["insertions_per_query"], row["steps_inserting"] = \
+        three_nn_insertions(q, k, grid[1])
+    print(f"three_nn {label}: Q {grid[0]} x S {grid[1]} ({threads} threads "
+          f"a block), {pairs} pairs, {slab} inside their query's final x "
+          f"slab, {row['insertions_per_query']:.1f} insertions a query and "
+          f"{row['steps_inserting']:.3f} of a warp's 4-key steps inserting "
+          f"(8 tiles of 256 queries), {row['pairs_per_ns']:.1f} pairs/ns, "
+          f"bound share {row['bound_share']:.3f}, call {row['ms']:.4f} ms, "
+          f"device {row['device_ms']:.4f} ms; device ms by grid: "
+          + ", ".join(f"{v} {t:.4f}" for v, t in sweep.items()))
+    return row
+
+
+def three_nn_edges(dev) -> None:
+    """K3 against `three_nn_plain` at small shapes, on the rule's grid and
+    on forced ones: N1 not a multiple of any
+    tile; equal keys on both sides of every range boundary of the rule's
+    grid, among coarse keys with many equal distances; N2 = 3; N2 not a
+    multiple of the range; and ranges shorter than three keys (N2 = 7 in 4
+    or 7 ranges)."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, knn
+    g = torch.Generator().manual_seed(11)
+    coarse = torch.randint(0, 16, (1, 5120, 3), generator=g) / 16.0
+    S = knn.split_grid(1, 25600, 5120, _cuda.sm_count(dev),
+                       *knn.limits(dev))[1]
+    span = -(-5120 // S)
+    for j in range(span, 5120, span):
+        coarse[:, j] = coarse[:, j - 1]
+    cases = [  # (label, query, key, forced grids (Q, S))
+        ("N1 = 1000, not a multiple of a tile, B = 2",
+         torch.rand(2, 1000, 3, generator=g),
+         torch.rand(2, 5120, 3, generator=g), ()),
+        (f"equal keys across each of the {S} ranges' boundaries",
+         torch.randint(0, 32, (1, 25600, 3), generator=g) / 32.0, coarse,
+         ()),
+        ("N2 = 3", torch.rand(2, 300, 3, generator=g),
+         torch.rand(2, 3, 3, generator=g), ((1, 1), (2, 3))),
+        ("N2 = 301 in 4 and 7 ranges, B = 3",
+         torch.rand(3, 777, 3, generator=g),
+         torch.randint(0, 4, (3, 301, 3), generator=g) / 4.0,
+         ((1, 4), (2, 7))),
+        ("N2 = 7 in 4 and 7 ranges (fewer than 3 keys a range)",
+         torch.randint(0, 4, (1, 500, 3), generator=g) / 4.0,
+         torch.randint(0, 2, (1, 7, 3), generator=g) / 2.0,
+         ((1, 4), (2, 7)))]
+    for label, q, k, forced in cases:
+        q, k = q.to(dev).contiguous(), k.to(dev).contiguous()
+        got, ref = knn.three_nn_kernel(q, k), knn.three_nn_plain(q, k)
+        ok = torch.equal(got[0], ref[0]) and torch.allclose(
+            got[1], ref[1], rtol=1e-6, atol=0)
+        for Q, S_ in forced:
+            launch, idx, dist = three_nn_forced(q, k, Q, S_)
+            launch()
+            ok = ok and torch.equal(idx, got[0]) and torch.equal(dist, got[1])
+        check(ok, f"K3 differs at edge shape: {label}")
+        ties = int((ref[1][..., 1] == ref[1][..., 2]).sum())
+        print(f"three_nn edge {label}: equal ({ties} queries with equal "
+              f"second and third distances)")
+
+
+def three_nn_kernels(dev, xyz, centers, tx, c12, record,
+                     scan_calls) -> None:
+    """Phase 3 for K3, the FP3 3-NN: at serving (the cloud's 25,600 points
+    against its 5,120 SA1 centers), at a training batch (12 clouds) and as
+    the slab fallback runs it (12 slab-sorted clouds against the x-sorted
+    SA1 centers of each; also timed with the same keys in their FPS
+    order), with `cdist` + `topk` timed at serving; then its edge shapes.
+    Its launches a call (the split, and the merge where the keys are
+    split) are counted in `select_launches`."""
+    from regnet_for_3d_grasping_torch.ops import knn, slab
+    _, sc12 = slab.sort_cloud(tx, SLAB_CELL,
+                              generator=torch.Generator().manual_seed(7))
+    sq = sc12.xyz.contiguous()
+    kf = sa1_centers(sq)
+    order = torch.sort(kf[..., 0], dim=-1, stable=True).indices
+    ks = torch.gather(kf, 1, order[..., None].expand(-1, -1, 3)).contiguous()
+    rows = []
+    for label, q, k, ranges, srt in (
+            ("serving: 25600 queries x 5120 keys", xyz, centers,
+             (2, 3, 4, 6, 8, 14), False),
+            ("training: 12 clouds x 25600 queries x 5120 keys", tx, c12,
+             (1, 2, 3, 4), False),
+            ("slab fallback: 12 slab-sorted clouds x 5120 x-sorted keys",
+             sq, ks, (1, 2, 4, 6, 8, 12), True)):
+        rows.append(three_nn_case(label, q, k, ranges, srt))
+        S = rows[-1]["grid"][1]
+        scan_calls[f"three_nn {label}"] = (
+            lambda q=q, k=k, srt=srt: knn.three_nn_kernel(q, k, srt),
+            ("three_nn_split_kernel",) + (("three_nn_merge_kernel",)
+                                          if S > 1 else ()))
+
+    # the fallback's queries and keys, the keys in their FPS order: what
+    # the x order alone costs
+    launch, idx, _ = three_nn_forced(sq, kf, *rows[-1]["grid"])
+    launch()
+    check(torch.equal(idx, knn.three_nn_plain(sq, kf)[0]),
+          "K3 differs on the fallback's keys in FPS order")
+    rows[-1]["fps_order_keys"] = {
+        "device_ms": device_ms(launch, 20),
+        "insertions_per_query_and_steps_inserting": three_nn_insertions(
+            sq, kf, rows[-1]["grid"][1])}
+    print(f"three_nn slab fallback, the same keys in FPS order: "
+          f"{rows[-1]['fps_order_keys']}")
+
+    def cdist_topk():
+        return torch.cdist(xyz, centers).topk(3, dim=-1, largest=False)
+
+    rows[0]["library_ms"] = cuda_ms(cdist_topk, 20)
+    three_nn_edges(dev)
+    record_rows(record, "three_nn", CSRC + "three_nn.cu",
+                JAX_OPS + "knn_pallas.py:169", rows)
 
 
 def fps_grouped_kernels(dev, sx, record) -> tuple:
@@ -1198,40 +1526,14 @@ def main() -> None:
     # K1 at every shape the paths launch and at the edge cases
     sa1_idx = fps_kernels(dev, xyz, record).long()
 
-    # K2: SA1 ball query, 5120 centers, r = 0.02, K = 64, L = 512
+    # K2 and K3 at serving (the SA1 centers of this cloud) and at a
+    # training batch; K3 also as the slab fallback runs it
     centers = xyz[:, sa1_idx[0]].contiguous()
-    r2 = float(np.float32(0.02 * 0.02))
-    L = sampling.pallas_bucket_stride(N_POINTS, 64)
-    got = ball_query.ball_query_bucketed(xyz, centers, r2, 64, L)
-    ref = ball_query.ball_query_bucketed_plain(xyz, centers, r2, 64, L)
-    check(all(torch.equal(g, r) for g, r in zip(got, ref)),
-          "K2 ball query differs from its plain version")
-    record("ball_query", "regnet_for_3d_grasping_torch/csrc/ball_query.cu",
-           "regnet_for_3d_grasping_tpu/ops/ball_query_pallas.py:154",
-           max_err(got, ref),
-           cuda_ms(lambda: ball_query.ball_query_bucketed(
-               xyz, centers, r2, 64, L), 20),
-           cuda_ms(lambda: ball_query.ball_query_bucketed_plain(
-               xyz, centers, r2, 64, L), 5),
-           nbytes(xyz, centers, *got), 5120 * N_POINTS * 9)
-
-    # K3: FP3, 25600 queries against the 5120 SA1 centers
-    got = knn.three_nn_kernel(xyz, centers)
-    ref = knn.three_nn_plain(xyz, centers)
-    check(torch.equal(got[0], ref[0]), "K3 3-NN indices differ")
-    check(torch.allclose(got[1], ref[1], rtol=1e-6, atol=0),
-          "K3 3-NN distances differ beyond rtol 1e-6")
-
-    def cdist_topk():
-        return torch.cdist(xyz, centers).topk(3, dim=-1, largest=False)
-
-    record("three_nn", "regnet_for_3d_grasping_torch/csrc/three_nn.cu",
-           "regnet_for_3d_grasping_tpu/ops/knn_pallas.py:169",
-           max_err(got, ref),
-           cuda_ms(lambda: knn.three_nn_kernel(xyz, centers), 20),
-           cuda_ms(lambda: knn.three_nn_plain(xyz, centers), 5),
-           nbytes(xyz, centers, *got), N_POINTS * 5120 * 10,
-           cuda_ms(cdist_topk, 20))
+    tx = train_clouds(dev)
+    sa1_12 = sa1_centers(tx)
+    scan_calls = {}
+    ball_query_kernels(xyz, centers, tx, sa1_12, record, scan_calls)
+    three_nn_kernels(dev, xyz, centers, tx, sa1_12, record, scan_calls)
 
     # K11: the region grouping (r 0.008, K 256, L 128) of a serving forward
     # (4,000 centers), a training batch (12 clouds x 64 centers) and a
@@ -1240,13 +1542,12 @@ def main() -> None:
     # pairs in radius
     dist_m = fps.dist_init(xyz, xyz[..., 2] > 0.76)
     c4000 = xyz[:, fps.fps(xyz, dist_m, N_CENTERS)[0].long()].contiguous()
-    tx = train_clouds(dev)
     picks = fps.fps(tx, fps.dist_init(tx, tx[..., 2] > 0.76), TRAIN_CENTERS)
     c12 = torch.gather(tx, 1, picks.long()[..., None].expand(-1, -1, 3))
     c64 = xyz[:, fps.fps(xyz, dist_m, TRAIN_CENTERS)[0].long()].contiguous()
     Lg = sampling.pallas_bucket_stride(N_POINTS, 256)
     bucket_scan_edges(dev)
-    rows, scan_calls = [], {}
+    rows = []
     for label, x, c in (
             ("serving: 4000 centers x 25600 points", xyz, c4000),
             ("training: 12 clouds x 64 centers x 25600 points", tx, c12),
@@ -1262,10 +1563,11 @@ def main() -> None:
             seeds = list(range(region.group_chunks(c.shape[1])))
             return region.group_regions(seeds, x, c, 256, 0.008)
 
-        test_ops, slab = radius_test_ops(x, c, group.radius2(0.008))
+        test_ops, slab, inside = radius_test_ops(x, c, group.radius2(0.008))
         print(f"group_regions {label}: {slab} pairs inside the x slab")
         row = bucket_scan_case("group_regions", label, kernel, plain, (x, c),
-                               test_ops, "group_regions", 256, Lg)
+                               test_ops + inside * 10, inside,
+                               "group_regions", 256, Lg)
         threshold = region.GROUP_KERNEL_MIN_WORK
         region.GROUP_KERNEL_MIN_WORK = 1 << 62
         try:
@@ -1273,7 +1575,8 @@ def main() -> None:
         finally:
             region.GROUP_KERNEL_MIN_WORK = threshold
         rows.append(row)
-        scan_calls[f"group_regions {label}"] = kernel
+        scan_calls[f"group_regions {label}"] = (
+            kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
     record_rows(record, "group_regions", CSRC + "group.cu",
                 JAX_OPS + "group_pallas.py:119", rows)
     got = group.group_regions_fused(xyz, c4000, 21, 0.008, 256, Lg)
@@ -1342,6 +1645,7 @@ def main() -> None:
     # path), and of the training and validation shapes' 64 proposals
     # (there the crop takes its plain path: checked, not on a path)
     box = (0.0, 0.03, 0.04, 0.005)
+    L = sampling.pallas_bucket_stride(N_POINTS, 64)
     rows = []
     for label, x, c in (
             ("serving: 4000 proposals x 25600 points", xyz, c4000),
@@ -1363,13 +1667,15 @@ def main() -> None:
         def plain(x=x, frames=frames, bases=bases):
             return crop.crop_plain(x, frames, bases, 12345, box, 64, L)
 
-        test_ops, (in_z, in_zx) = box_test_ops(x, frames, bases, box)
+        test_ops, (in_z, in_zx), inside = box_test_ops(x, frames, bases,
+                                                       box)
         print(f"crop {label}: {in_z} pairs inside the z slab, {in_zx} "
               f"inside the z and x slabs")
         rows.append(bucket_scan_case("crop", label, kernel, plain,
-                                     (x, frames, bases), test_ops, "crop",
-                                     64, L))
-        scan_calls[f"crop {label}"] = kernel
+                                     (x, frames, bases), test_ops
+                                     + inside * 10, inside, "crop", 64, L))
+        scan_calls[f"crop {label}"] = (
+            kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
     record_rows(record, "crop", CSRC + "crop.cu",
                 JAX_OPS + "crop_pallas.py:145", rows)
 

@@ -1,42 +1,55 @@
-// The center-tiled bucket scan shared by K11 (group.cu) and K5 (crop.cu):
-// for each center m and bucket k of L columns, the passing column with the
-// largest 23-bit counter-hash score (the first column on ties), -1 where
-// none passes, and the exact count of passing columns over all buckets;
-// empty buckets then take the first non-empty bucket's pick, and a center
-// with no passing column gets all zeros.  The test (which columns pass for
-// a center) and the pick rule (which passing column a bucket keeps) are
-// template parameters.
+// The center-tiled bucket scan shared by K11 (group.cu), K5 (crop.cu) and
+// K2 (ball_query.cu): for each center m and bucket k of L columns, the
+// column that the Pick keeps among the columns that pass the Test (K11,
+// K5: the largest 23-bit counter-hash score, the first column on ties; K2:
+// the first column), -1 where none passes, and the count of passing
+// columns over all buckets, capped at `cap` (K2: K; K11, K5: exact); empty
+// buckets then take the first non-empty bucket's pick, and a center with no
+// passing column gets all zeros.  The test (which columns pass for a
+// center) and the pick (which passing column a bucket keeps, and the score
+// it needs) are template parameters.
 //
 // Bound on the H100: arithmetic.  Every (center, column) pair costs the
-// first row of its test (K11: dx and its square against r2, 3 operations;
-// K5: the frame's z row and its slab, 10), only a pair inside that slab
-// the rest, and only a pair that passes its hash and a place in the
-// bucket's argmax (group.cu and crop.cu count them).  The cloud is 300 KB,
-// so neither L2 nor device memory is the limit once each block reads it
-// once per tile of centers.
+// first row of its test (K11, K2: dx and its square against r2, 3
+// operations; K5: the frame's z row and its slab, 10), only a pair inside
+// that slab the rest, and only a pair that passes its pick's work (K11,
+// K5: the hash and a place in the bucket's argmax; K2: its count and a
+// place in the bucket's minimum; ball_query.cu, group.cu and crop.cu count
+// them).  The cloud is 300 KB, so neither L2 nor device memory is the limit
+// once each block reads it once per tile of centers.
 //
 // Design, two launches and no host sync:
-//   1. bucket_scan_kernel<Test, Pick>: a block of 8 warps owns a tile of
-//      centers (C per warp, their test parameters in registers) x a range
-//      of buckets, the grid's `tile` and `range` picked by
+//   1. bucket_scan_kernel<Test, Pick, kWide>: a block of 8 warps owns a
+//      tile of centers (C per warp, their test parameters in registers) x
+//      a range of buckets, the grid's `tile` and `range` picked by
 //      ops/bucket_scan.scan_grid.  It stages the range's columns once into
 //      shared memory as SoA x/y/z with coalesced 16-byte loads (NaN past N,
 //      which no test passes), so the cloud crosses L2 once per tile, not
 //      once per center.  A lane reads a column once and tests it against
 //      each of its warp's C centers, keeping one hit bit per (center,
-//      32-column step) of the bucket: 8 + 2 instructions per pair for K11's
-//      radius.  At the end of a bucket one vote asks whether any lane hit
-//      for any of the C centers; at the serving shapes most buckets have
-//      none, and then the warp only writes -1 for its C slots.  Otherwise each center with a hit
-//      counts its bits, computes the hash of its hit columns alone and
-//      packs (score, place) into a key whose warp-wide maximum (two
-//      `redux.sync`) is the pick.  Each (center, bucket) slot has one
-//      owner block, which writes its pick or -1 (lane c for center c); the
-//      block's counts go out as one partial per (center, range).  Buckets
-//      past N are never scanned.
+//      32-column step) of a segment, 1,024 columns at most: 8 + 2
+//      instructions per pair for the radius.  At the end of a segment one
+//      vote asks whether any lane hit for any of the C centers; at the
+//      serving shapes most buckets have none, and then the warp only
+//      writes -1 for its C slots.  Otherwise each center with a hit counts
+//      its bits and asks its Pick for the segment's key (HashPick: the
+//      hash of its hit columns alone, packed with the place into a key
+//      whose warp-wide maximum, two `redux.sync`, is the pick; FirstPick:
+//      one `redux.sync` minimum of the lanes' first hits).  A bucket of up
+//      to 1,024 columns (every path shape) is one segment, and its pick is
+//      written at once.  A wider bucket (kWide) is scanned segment by
+//      segment, lane c keeping center c's best key, and one wider than a
+//      block may stage takes a block of its own, which stages it in
+//      windows of whole segments and carries the keys from one window to
+//      the next.  (Carrying the key on every shape cost K5 a fifth and K11
+//      an eighth of their device time, spilling registers.)  Each (center,
+//      bucket) slot has one owner block, which writes its pick or -1 (lane
+//      c for center c); the block's counts go out as one partial per
+//      (center, range).  Buckets past N are never scanned.
 //   2. bucket_fill_kernel, a warp per center: the partial counts summed
-//      (exact), the first pick in bucket order found by a ballot, and every
-//      empty or never-scanned slot filled with it (0 when there is none).
+//      (exact, then capped), the first pick in bucket order found by a
+//      ballot, and every empty or never-scanned slot filled with it (0 when
+//      there is none).
 // The per-pair arithmetic rounds as the JAX reference does (the tests use
 // explicit round-to-nearest intrinsics; the build passes -fmad=false), and
 // the hash is the TPU kernel's in uint32, so the picks are the JAX
@@ -57,6 +70,10 @@ constexpr int kMaxTile = 64;  // centers per block
 // without opting in (read by ops/bucket_scan through each source's
 // regnet_<kernel>_stage_cols)
 constexpr int kMaxStageCols = 3584;
+// columns a lane's 32 hit bits cover (a segment of a bucket), and the
+// window a block stages at a time where one bucket exceeds kMaxStageCols
+constexpr int kSegCols = 32 * 32;
+constexpr int kWinCols = kMaxStageCols / kSegCols * kSegCols;
 
 // Uniform parameters of a test (the radius, or the box).
 struct Params {
@@ -73,6 +90,14 @@ __device__ __forceinline__ uint32_t hash23(int m, uint32_t seed, int j) {
   return h >> 9;
 }
 
+// A Pick keeps one column of a bucket from its hits, for a whole warp at
+// once, one segment of the bucket at a time: bit s of a lane's `hits`
+// marks the column `seg` + 32*s + lane of the bucket whose first column is
+// `col`, and `warp_key` (called only where some lane has a hit) returns
+// the segment's best as a Key, equal on every lane; `better` keeps the
+// better of two keys (so a bucket's best is that of its segments' bests),
+// `rel` gives a key's place in the bucket; `m` and `seed` key a score.
+
 // The hash pick: the largest score, ties to the first column of the
 // bucket.  A lane packs each hit into a 64-bit key, (score + 1) over the
 // complement of its place `rel` in the bucket, so that the max of the keys
@@ -80,16 +105,75 @@ __device__ __forceinline__ uint32_t hash23(int m, uint32_t seed, int j) {
 // low word of the lanes that hold the high word's maximum.
 struct HashPick {
   using Key = uint64_t;
+  static constexpr Key kNone = 0;
   static __device__ __forceinline__ Key key(uint32_t score, int rel) {
     return ((uint64_t)(score + 1u) << 32) | (uint32_t)(0xFFFFFFFFu - rel);
   }
-  // the place of the warp's largest key (some lane holds a nonzero one)
-  static __device__ __forceinline__ int warp_rel(Key k) {
-    const uint32_t hi = (uint32_t)(k >> 32);
+  static __device__ __forceinline__ Key warp_key(uint32_t hits, int lane,
+                                                 int m, uint32_t seed,
+                                                 int col, int seg) {
+    Key best = 0;
+    for (uint32_t h = hits; h; h &= h - 1) {
+      const int rel = seg + (__ffs(h) - 1) * 32 + lane;
+      const Key k = key(hash23(m, seed, col + rel), rel);
+      best = k > best ? k : best;
+    }
+    const uint32_t hi = (uint32_t)(best >> 32);
     const uint32_t top = __reduce_max_sync(0xffffffffu, hi);
     const uint32_t lo =
-        __reduce_max_sync(0xffffffffu, hi == top ? (uint32_t)k : 0u);
-    return (int)(0xFFFFFFFFu - lo);
+        __reduce_max_sync(0xffffffffu, hi == top ? (uint32_t)best : 0u);
+    return ((Key)top << 32) | lo;
+  }
+  static __device__ __forceinline__ Key better(Key a, Key b) {
+    return a > b ? a : b;
+  }
+  static __device__ __forceinline__ int rel(Key k) {
+    return (int)(0xFFFFFFFFu - (uint32_t)k);
+  }
+};
+
+// The first pick: the bucket's first passing column, with no score.  A
+// lane's first hit is its lowest set bit; the warp takes the least place.
+struct FirstPick {
+  using Key = uint32_t;
+  static constexpr Key kNone = 0xFFFFFFFFu;
+  static __device__ __forceinline__ Key warp_key(uint32_t hits, int lane,
+                                                 int, uint32_t, int,
+                                                 int seg) {
+    const uint32_t rel =
+        hits ? (uint32_t)(seg + (__ffs(hits) - 1) * 32 + lane) : kNone;
+    return __reduce_min_sync(0xffffffffu, rel);
+  }
+  static __device__ __forceinline__ Key better(Key a, Key b) {
+    return a < b ? a : b;
+  }
+  static __device__ __forceinline__ int rel(Key k) { return (int)k; }
+};
+
+// The radius test of K11 (d2 <= r2) and K2 (kStrict: d2 < r2), r2 in p.v[0].
+// Differences and squares are rounded one by one in the JAX order,
+// ((dx*dx + dy*dy) + dz*dz); K11's reference takes d = center - point and
+// K2's d = point - center, which square alike.  8 centers per warp (3
+// floats each in registers; for K11, 8 ran faster than 4).
+template <bool kStrict>
+struct BallTest {
+  static constexpr int kPerWarp = 8;
+  // 32-column steps a lane unrolls; blocks an SM must hold (<= 80 registers)
+  static constexpr int kUnroll = 2, kMinBlocks = 3;
+  float cx, cy, cz;
+  __device__ __forceinline__ void load(const float*, const float* centers,
+                                       size_t row) {
+    cx = centers[row * 3];
+    cy = centers[row * 3 + 1];
+    cz = centers[row * 3 + 2];
+  }
+  __device__ __forceinline__ bool operator()(float x, float y, float z,
+                                             const Params& p) const {
+    const float dx = __fsub_rn(cx, x), dy = __fsub_rn(cy, y),
+                dz = __fsub_rn(cz, z);
+    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                               __fmul_rn(dz, dz));
+    return kStrict ? d2 < p.v[0] : d2 <= p.v[0];
   }
 };
 
@@ -121,7 +205,46 @@ __device__ __forceinline__ void stage(const float* __restrict__ xyz, int col0,
     s[u] = s[stride + u] = s[2 * stride + u] = __int_as_float(0x7fc00000);
 }
 
-template <class Test, class Pick>
+// One warp's scan of one segment of a bucket (`steps` 32-column steps from
+// `pts`, this lane's first column, in the SoA rows `win` apart): bit s of
+// hits[c] marks a pass of center c at column 32*s + lane.  Where any
+// center hit, each center with a hit adds its count and hands `take` its
+// Pick's key for the segment.
+template <class Test, class Pick, class Take>
+__device__ __forceinline__ void scan_segment(
+    const Test (&test)[Test::kPerWarp], int (&cnt)[Test::kPerWarp],
+    const float* pts, int win, int steps, const Params& p, int lane, int m0,
+    uint32_t seed, int col, int seg, Take take) {
+  constexpr int C = Test::kPerWarp;
+  uint32_t hits[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) hits[c] = 0;
+  constexpr int kUnroll = Test::kUnroll;
+#pragma unroll kUnroll
+  for (int s = 0; s < steps; ++s) {
+    const float x = pts[32 * s], y = pts[win + 32 * s],
+                z = pts[2 * win + 32 * s];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (test[c](x, y, z, p)) hits[c] |= 1u << s;
+  }
+  uint32_t any = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) any |= hits[c];
+  if (!__any_sync(0xffffffffu, any)) return;  // no center of the warp hit
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (!__any_sync(0xffffffffu, hits[c])) continue;
+    cnt[c] += __popc(hits[c]);
+    take(c, Pick::warp_key(hits[c], lane, m0 + c, seed, col, seg));
+  }
+}
+
+// kWide: buckets of more than kSegCols columns, scanned in segments, the
+// block's one bucket staged in windows where the range exceeds
+// kMaxStageCols; otherwise a bucket is one segment and the range one
+// window, and a pick needs no key carried.
+template <class Test, class Pick, bool kWide>
 __global__ void __launch_bounds__(kThreads, Test::kMinBlocks)
 bucket_scan_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ frames,
@@ -130,12 +253,16 @@ bucket_scan_kernel(const float* __restrict__ xyz,
                    int n, int m_total, int k_total, int bucket, int tile,
                    int range, int nranges, Params p) {
   constexpr int C = Test::kPerWarp;
-  extern __shared__ float s_pts[];  // [3][range * bucket]
+  using Key = typename Pick::Key;
+  extern __shared__ float s_pts[];  // [3][win]
   __shared__ int s_cnt[kMaxTile];
 
   const int b = blockIdx.y;
   const int t_id = blockIdx.x / nranges, r_id = blockIdx.x % nranges;
   const int stride = range * bucket;
+  // the columns staged at a time: the whole range, or windows of whole
+  // segments of its one bucket
+  const int win = !kWide || stride <= kMaxStageCols ? stride : kWinCols;
   const int col0 = r_id * stride;
   const int cols = min(stride, n - col0);
   const int nbk = (cols + bucket - 1) / bucket;
@@ -143,14 +270,12 @@ bucket_scan_kernel(const float* __restrict__ xyz,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = warp % per_group;
   const int m0 = t_id * tile + (warp / per_group) * C;
+  const float* cloud = xyz + (size_t)b * n * 3;
 
   if (threadIdx.x < tile) s_cnt[threadIdx.x] = 0;
-  stage(xyz + (size_t)b * n * 3, col0, cols, nbk * bucket, stride, s_pts);
-  __syncthreads();
-
+  Test test[C];
+  int cnt[C];
   if (m0 < m_total) {
-    Test test[C];
-    int cnt[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       // a center past the end is scanned as a copy of the last, unwritten
@@ -158,46 +283,53 @@ bucket_scan_kernel(const float* __restrict__ xyz,
                    (size_t)b * m_total + min(m0 + c, m_total - 1));
       cnt[c] = 0;
     }
-    // lane c < C writes center c's slot of each bucket
-    int32_t* out = idx + ((size_t)b * m_total + m0 + lane) * k_total +
-                   col0 / bucket;
-    const bool writes = lane < C && m0 + lane < m_total;
-    for (int kk = sub; kk < nbk; kk += per_group) {
-      const float* pts = s_pts + kk * bucket + lane;
-      uint32_t hits[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) hits[c] = 0;
-      constexpr int kUnroll = Test::kUnroll;
-#pragma unroll kUnroll
-      for (int s = 0; s < bucket / 32; ++s) {
-        const float x = pts[32 * s], y = pts[stride + 32 * s],
-                    z = pts[2 * stride + 32 * s];
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (test[c](x, y, z, p)) hits[c] |= 1u << s;
-      }
-      uint32_t any = 0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) any |= hits[c];
-      int pick = -1;
-      if (__any_sync(0xffffffffu, any)) {  // else no center of the warp hit
+  }
+  // lane c < C writes center c's slot of each bucket
+  int32_t* out = idx + ((size_t)b * m_total + m0 + lane) * k_total +
+                 col0 / bucket;
+  const bool writes = lane < C && m0 + lane < m_total;
+  if (!kWide) {
+    stage(cloud, col0, cols, nbk * bucket, stride, s_pts);
+    __syncthreads();
+    if (m0 < m_total) {
+      for (int kk = sub; kk < nbk; kk += per_group) {
         const int col = col0 + kk * bucket;  // the bucket's first column
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (!__any_sync(0xffffffffu, hits[c])) continue;
-          cnt[c] += __popc(hits[c]);
-          typename Pick::Key best = 0;
-          for (uint32_t h = hits[c]; h; h &= h - 1) {
-            const int rel = (__ffs(h) - 1) * 32 + lane;
-            const auto key = Pick::key(hash23(m0 + c, seed, col + rel), rel);
-            best = key > best ? key : best;
-          }
-          const int win = col + Pick::warp_rel(best);
-          if (lane == c) pick = win;
-        }
+        int pick = -1;
+        scan_segment<Test, Pick>(
+            test, cnt, s_pts + kk * bucket + lane, stride, bucket / 32, p,
+            lane, m0, seed, col, 0, [&](int c, Key k) {
+              if (lane == c) pick = col + Pick::rel(k);
+            });
+        if (writes) out[kk] = pick;
       }
-      if (writes) out[kk] = pick;
     }
+  } else {
+    const int end = (cols + 31) / 32 * 32;  // the columns scanned
+    Key mine = Pick::kNone;  // lane c: center c's best over the segments
+    for (int w0 = 0; w0 < cols; w0 += win) {
+      if (w0) __syncthreads();  // the last window's readers are done
+      stage(cloud, col0 + w0, min(win, cols - w0), min(win, end - w0), win,
+            s_pts);
+      __syncthreads();
+      if (m0 >= m_total) continue;
+      for (int kk = sub; kk < nbk; kk += per_group) {
+        const int b0 = kk * bucket, b1 = min(b0 + bucket, end);
+        const int lo = max(b0, w0), hi = min(b1, w0 + win);
+        if (lo >= hi) continue;  // not in this window
+        if (lo == b0) mine = Pick::kNone;
+        for (int seg = lo; seg < hi; seg += kSegCols)
+          scan_segment<Test, Pick>(
+              test, cnt, s_pts + (seg - w0) + lane, win,
+              min(32, (hi - seg) / 32), p, lane, m0, seed, col0 + b0,
+              seg - b0, [&](int c, Key k) {
+                if (lane == c) mine = Pick::better(mine, k);
+              });
+        if (hi == b1 && writes)  // the bucket's last segment
+          out[kk] = mine == Pick::kNone ? -1 : col0 + b0 + Pick::rel(mine);
+      }
+    }
+  }
+  if (m0 < m_total) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int total = (int)__reduce_add_sync(0xffffffffu, (unsigned)cnt[c]);
@@ -214,7 +346,7 @@ __global__ void __launch_bounds__(kThreads)
 bucket_fill_kernel(int32_t* __restrict__ idx,
                    const int32_t* __restrict__ partial,
                    int32_t* __restrict__ count, int rows, int k_total, int nb,
-                   int nranges) {
+                   int nranges, int cap) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= rows) return;
@@ -232,35 +364,43 @@ bucket_fill_kernel(int32_t* __restrict__ idx,
   const int fill = first < 0 ? 0 : first;
   for (int k = lane; k < k_total; k += 32)
     if (k >= nb || row[k] < 0) row[k] = fill;
-  if (lane == 0) count[r] = c;
+  if (lane == 0) count[r] = min(c, cap);
 }
 
-// Both launches on `stream`; cudaErrorInvalidValue for a grid the kernel
-// does not take (ops/bucket_scan.scan_grid gives only ones it takes).
-template <class Test>
+// Both launches on `stream`; counts capped at `cap`; cudaErrorInvalidValue
+// for a grid the kernel does not take (ops/bucket_scan.scan_grid gives only
+// ones it takes).
+template <class Test, class Pick>
 int launch(const float* xyz, const float* frames, const float* centers,
            uint32_t seed, int32_t* idx, int32_t* count, int32_t* partial,
            int batch, int n, int m_total, int k_total, int bucket, int tile,
-           int range, Params p, cudaStream_t stream) {
+           int range, int cap, Params p, cudaStream_t stream) {
   constexpr int C = Test::kPerWarp;
   if (batch < 1 || n < 1 || m_total < 1 || bucket < 32 || bucket % 32 ||
-      bucket > 32 * 32 || (long long)k_total * bucket < n || tile < C ||
-      tile > kMaxTile || tile % C || kWarps % (tile / C) || range < 1 ||
-      range * bucket > kMaxStageCols)
+      (long long)k_total * bucket < n || tile < C || tile > kMaxTile ||
+      tile % C || kWarps % (tile / C) || range < 1 ||
+      (range > 1 && (long long)range * bucket > kMaxStageCols))
     return (int)cudaErrorInvalidValue;
   const int nb = (n + bucket - 1) / bucket;
   const int nranges = (nb + range - 1) / range;
   const int tiles = (m_total + tile - 1) / tile;
   const dim3 grid(tiles * nranges, batch);
-  const size_t smem = 3 * (size_t)range * bucket * sizeof(float);
-  bucket_scan_kernel<Test, HashPick><<<grid, kThreads, smem, stream>>>(
-      xyz, frames, centers, seed, idx, partial, n, m_total, k_total, bucket,
-      tile, range, nranges, p);
+  const int stride = range * bucket;
+  const size_t smem =
+      3 * (size_t)(stride <= kMaxStageCols ? stride : kWinCols) * sizeof(float);
+  if (bucket <= kSegCols)
+    bucket_scan_kernel<Test, Pick, false><<<grid, kThreads, smem, stream>>>(
+        xyz, frames, centers, seed, idx, partial, n, m_total, k_total, bucket,
+        tile, range, nranges, p);
+  else
+    bucket_scan_kernel<Test, Pick, true><<<grid, kThreads, smem, stream>>>(
+        xyz, frames, centers, seed, idx, partial, n, m_total, k_total, bucket,
+        tile, range, nranges, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int rows = batch * m_total;
   bucket_fill_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      idx, partial, count, rows, k_total, nb, nranges);
+      idx, partial, count, rows, k_total, nb, nranges, cap);
   return (int)cudaGetLastError();
 }
 

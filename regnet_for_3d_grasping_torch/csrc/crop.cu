@@ -20,6 +20,8 @@
 //   products are rounded in the JAX order with explicit round-to-nearest
 //   intrinsics, so the box test matches the reference point for point.
 
+#include <climits>
+
 #include "bucket_scan.cuh"
 
 namespace {
@@ -74,9 +76,9 @@ extern "C" int regnet_crop(const float* xyz, const float* frames,
                            int m_total, int k_total, int bucket, int tile,
                            int range, float xlo, float xhi, float yabs,
                            float zabs, cudaStream_t stream) {
-  return bucket_scan::launch<BoxTest>(
+  return bucket_scan::launch<BoxTest, bucket_scan::HashPick>(
       xyz, frames, centers, seed, idx, count, partial, batch, n, m_total,
-      k_total, bucket, tile, range,
+      k_total, bucket, tile, range, INT_MAX,
       bucket_scan::Params{{xlo, xhi, yabs, zabs}}, stream);
 }
 

@@ -12,44 +12,23 @@
 //   few hundred KB and the output M*K indices.  At 4,000 centers x 25,600
 //   points that is 102 M pairs, at the training shape (12 clouds x 64
 //   centers) 19.7 M.
-// Design: the center-tiled bucket scan of bucket_scan.cuh with the radius
-//   test below, 8 centers per warp (3 floats each in registers; 8 ran
-//   faster than 4).  The TPU kernel's sequential grid carried count and
-//   first-winner accumulators over [128 centers, L] tiles; here a block owns
-//   a tile of centers x a range of buckets, writes each slot it owns and a
-//   partial count, and a fill pass sums the counts and fills the empty
-//   buckets.  Testing dx alone first, to skip the rest when no lane passes,
-//   ran slower: it breaks the interleaving of the 8 centers.
+// Design: the center-tiled bucket scan of bucket_scan.cuh with its radius
+//   test (d2 <= r2, 8 centers per warp) and the hash pick.  The TPU
+//   kernel's sequential grid carried count and first-winner accumulators
+//   over [128 centers, L] tiles; here a block owns a tile of centers x a
+//   range of buckets, writes each slot it owns and a partial count, and a
+//   fill pass sums the counts and fills the empty buckets.  Testing dx
+//   alone first, to skip the rest when no lane passes, ran slower: it
+//   breaks the interleaving of the 8 centers.
 //   Differences and squares are rounded one by one, in the JAX order
 //   ((dx*dx + dy*dy) + dz*dz, d = center - point), so the radius test
 //   agrees with the reference column for column.
 
+#include <climits>
+
 #include "bucket_scan.cuh"
 
-namespace {
-
-struct BallTest {
-  static constexpr int kPerWarp = 8;
-  // 32-column steps a lane unrolls; blocks an SM must hold (<= 80 registers)
-  static constexpr int kUnroll = 2, kMinBlocks = 3;
-  float cx, cy, cz;
-  __device__ __forceinline__ void load(const float*, const float* centers,
-                                       size_t row) {
-    cx = centers[row * 3];
-    cy = centers[row * 3 + 1];
-    cz = centers[row * 3 + 2];
-  }
-  // in radius: d2 <= r2 (p.v[0])
-  __device__ __forceinline__ bool operator()(
-      float x, float y, float z, const bucket_scan::Params& p) const {
-    const float dx = __fsub_rn(cx, x), dy = __fsub_rn(cy, y),
-                dz = __fsub_rn(cz, z);
-    return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                     __fmul_rn(dz, dz)) <= p.v[0];
-  }
-};
-
-}  // namespace
+using RadiusTest = bucket_scan::BallTest<false>;  // d2 <= r2
 
 // xyz [B, N, 3], centers [B, M, 3] f32, u32 seed -> idx [B, M, K] int32 (0
 // where a center has no point in radius), count [B, M] int32, the exact
@@ -63,15 +42,15 @@ extern "C" int regnet_group_regions(const float* xyz, const float* centers,
                                     int k_total, int bucket, int tile,
                                     int range, float r2,
                                     cudaStream_t stream) {
-  return bucket_scan::launch<BallTest>(
+  return bucket_scan::launch<RadiusTest, bucket_scan::HashPick>(
       xyz, nullptr, centers, seed, idx, count, partial, batch, n, m_total,
-      k_total, bucket, tile, range, bucket_scan::Params{{r2, 0.f, 0.f, 0.f}},
-      stream);
+      k_total, bucket, tile, range, INT_MAX,
+      bucket_scan::Params{{r2, 0.f, 0.f, 0.f}}, stream);
 }
 
 // The scan's constants that ops/bucket_scan.scan_grid needs: centers per
 // warp and the most columns a block stages.  They launch nothing.
-extern "C" int regnet_group_regions_per_warp() { return BallTest::kPerWarp; }
+extern "C" int regnet_group_regions_per_warp() { return RadiusTest::kPerWarp; }
 extern "C" int regnet_group_regions_stage_cols() {
   return bucket_scan::kMaxStageCols;
 }

@@ -113,7 +113,7 @@ class FeaturePropagation(nn.Module):
                                              bound=self.nn_bound)
         if not bool(proven.all()):
             _cuda.fallbacks["fp3_slab"] += 1
-            idx, d2 = three_nn(dense_xyz, key_sorted, 3)
+            idx, d2 = three_nn(dense_xyz, key_sorted, 3, sorted_keys=True)
         return idx, d2, feat_sorted
 
 

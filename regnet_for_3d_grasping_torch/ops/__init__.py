@@ -4,11 +4,13 @@ kernels' plain PyTorch versions:
   K1  fps.fps                            csrc/fps.cu
   K2  ball_query.ball_query_bucketed     csrc/ball_query.cu
   K3  knn.three_nn_kernel                csrc/three_nn.cu
+      (the keys split into ranges, grid by knn.split_grid: a split and,
+      where there is more than one range, a merge)
   K4  pooling.gather_max                 csrc/gather_max.cu
       (forward, argmax form, and the first-winner backward shared with K9)
   K5  crop.closing_region_crop           csrc/crop.cu
-      (K5 and K11 share the bucket scan of csrc/bucket_scan.cuh, grid by
-      bucket_scan.scan_grid: a scan and a fill, two launches a call)
+      (K5, K11 and K2 share the bucket scan of csrc/bucket_scan.cuh, grid
+      by bucket_scan.scan_grid: a scan and a fill, two launches a call)
   K6-K9  slab.*                          csrc/slab_select.cu,
                                          three_nn_slab.cu, gather_max_slab.cu
       (K6 and K7 build their span table and fill their empty slots on the

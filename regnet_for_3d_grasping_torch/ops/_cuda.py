@@ -43,9 +43,9 @@ SIGNATURES = {
     "fps_grouped": ("fps", "regnet_fps_grouped",
                     (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "ball_query": ("ball_query", "regnet_ball_query",
-                   (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+                   (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
     "three_nn": ("three_nn", "regnet_three_nn",
-                 (_P, _P, _P, _P, _I, _I, _I, _P)),
+                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max": ("gather_max", "regnet_gather_max",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "crop": ("crop", "regnet_crop", (_P, _P, _P, _U, _P, _P, _P, _I, _I, _I,
@@ -71,11 +71,17 @@ SIGNATURES = {
         "gather_max_slab", "regnet_gather_max_slab_argmax",
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
-# C entry points that launch nothing (an occupancy query, the bucket scan's
-# compile-time constants), not counted; each returns its answer, or minus
-# the CUDA error
+# C entry points that launch nothing (an occupancy query, the compile-time
+# constants of the bucket scan and of K3's grid), not counted; each returns
+# its answer, or minus the CUDA error
 QUERIES = {
     "fps_max_clusters": ("fps", "regnet_fps_max_clusters", (_I, _I)),
+    "ball_query_per_warp": ("ball_query", "regnet_ball_query_per_warp", ()),
+    "ball_query_stage_cols": ("ball_query", "regnet_ball_query_stage_cols",
+                              ()),
+    "three_nn_threads": ("three_nn", "regnet_three_nn_threads", ()),
+    "three_nn_max_per_thread": ("three_nn", "regnet_three_nn_max_per_thread",
+                                ()),
     "group_regions_per_warp": ("group", "regnet_group_regions_per_warp", ()),
     "group_regions_stage_cols": ("group", "regnet_group_regions_stage_cols",
                                  ()),
@@ -89,6 +95,7 @@ launches = dict.fromkeys(KERNELS, 0)
 fallbacks = {"fp3_slab": 0}
 
 _fns: dict = {}
+_constants: dict = {}
 _lock = threading.Lock()
 
 
@@ -198,6 +205,28 @@ def query(name: str, device: torch.device, *args) -> int:
     fn = _fn(name)
     with torch.cuda.device(device):
         return fn(*args)
+
+
+def device_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def constant(name: str, device: torch.device) -> int:
+    """The compile-time constant that the argument-less query `name`
+    returns, cached per card."""
+    key = (name, device_index(device))
+    if key not in _constants:
+        _constants[key] = query(name, device)
+    return _constants[key]
+
+
+def sm_count(device: torch.device) -> int:
+    index = device_index(device)
+    if ("sms", index) not in _constants:
+        _constants["sms", index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _constants["sms", index]
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,

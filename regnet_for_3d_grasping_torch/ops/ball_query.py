@@ -2,7 +2,9 @@
 ``ops/ball_query.py`` + ``ops/ball_query_pallas.py``).
 
 Two paths choose different points, so the port dispatches as the JAX
-package does on the TPU: kernel K2 (``csrc/ball_query.cu``, buckets of
+package does on the TPU: kernel K2 (``csrc/ball_query.cu``, the
+center-tiled bucket scan of ``csrc/bucket_scan.cuh`` with a strict radius
+test and the first pick, grid by `ops.bucket_scan.scan_grid`; buckets of
 `pallas_bucket_stride` = 512 at SA1) where `use_kernel` holds, else the
 plain bucket path (buckets of ``ceil(N/K)``).
 """
@@ -12,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from regnet_for_3d_grasping_torch.ops import _cuda
+from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
 from regnet_for_3d_grasping_torch.ops.distances import bpdist2
 from regnet_for_3d_grasping_torch.ops.sampling import (bucket_choice,
                                                        fill_empty_buckets,
@@ -58,8 +60,9 @@ def _ball_query_bucket(xyz, centers, r2, K, chunk):
 def ball_query_bucketed(xyz: torch.Tensor, centers: torch.Tensor, r2: float,
                         K: int, L: int):
     """Kernel K2: bucket k of each center holds its smallest in-radius
-    point index in [k*L, (k+1)*L); count = min(in-radius total, K).  CPU
-    tensors take `ball_query_bucketed_plain`."""
+    point index in [k*L, (k+1)*L); count = min(in-radius total, K).  A
+    scan and a fill, 2 launches counted as one.  CPU tensors take
+    `ball_query_bucketed_plain`."""
     if xyz.device.type == "cpu":
         return ball_query_bucketed_plain(xyz, centers, r2, K, L)
     B, N, _ = xyz.shape
@@ -68,10 +71,11 @@ def ball_query_bucketed(xyz: torch.Tensor, centers: torch.Tensor, r2: float,
     _cuda.check(centers, "ball_query centers", torch.float32, (B, M, 3))
     if K * L < N or M == 0:
         raise ValueError(f"ball_query: K*L={K * L} must cover N={N}")
+    tile, rng, partial = bucket_scan.scan_args("ball_query", xyz, M, K, L)
     idx = torch.empty(B, M, K, dtype=torch.int32, device=xyz.device)
     count = torch.empty(B, M, dtype=torch.int32, device=xyz.device)
-    _cuda.launch("ball_query", xyz.device, xyz, centers, idx, count, B, N, M,
-                 K, L, r2)
+    _cuda.launch("ball_query", xyz.device, xyz, centers, idx, count, partial,
+                 B, N, M, K, L, tile, rng, r2)
     return idx, count
 
 

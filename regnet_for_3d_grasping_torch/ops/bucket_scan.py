@@ -1,5 +1,6 @@
-"""The grid of the center-tiled bucket scan that K11 (``ops/group.py``) and
-K5 (``ops/crop.py``) share (``csrc/bucket_scan.cuh``).
+"""The grid of the center-tiled bucket scan that K11 (``ops/group.py``), K5
+(``ops/crop.py``) and K2 (``ops/ball_query.py``) share
+(``csrc/bucket_scan.cuh``).
 
 A block of 8 warps owns a tile of centers, C per warp, and a range of
 buckets whose columns it stages in shared memory; a fill pass then sums the
@@ -18,8 +19,6 @@ from regnet_for_3d_grasping_torch.ops import _cuda
 # blocks per SM the range aims at: enough that the last blocks of a call
 # spread its tail thinly, few enough that a warp walks several buckets
 BLOCKS_PER_SM = 8
-_sm_count: dict = {}
-_limits: dict = {}
 
 
 def scan_grid(batch: int, m: int, n: int, k: int, bucket: int, sms: int,
@@ -31,10 +30,11 @@ def scan_grid(batch: int, m: int, n: int, k: int, bucket: int, sms: int,
     fills every SM at least once, with as many buckets per block as still
     give about `BLOCKS_PER_SM` blocks per SM and fit `stage_cols` staged
     columns; where no tile fills the card, the smallest, one bucket a block
-    (the most blocks)."""
-    if k * bucket < n or bucket % 32 or not 32 <= bucket <= 1024:
+    (the most blocks).  A bucket wider than `stage_cols` takes a block of
+    its own, which stages it in windows."""
+    if k * bucket < n or bucket % 32 or bucket < 32:
         raise ValueError(f"bucket scan: K={k} buckets of L={bucket} must "
-                         f"cover N={n}, L a multiple of 32 up to 1024")
+                         f"cover N={n}, L a positive multiple of 32")
     nb = -(-n // bucket)                 # buckets that hold a column
     r_max = max(1, min(nb, stage_cols // bucket))
     for groups in (8, 4, 2, 1):
@@ -51,27 +51,11 @@ def ranges(n: int, bucket: int, rng: int) -> int:
     return -(-(-(-n // bucket)) // rng)
 
 
-def _index(device: torch.device) -> int:
-    return torch.cuda.current_device() if device.index is None \
-        else device.index
-
-
-def sm_count(device: torch.device) -> int:
-    index = _index(device)
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_count[index]
-
-
 def limits(kernel: str, device: torch.device) -> tuple:
-    """(centers per warp, most staged columns) of `kernel` ("group_regions"
-    or "crop"), from its library's uncounted queries."""
-    key = (kernel, _index(device))
-    if key not in _limits:
-        _limits[key] = (_cuda.query(f"{kernel}_per_warp", device),
-                        _cuda.query(f"{kernel}_stage_cols", device))
-    return _limits[key]
+    """(centers per warp, most staged columns) of `kernel` ("group_regions",
+    "crop" or "ball_query"), from its library's uncounted queries."""
+    return (_cuda.constant(f"{kernel}_per_warp", device),
+            _cuda.constant(f"{kernel}_stage_cols", device))
 
 
 def scan_args(kernel: str, xyz: torch.Tensor, m: int, k: int,
@@ -79,7 +63,7 @@ def scan_args(kernel: str, xyz: torch.Tensor, m: int, k: int,
     """(tile, range, partial counts [B, m, ranges] int32) of one call of
     `kernel` on xyz's card."""
     B, N, _ = xyz.shape
-    tile, rng = scan_grid(B, m, N, k, bucket, sm_count(xyz.device),
+    tile, rng = scan_grid(B, m, N, k, bucket, _cuda.sm_count(xyz.device),
                           *limits(kernel, xyz.device))
     partial = torch.empty(B, m, ranges(N, bucket, rng), dtype=torch.int32,
                           device=xyz.device)

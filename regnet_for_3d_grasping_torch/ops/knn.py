@@ -2,8 +2,9 @@
 ``ops/knn.py`` + ``ops/knn_pallas.py``).
 
 Large k=3 searches (FP3) go to kernel K3 (``csrc/three_nn.cu``, diff-square
-distances) where `use_kernel` holds, as the JAX package sends them to its
-Pallas kernel on the TPU; the rest take the plain expansion-form path.
+distances, the keys split into ranges on the grid of `split_grid`) where
+`use_kernel` holds, as the JAX package sends them to its Pallas kernel on
+the TPU; the rest take the plain expansion-form path.
 """
 
 from __future__ import annotations
@@ -20,19 +21,27 @@ KERNEL_MIN_WORK = 1 << 24
 
 _INF = 3e38   # the TPU kernel's "no neighbour" distance
 
+# K3's grid, from its grid sweeps on the H100 (PERF.md): the blocks per SM
+# that the key split aims at, the fewest ranges for keys sorted in x, and
+# the fewest keys a range holds
+BLOCKS_PER_SM = 6
+SORTED_MIN_RANGES = 6
+MIN_RANGE_KEYS = 256
+
 
 def use_kernel(n1: int, n2: int, k: int) -> bool:
     return k == 3 and n1 * n2 >= KERNEL_MIN_WORK
 
 
 def three_nn(query: torch.Tensor, key: torch.Tensor, k: int = 3,
-             chunk: int = 8192):
+             chunk: int = 8192, sorted_keys: bool = False):
     """query [B, N1, 3], key [B, N2, 3] -> (index [B, N1, k] int32,
-    squared distance [B, N1, k] ascending)."""
+    squared distance [B, N1, k] ascending).  `sorted_keys`: the keys are
+    sorted in x (K3's grid then splits them further)."""
     query = query.float().contiguous()
     key = key.float().contiguous()
     if use_kernel(query.shape[1], key.shape[1], k):
-        return three_nn_kernel(query, key)
+        return three_nn_kernel(query, key, sorted_keys)
     idx, dist = [], []
     for q in torch.split(query, chunk, dim=1):
         i, d = _smallest_k(bpdist2(q, key), k, torch.inf)
@@ -53,10 +62,48 @@ def _smallest_k(d2: torch.Tensor, k: int, fill: float):
     return (torch.cat(out_i, -1).to(torch.int32), torch.cat(out_d, -1))
 
 
-def three_nn_kernel(query: torch.Tensor, key: torch.Tensor):
+def split_grid(batch: int, n1: int, n2: int, sms: int, threads: int,
+               max_per_thread: int, sorted_keys: bool = False) -> tuple:
+    """(Q, S): queries a thread and key ranges of K3 for `batch` searches of
+    `n1` queries over `n2` keys on a card of `sms` SMs, blocks of `threads`
+    threads, Q up to `max_per_thread` (a power of 2).
+
+    Q is the most queries a thread whose tiles alone put a block on every
+    SM, else 1: a larger Q needs more ranges for the same blocks, and each
+    range restarts its queries' best three and hands the merge one more
+    list.  S is the fewest ranges that give `BLOCKS_PER_SM` blocks per SM,
+    and at least `SORTED_MIN_RANGES` where the keys are sorted in x (as the
+    slab fallback passes them: a query then inserts at most keys on its
+    way to its neighbours, and more ranges cut the longest block's run of
+    insertions), with at least `MIN_RANGE_KEYS` keys a range.  S counts
+    the ranges of ceil(n2 / S) keys that hold a key; where it is 1, no
+    merge runs."""
+    if n1 < 1 or n2 < 1:
+        raise ValueError(f"three_nn: need N1, N2 > 0, got {n1}, {n2}")
+    q = max_per_thread
+    while q > 1 and batch * -(-n1 // (threads * q)) < sms:
+        q //= 2
+    tiles = batch * -(-n1 // (threads * q))
+    s = max(SORTED_MIN_RANGES if sorted_keys else 1,
+            -(-BLOCKS_PER_SM * sms // tiles))
+    s = min(max(1, n2 // MIN_RANGE_KEYS), s)
+    return q, -(-n2 // -(-n2 // s))
+
+
+def limits(device: torch.device) -> tuple:
+    """(threads a block, most queries a thread) of K3, from its library's
+    uncounted queries."""
+    return (_cuda.constant("three_nn_threads", device),
+            _cuda.constant("three_nn_max_per_thread", device))
+
+
+def three_nn_kernel(query: torch.Tensor, key: torch.Tensor,
+                    sorted_keys: bool = False):
     """Kernel K3: the three smallest (diff-square distance, index) pairs
-    per query, ascending, ties to the smaller index.  CPU tensors take
-    `three_nn_plain`."""
+    per query, ascending, ties to the smaller index.  The keys split into
+    the ranges of `split_grid` (`sorted_keys`: sorted in x), and a merge
+    where there is more than one: 1 or 2 launches counted as one.  CPU
+    tensors take `three_nn_plain`."""
     if query.device.type == "cpu":
         return three_nn_plain(query, key)
     B, N1, _ = query.shape
@@ -65,9 +112,17 @@ def three_nn_kernel(query: torch.Tensor, key: torch.Tensor):
     _cuda.check(key, "three_nn key", torch.float32, (B, N2, 3))
     if N1 == 0 or N2 < 3:
         raise ValueError(f"three_nn: need N1 > 0 and N2 >= 3, got {N1}, {N2}")
-    idx = torch.empty(B, N1, 3, dtype=torch.int32, device=query.device)
-    dist = torch.empty(B, N1, 3, dtype=torch.float32, device=query.device)
-    _cuda.launch("three_nn", query.device, query, key, idx, dist, B, N1, N2)
+    dev = query.device
+    q, s = split_grid(B, N1, N2, _cuda.sm_count(dev), *limits(dev),
+                      sorted_keys)
+    idx = torch.empty(B, N1, 3, dtype=torch.int32, device=dev)
+    dist = torch.empty(B, N1, 3, dtype=torch.float32, device=dev)
+    part_idx = part_dist = None
+    if s > 1:   # each range's three, for the merge
+        part_idx = torch.empty(B, s, 3, N1, dtype=torch.int32, device=dev)
+        part_dist = torch.empty(B, s, 3, N1, dtype=torch.float32, device=dev)
+    _cuda.launch("three_nn", dev, query, key, idx, dist, part_idx, part_dist,
+                 B, N1, N2, q, s)
     return idx, dist
 
 

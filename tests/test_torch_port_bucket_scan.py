@@ -1,16 +1,19 @@
-"""The center-tiled bucket scan behind K11 and K5, on the CPU.
+"""The center-tiled bucket scan behind K11, K5 and K2, on the CPU.
 
-K11 (``csrc/group.cu``) and K5 (``csrc/crop.cu``) run one kernel body
-(``csrc/bucket_scan.cuh``): a block owns a tile of centers (C per warp) x a
-range of buckets whose columns it stages, keeps one hit bit per (center,
-32-column step), packs each hit's hash score and place into a key whose
-warp-wide maximum is the bucket's pick, writes each slot it owns (pick or
--1) and one partial count per center; a fill pass sums the partials and
-fills the empty buckets.  The kernels run only on the card; here a numpy
-emulation of that decomposition, block by block and lane by lane, is held
-against the plain versions and against the JAX Pallas kernels in interpret
-mode, and the pure grid rule `ops.bucket_scan.scan_grid` is checked at the
-shapes the paths launch.
+K11 (``csrc/group.cu``), K5 (``csrc/crop.cu``) and K2
+(``csrc/ball_query.cu``) run one kernel body (``csrc/bucket_scan.cuh``): a
+block owns a tile of centers (C per warp) x a range of buckets whose
+columns it stages (a bucket wider than a block stages in windows of whole
+1,024-column segments), keeps one hit bit per (center, 32-column step) of
+a segment, and picks a bucket's column from its segments' hits (K11, K5:
+each hit's hash score and place packed into a key whose warp-wide maximum
+is the pick; K2: the warp-wide minimum of the lanes' first hits), writes
+each slot it owns (pick or -1) and one partial count per center; a fill
+pass sums the partials (K2: capped at K) and fills the empty buckets.  The kernels run
+only on the card; here a numpy emulation of that decomposition, block by
+block and lane by lane, is held against the plain versions and against the
+JAX Pallas kernels in interpret mode, and the pure grid rule
+`ops.bucket_scan.scan_grid` is checked at the shapes the paths launch.
 
 Tolerances: none; indices and counts are exact.
 """
@@ -23,12 +26,15 @@ import numpy as np
 import pytest
 import torch
 
+from regnet_for_3d_grasping_tpu.ops.ball_query_pallas import (
+    ball_query_pallas)
 from regnet_for_3d_grasping_tpu.ops.crop_pallas import (
     closing_region_crop_pallas)
 from regnet_for_3d_grasping_tpu.ops.group_pallas import group_regions_pallas
 
 from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
-from regnet_for_3d_grasping_torch.ops import bucket_scan, crop, group
+from regnet_for_3d_grasping_torch.ops import (ball_query, bucket_scan, crop,
+                                              group)
 from regnet_for_3d_grasping_torch.ops.sampling import pallas_bucket_stride
 
 H100_SMS = 132
@@ -45,10 +51,15 @@ def cxx_constant(source, name):
     return int(found[0])
 
 
-GROUP_C = cxx_constant("group.cu", "kPerWarp")    # centers per warp
+# centers per warp of the radius test that K11 and K2 share
+GROUP_C = cxx_constant("bucket_scan.cuh", "kPerWarp")
 CROP_C = cxx_constant("crop.cu", "kPerWarp")
 STAGE_COLS = cxx_constant("bucket_scan.cuh", "kMaxStageCols")
 WARPS = cxx_constant("bucket_scan.cuh", "kWarps")
+# bucket_scan.cuh's kSegCols (the columns of a lane's 32 hit bits) and
+# kWinCols (the window of a bucket wider than STAGE_COLS)
+SEG_COLS = 32 * 32
+WIN_COLS = STAGE_COLS // SEG_COLS * SEG_COLS
 
 
 def t(a):
@@ -64,6 +75,11 @@ def t(a):
     (1, 4000, 25600, 64, CROP_C, (16, 7)),     # K5 serving
     (12, 64, 25600, 64, CROP_C, (16, 2)),      # K5, 12 x 64
     (1, 1, 1100, 16, GROUP_C, (8, 1)),         # fills nothing
+    (1, 5120, 25600, 64, GROUP_C, (64, 3)),    # K2 serving (SA1)
+    (12, 5120, 25600, 64, GROUP_C, (64, 7)),   # K2 training (SA1, B = 12)
+    (1, 1400, 25600, 24, GROUP_C, (64, 1)),    # K2, L = 1152: 2 segments
+    (1, 1400, 25600, 8, GROUP_C, (64, 1)),     # K2, L = 3200: 4 segments
+    (1, 1400, 25600, 4, GROUP_C, (32, 1)),     # L = 6400: windows
 ])
 def test_scan_grid_at_path_shapes(batch, m, n, k, per_warp, want):
     L = pallas_bucket_stride(n, k)
@@ -73,10 +89,25 @@ def test_scan_grid_at_path_shapes(batch, m, n, k, per_warp, want):
     nb = -(-n // L)
     blocks = batch * -(-m // tile) * bucket_scan.ranges(n, L, rng)
     assert blocks == batch * -(-m // tile) * -(-nb // rng)
-    assert rng * L <= STAGE_COLS and tile <= 64
+    assert (rng * L <= STAGE_COLS or rng == 1) and tile <= 64
     assert (WARPS * per_warp) % tile == 0
     if n == 25600:              # every path shape fills a wave of SMs
         assert blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("batch,blocks,staged", [(1, 1360, 1536),
+                                                 (12, 7680, 3584)])
+def test_k2_grid_at_sa1(batch, blocks, staged):
+    """K2 at SA1 (5,120 centers, 25,600 points, L = 512: 50 buckets that
+    hold a point): 80 tiles of 64 x 17 ranges of 3 buckets at serving; at
+    batch 12, 7 buckets a range, exactly the staging limit."""
+    L = pallas_bucket_stride(25600, 64)
+    assert L == 512
+    tile, rng = bucket_scan.scan_grid(batch, 5120, 25600, 64, L, H100_SMS,
+                                      GROUP_C, STAGE_COLS)
+    assert batch * -(-5120 // tile) * bucket_scan.ranges(25600, L, rng) \
+        == blocks
+    assert rng * L == staged <= STAGE_COLS
 
 
 def test_scan_grid_refuses_uncovered_and_odd_buckets():
@@ -85,7 +116,7 @@ def test_scan_grid_refuses_uncovered_and_odd_buckets():
     with pytest.raises(ValueError):
         bucket_scan.scan_grid(1, 64, 1000, 16, 100, H100_SMS, 8, STAGE_COLS)
     with pytest.raises(ValueError):
-        bucket_scan.scan_grid(1, 64, 40000, 32, 2048, H100_SMS, 8, STAGE_COLS)
+        bucket_scan.scan_grid(1, 64, 1000, 64, 16, H100_SMS, 8, STAGE_COLS)
 
 
 # --- (b) the packed pick key ------------------------------------------------
@@ -97,17 +128,28 @@ def key64(score, rel):
         | np.uint64(0xFFFFFFFF - rel)
 
 
-def warp_rel(keys):
-    """HashPick::warp_rel over the lanes' best keys [32] -> the place of
-    the pick: the high words' maximum, then the low words of its lanes."""
+def warp_key(keys):
+    """HashPick::warp_key over the lanes' best keys [32] -> the high
+    words' maximum over the low words' maximum among its lanes."""
     hi = keys >> np.uint64(32)
     lo = np.where(hi == hi.max(), keys & np.uint64(0xFFFFFFFF), 0)
-    return int(0xFFFFFFFF - int(lo.max()))
+    return (int(hi.max()) << 32) | int(lo.max())
 
 
-@pytest.mark.parametrize("top", [127, 511, 1023])
+def key_rel(key):
+    """A key's place in its bucket (HashPick::rel, and FirstPick's with the
+    emulation's first-pick key, the complement of the place)."""
+    return 0xFFFFFFFF - (key & 0xFFFFFFFF)
+
+
+def warp_rel(keys):
+    return key_rel(warp_key(keys))
+
+
+@pytest.mark.parametrize("top", [127, 511, 1023, 4607])
 def test_pick_key_orders_score_then_first_place(top):
-    """Places up to `top` (buckets of L = top + 1 columns, L up to 1024)."""
+    """Places up to `top` (buckets of L = top + 1 columns; past 1,024 a
+    warp packs one segment's places at a time)."""
     score_max = (1 << 23) - 1
     assert key64(score_max, 0) < (1 << 64)
     assert key64(5, 7) > key64(5, 9) > key64(4, 0) > key64(0, top) > 0
@@ -120,6 +162,9 @@ def test_pick_key_orders_score_then_first_place(top):
             keys[r % 32] = max(keys[r % 32], key64(s, r))
         best = score.max()
         assert warp_rel(keys) == rel[score == best].min()
+        # two segments' keys: the better is the larger
+        assert max(warp_key(keys), int(key64(best, top + 1))) \
+            == warp_key(keys)
 
 
 # --- (c) the emulation ------------------------------------------------------
@@ -135,13 +180,14 @@ def hash23(m, seed, j):
     return h >> np.uint32(9)
 
 
-def ball_test(centers, r2):
-    """[B, M, 3] -> pass(b, m, points [n, 3]) as csrc/group.cu tests: d =
-    center - point, (dx*dx + dy*dy) + dz*dz <= r2, each step in f32."""
+def ball_test(centers, r2, strict=False):
+    """[B, M, 3] -> pass(b, m, points [n, 3]) as csrc/bucket_scan.cuh's
+    BallTest: d = center - point, (dx*dx + dy*dy) + dz*dz <= r2 (K11) or
+    < r2 (`strict`, K2), each step in f32."""
     def f(b, m, pts):
         d = centers[b, m] - pts
-        return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2] \
-            <= np.float32(r2)
+        d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        return d2 < np.float32(r2) if strict else d2 <= np.float32(r2)
     return f
 
 
@@ -160,60 +206,115 @@ def box_test(frames, centers, box):
     return f
 
 
-def emulate(test, xyz, M, K, L, seed, tile, rng, per_warp, score=hash23):
+def hash_pick(m, seed, col, rel, hit):
+    """HashPick::warp_key for one segment of a bucket, its places `rel` in
+    the bucket (lane = place % 32) and their hits: each lane's best key
+    over its hits, then the warp's largest; the larger key is the better."""
+    lanes = np.zeros(32, np.uint64)
+    sc = hash23(m, seed, col + rel)
+    for i in np.flatnonzero(hit):
+        r = int(rel[i])
+        lanes[r % 32] = max(lanes[r % 32], key64(sc[i], r))
+    return warp_key(lanes)
+
+
+def first_pick(m, seed, col, rel, hit):
+    """FirstPick::warp_key for one segment: each lane's first hit (its
+    lowest set bit s, place seg + 32*s + lane), then the warp's least
+    place, returned as its complement so that here too the larger key is
+    the better."""
+    hits = hit.reshape(-1, 32)                 # [steps, lanes]
+    first = np.where(hits.any(0), rel[0] + hits.argmax(0) * 32
+                     + np.arange(32), 0xFFFFFFFF)
+    return 0xFFFFFFFF - int(first.min())
+
+
+def emulate(test, xyz, M, K, L, seed, tile, rng, per_warp, pick=hash_pick,
+            cap=None):
     """The two launches of csrc/bucket_scan.cuh in numpy, for a grid of
     `tile` centers x `rng` buckets per block: each block stages its columns
-    and NaN up to its last bucket's end, and a warp tests whole buckets."""
+    (all at once, or windows of WIN_COLS where its one bucket is wider than
+    STAGE_COLS) and NaN up to its last bucket's end (L up to SEG_COLS) or
+    the next multiple of 32 past N (wider buckets); a warp tests a bucket's
+    columns in segments of up to SEG_COLS, and keeps the best of the
+    segments' `pick` keys; the fill caps counts at `cap`."""
     B, N, _ = xyz.shape
     nb = -(-N // L)
     nranges = bucket_scan.ranges(N, L, rng)
+    stride = rng * L
+    win = stride if stride <= STAGE_COLS else WIN_COLS
+    assert win % 32 == 0 and (stride <= STAGE_COLS or rng == 1)
     idx = np.full((B, M, K), -7, np.int64)          # never-written marker
     owner = np.zeros((B, M, K), np.int64)
+    scanned = np.zeros((B, M, nb * L), np.int64)    # columns a center met
     partial = np.full((B, M, nranges), -7, np.int64)
     groups = tile // per_warp
     per_group = WARPS // groups
     for b in range(B):
         for t_id in range(-(-M // tile)):
             for r_id in range(nranges):
-                col0 = r_id * rng * L
-                cols = min(rng * L, N - col0)
-                staged = np.full((-(-cols // L) * L, 3), np.nan, np.float32)
-                staged[:cols] = xyz[b, col0:col0 + cols]
+                col0 = r_id * stride
+                cols = min(stride, N - col0)
+                nbk = -(-cols // L)
+                # a bucket of one segment is scanned to its end
+                end = nbk * L if L <= SEG_COLS else -(-cols // 32) * 32
                 s_cnt = np.zeros(tile, np.int64)
-                for warp in range(WARPS):
-                    sub, g = warp % per_group, warp // per_group
-                    m0 = t_id * tile + g * per_warp
-                    if m0 >= M:
-                        continue
-                    for c in range(per_warp):
-                        m = min(m0 + c, M - 1)
-                        for kk in range(sub, -(-cols // L), per_group):
-                            rel = np.arange(L)
-                            col = col0 + kk * L
-                            hit = test(b, m, staged[kk * L:(kk + 1) * L])
-                            s_cnt[g * per_warp + c] += int(hit.sum())
-                            pick = -1
-                            if hit.any():
-                                lanes = np.zeros(32, np.uint64)
-                                sc = score(m0 + c, seed, col + rel)
-                                for r in rel[hit]:
-                                    lanes[r % 32] = max(lanes[r % 32],
-                                                        key64(sc[r], r))
-                                pick = col + warp_rel(lanes)
-                            if m0 + c < M:
-                                idx[b, m0 + c, col // L] = pick
-                                owner[b, m0 + c, col // L] += 1
+                best = {}                        # (warp, c) -> its best key
+                for w0 in range(0, cols, win):
+                    staged = np.full((min(win, end - w0), 3), np.nan,
+                                     np.float32)
+                    wc = min(win, cols - w0)
+                    staged[:wc] = xyz[b, col0 + w0:col0 + w0 + wc]
+                    for warp in range(WARPS):
+                        sub, g = warp % per_group, warp // per_group
+                        m0 = t_id * tile + g * per_warp
+                        if m0 >= M:
+                            continue
+                        for kk in range(sub, nbk, per_group):
+                            b0, b1 = kk * L, min(kk * L + L, end)
+                            lo, hi = max(b0, w0), min(b1, w0 + win)
+                            if lo >= hi:
+                                continue
+                            col = col0 + b0
+                            for c in range(per_warp):
+                                m = min(m0 + c, M - 1)
+                                if lo == b0:
+                                    best[warp, c] = None
+                                for seg in range(lo, hi, SEG_COLS):
+                                    n_s = min(SEG_COLS, hi - seg)
+                                    rel = np.arange(seg, seg + n_s) - b0
+                                    hit = test(b, m, staged[seg - w0:
+                                                            seg - w0 + n_s])
+                                    if m0 + c < M:
+                                        scanned[b, m0 + c,
+                                                col0 + seg:col0 + seg + n_s] \
+                                            += 1
+                                    s_cnt[g * per_warp + c] += int(hit.sum())
+                                    if hit.any():
+                                        k = pick(m0 + c, seed, col, rel, hit)
+                                        old = best[warp, c]
+                                        best[warp, c] = k if old is None \
+                                            else max(old, k)
+                                if hi == b1 and m0 + c < M:
+                                    k = best[warp, c]
+                                    idx[b, m0 + c, col // L] = -1 \
+                                        if k is None else col + key_rel(k)
+                                    owner[b, m0 + c, col // L] += 1
                 rows = t_id * tile + np.arange(tile)
                 ok = rows < M
                 partial[b, rows[ok], r_id] = s_cnt[ok]
-    # every scanned slot has exactly one owner; the others were never written
+    # every scanned slot has exactly one owner, the others were never
+    # written, and every column of the cloud was met once by every center
     assert (owner[..., :nb] == 1).all() and (owner[..., nb:] == 0).all()
+    assert (scanned[..., :N] == 1).all() and (scanned[..., N:] <= 1).all()
     assert (partial >= 0).all()
     count = partial.sum(-1)
-    scanned = idx[..., :nb]
-    has = scanned >= 0
+    if cap is not None:
+        count = np.minimum(count, cap)
+    picks = idx[..., :nb]
+    has = picks >= 0
     first = np.where(has.any(-1), np.take_along_axis(
-        scanned, has.argmax(-1)[..., None], -1)[..., 0], 0)
+        picks, has.argmax(-1)[..., None], -1)[..., 0], 0)
     out = np.where(np.arange(K) < nb, idx, -1)
     out = np.where(out >= 0, out, first[..., None])
     return out.astype(np.int32), count.astype(np.int32)
@@ -413,3 +514,170 @@ def test_crop_emulation_at_l128(crop_case):
                   8 * CROP_C, 3, CROP_C)
     np.testing.assert_array_equal(got[0], ref[0].numpy())
     np.testing.assert_array_equal(got[1], ref[1].numpy())
+
+
+# --- (d) K2: the strict radius test and the first pick ---------------------
+
+@pytest.mark.parametrize("L", [32, 128, 512, 1024, 1152, 3200])
+def test_first_pick_is_the_least_hit_place(L):
+    """FirstPick's lanes-then-warp minimum, taken segment by segment and
+    the segments' best kept, is the bucket's first hit."""
+    rng = np.random.RandomState(L)
+    for p in (0.0005, 0.002, 0.05, 0.5):
+        for _ in range(50):
+            hit = rng.rand(L) < p
+            keys = [first_pick(0, 0, 0, np.arange(s0, min(L, s0 + SEG_COLS)),
+                               hit[s0:s0 + SEG_COLS])
+                    for s0 in range(0, L, SEG_COLS)
+                    if hit[s0:s0 + SEG_COLS].any()]
+            if keys:
+                assert key_rel(max(keys)) == int(np.argmax(hit))
+
+
+BQ_RADIUS, BQ_K, BQ_L = 0.125, 16, 128
+
+
+@pytest.fixture(scope="module")
+def bq_case():
+    """B=3, N=1100 (not a multiple of L=128; K*L = 2048, so buckets 9-15
+    hold no point), M=130 (not a multiple of any tile), the last center far
+    from every point (no hit), points exactly on the radius of center 0
+    (d2 == r2: outside, the test is strict) and just inside it, and about
+    70 points in radius of a typical center (counts above K = 16)."""
+    rng = np.random.RandomState(71)
+    xyz = rng.rand(3, 1100, 3).astype(np.float32) * np.float32(0.5)
+    centers = xyz[:, rng.choice(1100, 130, replace=False)].copy()
+    centers[:, -1] = 5.0
+    centers[:, 0] = np.float32(0.25)
+    xyz[:, 5] = [0.125, 0.25, 0.25]              # d2 = r2 exactly
+    xyz[:, 700] = [0.25, 0.375, 0.25]            # d2 = r2 exactly
+    xyz[:, 701] = [0.25, 0.25, 0.125 + 2 ** -24]  # just inside
+    return xyz, centers
+
+
+@pytest.fixture(scope="module")
+def bq_ref(bq_case):
+    xyz, centers = bq_case
+    r2 = float(np.float32(BQ_RADIUS * BQ_RADIUS))
+    assert pallas_bucket_stride(1100, BQ_K) == BQ_L
+    plain = ball_query.ball_query_bucketed_plain(t(xyz), t(centers), r2,
+                                                 BQ_K, BQ_L)
+    ri, rc = ball_query_pallas(jnp.asarray(xyz), jnp.asarray(centers),
+                               BQ_RADIUS, BQ_K, interpret=True)
+    np.testing.assert_array_equal(plain[0].numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(plain[1].numpy(), np.asarray(rc))
+    return plain[0].numpy(), plain[1].numpy()
+
+
+def test_bq_case_covers_the_edges(bq_case, bq_ref):
+    xyz, centers = bq_case
+    idx, cnt = bq_ref
+    r2 = np.float32(BQ_RADIUS * BQ_RADIUS)
+    inside = ball_test(centers, r2, strict=True)
+    for b in range(3):
+        np.testing.assert_array_equal(inside(b, 0, xyz[b, [5, 700, 701]]),
+                                      [0, 0, 1])
+        # K11's test (d2 <= r2) takes both points on the radius
+        assert ball_test(centers, r2)(b, 0, xyz[b, [5, 700]]).all()
+    assert (cnt[:, -1] == 0).all() and (idx[:, -1] == 0).all()
+    assert (cnt[:, :-1] > 0).all() and (cnt == BQ_K).mean() > 0.5
+    full = np.array([[ball_test(centers, r2, strict=True)(b, m, xyz[b]).sum()
+                      for m in range(130)] for b in range(3)])
+    assert full.max() > 2 * BQ_K          # the cap is exercised
+
+
+@pytest.mark.parametrize("tile,rng", grids(3, 130, 1100, BQ_K, BQ_L,
+                                           GROUP_C))
+def test_k2_emulation_matches_plain_and_pallas(bq_case, bq_ref, tile, rng):
+    xyz, centers = bq_case
+    r2 = np.float32(BQ_RADIUS * BQ_RADIUS)
+    got = emulate(ball_test(centers, r2, strict=True), xyz, 130, BQ_K, BQ_L,
+                  0, tile, rng, GROUP_C, pick=first_pick, cap=BQ_K)
+    np.testing.assert_array_equal(got[1], bq_ref[1])
+    np.testing.assert_array_equal(got[0], bq_ref[0])
+
+
+def test_k2_emulation_at_sa1_bucket_width(bq_case):
+    """K2 at L = 512 (K = 8, K*L = 4096 > N = 3500: the last bucket cut at
+    N), the width SA1 runs, for the rule's grid, against both references."""
+    xyz = np.concatenate([bq_case[0]] * 4, 1)[:, :3500].copy()
+    centers = bq_case[1][:, :70].copy()
+    assert pallas_bucket_stride(3500, 8) == 512
+    r2 = np.float32(BQ_RADIUS * BQ_RADIUS)
+    ref = ball_query.ball_query_bucketed_plain(t(xyz), t(centers), float(r2),
+                                               8, 512)
+    ri, rc = ball_query_pallas(jnp.asarray(xyz), jnp.asarray(centers),
+                               BQ_RADIUS, 8, interpret=True)
+    np.testing.assert_array_equal(ref[0].numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(ref[1].numpy(), np.asarray(rc))
+    for tile, rng in grids(3, 70, 3500, 8, 512, GROUP_C)[::3]:
+        got = emulate(ball_test(centers, r2, strict=True), xyz, 70, 8, 512,
+                      0, tile, rng, GROUP_C, pick=first_pick, cap=8)
+        np.testing.assert_array_equal(got[0], ref[0].numpy())
+        np.testing.assert_array_equal(got[1], ref[1].numpy())
+
+
+# --- (e) buckets wider than a segment, and than a block stages -------------
+
+def wide_case(N, M, seed):
+    """B=1, N points in a 0.5 cube, K=8 buckets of L > 1,024 (one window
+    at N = 9,000, L = 1,152; windows of WIN_COLS at N = 30,000, L = 3,840),
+    M centers: the cloud's own points, then one far from the cloud with
+    its only in-radius points planted past each bucket's first segment
+    (and window), and the last far from everything."""
+    rng = np.random.RandomState(seed)
+    L = pallas_bucket_stride(N, 8)
+    xyz = rng.rand(1, N, 3).astype(np.float32) * np.float32(0.5)
+    centers = xyz[:, rng.choice(N, M, replace=False)].copy()
+    centers[:, -2] = 2.0
+    centers[:, -1] = 5.0
+    planted = [k * L + o for k in range(8)
+               for o in (SEG_COLS + 6 + k, SEG_COLS + 70, WIN_COLS + 3)
+               if o < L and k * L + o < N]
+    xyz[0, planted] = np.float32(2.0) + np.float32(2 ** -10) \
+        * (np.arange(len(planted), dtype=np.float32) % 7)[:, None]
+    return xyz, centers, L, planted
+
+
+@pytest.mark.parametrize("N,M", [(9000, 24), (30000, 12)])
+def test_k2_wide_buckets_match_plain_and_pallas(N, M):
+    xyz, centers, L, planted = wide_case(N, M, N)
+    assert L > SEG_COLS and (L > STAGE_COLS) == (N == 30000)
+    radius = 0.03
+    r2 = np.float32(radius * radius)
+    ref = ball_query.ball_query_bucketed_plain(t(xyz), t(centers), float(r2),
+                                               8, L)
+    ri, rc = ball_query_pallas(jnp.asarray(xyz), jnp.asarray(centers),
+                               radius, 8, interpret=True)
+    np.testing.assert_array_equal(ref[0].numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(ref[1].numpy(), np.asarray(rc))
+    # the planted center's picks lie past its buckets' first segments
+    firsts = ref[0].numpy()[0, -2]
+    assert (firsts % L >= SEG_COLS).all() and set(firsts) <= set(planted)
+    for tile, rng in grids(1, M, N, 8, L, GROUP_C)[::2]:
+        got = emulate(ball_test(centers, r2, strict=True), xyz, M, 8, L, 0,
+                      tile, rng, GROUP_C, pick=first_pick, cap=8)
+        np.testing.assert_array_equal(got[0], ref[0].numpy())
+        np.testing.assert_array_equal(got[1], ref[1].numpy())
+
+
+@pytest.mark.parametrize("N,M", [(9000, 24), (30000, 12)])
+def test_k11_wide_buckets_match_plain_and_pallas(N, M):
+    """The hash pick over a bucket's segments (and windows): at r = 0.06
+    about 70 (N = 9,000) to 230 points are in radius of a cloud center,
+    so the largest score falls in every segment of some bucket."""
+    xyz, centers, L, _ = wide_case(N, M, N + 1)
+    seed = 0xBADC0DE
+    ref = group.group_regions_fused_plain(t(xyz), t(centers), seed, 0.06, 8,
+                                          L)
+    ri, rc = group_regions_pallas(jnp.asarray(xyz), jnp.asarray(centers),
+                                  jnp.uint32(seed), 0.06, 8, interpret=True)
+    np.testing.assert_array_equal(ref[0].numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(ref[1].numpy(), np.asarray(rc))
+    segs = (ref[0].numpy()[0, :-2] % L) // SEG_COLS
+    assert set(range(-(-L // SEG_COLS))) <= set(segs.ravel())
+    for tile, rng in grids(1, M, N, 8, L, GROUP_C)[::2]:
+        got = emulate(ball_test(centers, group.radius2(0.06)), xyz, M, 8, L,
+                      seed, tile, rng, GROUP_C)
+        np.testing.assert_array_equal(got[0], ref[0].numpy())
+        np.testing.assert_array_equal(got[1], ref[1].numpy())
