@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the nine CUDA sources (fourteen kernels) of
+2. build: the nine CUDA sources (fourteen kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -24,9 +24,11 @@ result unless every phase passed):
    slab fallback's x-sorted keys, with the grid `ops/knn.split_grid`
    picks, pairs per ns, the bound's share, the kernel timed at several
    grids, edge shapes, and each call's device activities counted:
-   split, and merge where it splits the keys) and the argmax and backward
-   forms of the pools K4 and K9, of the
-   training paths (12 clouds, 64 centers), with their median times, a
+   split, and merge where it splits the keys), the pool K4 at the region
+   pool and on the crop K5's own 4,000 x 64 output (with the slots it
+   keeps: mean, p90 and most a row, and the rows a call reads, at every
+   K4 shape) and the argmax and backward forms of the pools K4 and K9, of
+   the training paths (12 clouds, 64 centers), with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
    their span tables scan and the pairs that pass; for K11, K5, K2 and K3
    from the operations an exact test needs on the run's pairs and the
@@ -35,26 +37,36 @@ result unless every phase passed):
    or K7 call (span table, selection, fill) is held against
    ``slab_bounds``, the plain selection and ``finish_select``, span table
    included, and its device activities are counted with ``torch.profiler``
-   (at most 3); K8 is timed on a span table computed beforehand, which is
-   the work the bound counts, and its whole call with its span table and
-   certificate is ``wrapper_ms``.  And once, on a
-   cloud scaled past the slab 3-NN's bound, the refused certificate and the
-   FP layer's fallback to the full scan (``--kernels-only`` stops here);
+   (at most 3).  A K8 call (span table, scan, merge and certificate: 3
+   launches) is held against ``three_nn_spans``, ``three_nn_slab_plain``
+   and ``three_nn_certificate`` (span table and bounds exact, indices
+   exact, distances bit-equal, the flag equal to the certificate), timed
+   at several grids, and ``wrapper_ms`` is the FP layer's whole 3-NN (the
+   call and K3's launches that return at once on the card while the flag
+   says proven); the slab FP3 layer runs once with CUDA's sync debug mode
+   set to raise.  And once, on a cloud scaled past the slab 3-NN's bound,
+   the refused certificate and the FP layer's fallback to the full scan,
+   counted on the card (``--kernels-only`` stops here);
 4. the full-scan path: the port's infer CLI on 3 tabletop clouds with the
    trained weights (``weights/r5_real_e100.npz``), the kernel launch
    counters reset just before and read just after;
 5. one of those clouds again on the CPU through the plain versions,
    compared with the card's output;
 6. the sorted-slab serving path: the CLI again with ``--slab-cell 0.04
-   --fps-groups 8`` on the same clouds, counters reset and read as in 4,
-   and the count of forwards whose slab 3-NN fell back to the full scan;
+   --fps-groups 8`` on the same clouds, counters reset and read as in 4
+   (K3 launches in every forward: it returns at once on the card where the
+   slab 3-NN is proven), and the count of forwards whose slab 3-NN fell
+   back to the full scan;
 7. one slab forward on the card and on the CPU with the same sort noise
    and seeds, compared;
 8. training, full scan: the port's train CLI for 4 steps at batch 12 and
    full width on synthetic scenes made from a seed (and its validation
    forwards), counters reset before and read after, losses finite, weights
    moved, step times and peak device memory printed;
-9. the same with ``--slab-cell 0.04 --fps-groups 8``;
+9. the same with ``--slab-cell 0.04 --fps-groups 8``, and for every slab
+   3-NN of those steps: the clouds whose certificate failed, their largest
+   third-neighbour distance against the bound, the tiles the clamp cut and
+   the queries that failed inside and outside them;
 10. one training step at batch 2 on the card and on the CPU with the same
     weights and seeds and dropout off: selections equal, loss within 1e-4,
     the gradients of the score and proposal heads within 2 % of their largest
@@ -201,7 +213,7 @@ def embedding_bag_pair(feature, index):
 
 
 def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
-                 n_points, pooled_slots=None) -> list:
+                 n_points, pooled_slots=None, kept=None) -> list:
     """Phase 3 for an argmax pool (K4's or K9's) and its backward at the
     shapes `cases` = [(label, feature, index, extra args)], the first the
     main path's.  Winners and pooled values must equal the plain version's;
@@ -209,8 +221,10 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
     bit and agree with the plain ``index_add_`` (atomic, unordered) within
     rtol 1e-5 / atol 1e-5.  The forward's bound counts the feature rows
     that this run's indices touch (`pooled_slots` masks the slots that are
-    pooled over; all, when None), not the whole feature array.  Returns the
-    backward's rows, for one record over both pools."""
+    pooled over; all, when None), not the whole feature array.  `kept`: a
+    function of the index that gives the rows' read statistics (K4's
+    `kept_stats`), added to each row.  Returns the backward's rows, for one
+    record over both pools."""
     from regnet_for_3d_grasping_torch.ops import pooling
     rows_f, rows_b = [], []
     for label, feature, index, extra in cases:
@@ -242,7 +256,8 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
             "ops": index.numel() * feature.shape[-1],
             "library_ms": cuda_ms(lib_f, 10),
             "device_ms": device_ms(lambda: argmax(feature, index, *extra), 10),
-            "library_device_ms": device_ms(lib_f, 10)})
+            "library_device_ms": device_ms(lib_f, 10)}
+            | (kept(index) if kept else {}))
         rows_b.append({
             "shape": label, "max_abs_err": max_err(df, df_plain),
             "ms": cuda_ms(lambda: pooling.scatter_winner(g, win, n_points),
@@ -253,6 +268,55 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
             "library_ms": cuda_ms(lib_b, 10)})
     record_rows(record, name_fwd, src, replaces, rows_f)
     return rows_b
+
+
+def kept_stats(index: torch.Tensor) -> dict:
+    """The slots K4 reads (`pooling.kept_slots`: slot 0 and every slot
+    whose row differs from slot 0's): mean, p90 and most a row, and the
+    feature rows a call reads, beside the S*K that a walk of every slot
+    reads."""
+    from regnet_for_3d_grasping_torch.ops import pooling
+    n = pooling.kept_slots(index).sum(-1).reshape(-1).float()
+    out = {"kept_mean": float(n.mean()),
+           "kept_p90": float(torch.quantile(n, 0.9)),
+           "kept_max": int(n.max()), "rows_read": int(n.sum()),
+           "rows_all_slots": index.numel()}
+    print(f"  K4 reads {out['rows_read']} rows of {out['rows_all_slots']} "
+          f"slots: {out['kept_mean']:.2f} a row (p90 {out['kept_p90']:.0f},"
+          f" most {out['kept_max']}) of {index.shape[-1]}")
+    return out
+
+
+def gather_max_case(label, feature, index) -> dict:
+    """Phase 3 for K4's forward at one shape: equal to `gather_max_plain`
+    and to ``embedding_bag`` (max); times with and without the host, the
+    plain version's and the library's; the bound counts the feature rows
+    the indices touch (each read once), not all of them."""
+    from regnet_for_3d_grasping_torch.ops import pooling
+    got = pooling.gather_max(feature, index)
+    ref = pooling.gather_max_plain(feature, index)
+    check(torch.equal(got, ref), f"K4 gather-max differs ({label})")
+
+    def embedding_bag():
+        return torch.nn.functional.embedding_bag(
+            index[0].long(), feature[0], mode="max")
+
+    check(torch.equal(embedding_bag()[None], ref),
+          f"embedding_bag yardstick disagrees with gather-max ({label})")
+    print(f"gather_max {label}:")
+    return {"shape": label, "max_abs_err": max_err(got, ref),
+            "ms": cuda_ms(lambda: pooling.gather_max(feature, index), 20),
+            "plain_ms": cuda_ms(lambda: pooling.gather_max_plain(
+                feature, index), 5),
+            "bytes": (torch.unique(index).numel() * feature.shape[-1]
+                      * feature.element_size() + nbytes(index, got)),
+            # the compares this run's data needs: one a kept slot and channel
+            "ops": int(pooling.kept_slots(index).sum()) * feature.shape[-1],
+            "library_ms": cuda_ms(embedding_bag, 20),
+            "device_ms": device_ms(lambda: pooling.gather_max(feature, index),
+                                   20),
+            "library_device_ms": device_ms(embedding_bag, 20)} \
+        | kept_stats(index)
 
 
 ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bytes", "ops",
@@ -447,16 +511,17 @@ def select_case(name, label, sc, call, plain, public, inputs, test_ops
     return got[:4], row, public
 
 
-def select_launches(cases: dict, scan_calls: dict) -> None:
+def select_launches(cases: dict, scan_calls: dict) -> dict:
     """The device activities of one K6 or K7 call, at every shape of
     `cases` {label: (record row, public call)}: the three launches (span
     table, selection, fill) and nothing else, each kernel's device time
     added to the row; and of one call of K11, K5, K2 or K3 at every shape
     of `scan_calls` {label: (call, the kernels it launches)}: those
     launches (K11, K5, K2: scan and fill; K3: the split, and the merge
-    where it splits the keys), no copy, no memset.  One profiler session
-    for all (a later session in the same process can lose or misplace
-    device events)."""
+    where it splits the keys; K8: span table, scan and merge, and K3's two
+    launches after it), no copy, no memset.  One profiler session for all
+    (a later session in the same process can lose or misplace device
+    events).  Returns the profile (`kernel_profile`)."""
     prof = kernel_profile({label: fn for label, (_, fn) in cases.items()}
                           | {label: fn for label, (fn, _) in
                              scan_calls.items()})
@@ -477,6 +542,7 @@ def select_launches(cases: dict, scan_calls: dict) -> None:
         check(n_act == len(kernels) and set(kernels) == set(per_kernel),
               f"{n_act} device activities in one call ({label}), expected "
               f"{sorted(kernels)}: {per_kernel}")
+    return prof
 
 
 def radius_test_ops(x, c, r2: float, strict: bool = False,
@@ -700,20 +766,20 @@ def three_nn_forced(q, k, Q, S) -> tuple:
     pd = torch.empty(B, S, 3, N1, device=q.device)
 
     def launch():
-        _cuda.launch("three_nn", q.device, q, k, idx, dist, pi, pd, B, N1, N2,
-                     Q, S)
+        _cuda.launch("three_nn", q.device, q, k, idx, dist, pi, pd, None, B,
+                     N1, N2, Q, S)
     return launch, idx, dist
 
 
 def three_nn_insertions(q, k, ranges: int, tiles: int = 8) -> tuple:
     """How often K3's steps take their insertion branch, replayed in numpy
     on the first cloud for `tiles` tiles of 256 queries spread evenly over
-    it, each range from an empty best three, with three_nn.cu's constants:
+    it, each range from an empty best three, with three_nn.cuh's constants:
     (the mean insertions a query, the share of a warp's steps in which one
     of its queries takes the branch; a warp holds 32 queries and the 32
     that are 128 further)."""
     import re
-    src = (ROOT / CSRC / "three_nn.cu").read_text()
+    src = (ROOT / CSRC / "three_nn.cuh").read_text()
     chunk, step = (int(re.search(rf"\b{n} = (\d+);", src).group(1))
                    for n in ("kChunk", "kStep"))
     first = np.linspace(0, q.shape[1] // 256 - 1, tiles).round().astype(int)
@@ -972,6 +1038,189 @@ def fps_grouped_kernels(dev, sx, record) -> tuple:
     return picks[0], picks[1], sc12
 
 
+K8_KERNELS = ("slab_nn_span_kernel", "slab_nn_split_kernel",
+              "slab_nn_merge_kernel")
+
+
+class K8Case:
+    """Phase 3 for K8 at one shape: slab-sorted queries `q` [B, 25600, 3]
+    against x-sorted keys `k` [B, 5120, 3]."""
+
+    def __init__(self, dev, q, k, label):
+        from regnet_for_3d_grasping_torch.ops import _cuda, knn, slab
+        self.dev, self.q, self.k, self.label = dev, q, k, label
+        nn, ref = self.call(), self.plain()
+        check(torch.equal(nn.ss, ref.ss) and torch.equal(nn.lr, ref.lr),
+              f"K8's span table differs from three_nn_spans ({label})")
+        check(torch.equal(nn.idx, ref.idx),
+              f"K8 3-NN indices differ ({label})")
+        check(torch.equal(nn.d2, ref.d2), f"K8 3-NN distances are not "
+              f"bit-equal to the plain version's ({label})")
+        check(torch.equal(nn.proven, ref.proven)
+              and int(nn.fallback) == int(not bool(ref.proven.all())),
+              f"K8's certificate differs from three_nn_certificate ({label})")
+        self.nn, self.err = nn, max_err((nn.idx, nn.d2), (ref.idx, ref.d2))
+        B, T = nn.ss.shape[:2]
+        self.cap = min(3, slab.n_scan_blocks_k(k.shape[1]))
+        self.grid = slab.three_nn_slab_grid(B, T, self.cap,
+                                            _cuda.sm_count(dev),
+                                            *knn.limits(dev))
+        self.pairs = scanned_pairs(nn.ss, q.shape[1], 256, 1024, k.shape[1])
+        spans = (nn.ss[..., 1] - nn.ss[..., 0]).float()
+        unclamped = slab.three_nn_spans(q, k, 0.06, 99)[0]
+        self.cut = int((unclamped[..., 1] - unclamped[..., 0] > 3).sum())
+        print(f"three_nn_slab {label}: {B * T} tiles, span blocks mean "
+              f"{float(spans.mean()):.3f} (max {int(spans.max())}), "
+              f"{self.cut} tiles cut by the clamp, {self.pairs} pairs "
+              f"scanned of {B * q.shape[1] * k.shape[1]}, grid Q "
+              f"{self.grid[0]} x {self.grid[1]} parts a block, proven "
+              f"{nn.proven.tolist()}")
+
+    def call(self):
+        from regnet_for_3d_grasping_torch.ops import slab
+        return slab.three_nn_slab_call(self.q, self.k, 0.06, 3)
+
+    def plain(self):
+        from regnet_for_3d_grasping_torch.ops import slab
+        ss, lr = slab.three_nn_spans(self.q, self.k, 0.06, 3)
+        idx, d2 = slab.three_nn_slab_plain(self.q, self.k, ss)
+        return slab.SlabNN(idx, d2, slab.three_nn_certificate(self.q, d2, lr),
+                           None, ss, lr)
+
+    def layer_nn(self):
+        """The FP layer's whole 3-NN: the call, then K3 gated by its flag."""
+        from regnet_for_3d_grasping_torch.ops import knn
+        r = self.call()
+        return knn.three_nn_where(r.fallback, self.q, self.k, r.idx, r.d2,
+                                  sorted_keys=True)
+
+    def forced(self, Q, parts):
+        """One call's launches on a given grid, into outputs of its own."""
+        from regnet_for_3d_grasping_torch.ops import _cuda
+        (B, Nq, _), NK, dev = self.q.shape, self.k.shape[1], self.dev
+        T = -(-Nq // 256)
+        out = [torch.empty(B, T, 2, dtype=torch.int32, device=dev),
+               torch.empty(B, T, 2, device=dev),
+               torch.empty(B, self.cap * parts, 3, T * 256,
+                           dtype=torch.int32, device=dev),
+               torch.empty(B, self.cap * parts, 3, T * 256, device=dev),
+               torch.empty(B, Nq, 3, dtype=torch.int32, device=dev),
+               torch.empty(B, Nq, 3, device=dev),
+               torch.empty(B, dtype=torch.bool, device=dev),
+               torch.empty(1, dtype=torch.int32, device=dev)]
+
+        def launch():
+            _cuda.launch("three_nn_slab", dev, self.q, self.k, *out, None, B,
+                         Nq, NK, 0.06, self.cap, Q, parts)
+        return launch, out[4], out[5]
+
+    def row(self, per_kernel=None, plain_reps=3) -> dict:
+        """The record row: times of the call (host included and not), of
+        the FP layer's whole 3-NN, of the plain versions and of `cdist` +
+        `topk`; the call's device time at every grid the kernel takes;
+        `per_kernel`: each kernel's device ms (`select_launches`)."""
+        sweep = {}
+        for Q in (1, 2):
+            for parts in (1, 2, 4):
+                launch, idx, d2 = self.forced(Q, parts)
+                launch()
+                check(torch.equal(idx, self.nn.idx)
+                      and torch.equal(d2, self.nn.d2),
+                      f"K8 differs at Q={Q}, {parts} parts ({self.label})")
+                sweep[f"Q={Q} parts={parts}"] = device_ms(launch, 10)
+        dms = device_ms(self.call, 20)
+
+        def cdist_topk():
+            return torch.cdist(self.q, self.k).topk(3, dim=-1, largest=False)
+
+        same = float((cdist_topk()[1] == self.nn.idx).float().mean())
+        row = {"shape": self.label, "max_abs_err": self.err,
+               "ms": cuda_ms(self.call, 20),
+               "plain_ms": cuda_ms(self.plain, plain_reps),
+               "bytes": nbytes(self.q, self.k, self.nn.ss, self.nn.idx,
+                               self.nn.d2),
+               "ops": self.pairs * 10, "library_ms": cuda_ms(cdist_topk, 10),
+               "device_ms": dms, "wrapper_ms": cuda_ms(self.layer_nn, 20),
+               "layer_device_ms": device_ms(self.layer_nn, 20),
+               "grid": list(self.grid), "tiles_cut_by_clamp": self.cut,
+               "pairs_scanned": self.pairs,
+               "pairs_per_ns_call": self.pairs / dms / 1e6,
+               "device_ms_by_grid": sweep,
+               "proven": self.nn.proven.tolist()}
+        if per_kernel:
+            row["kernel_device_ms"] = per_kernel
+            row["pairs_per_ns_split"] = (
+                self.pairs / per_kernel["slab_nn_split_kernel"] / 1e6)
+        print(f"three_nn_slab {self.label}: vs cdist+topk indices equal "
+              f"share {same:.5f}; call {row['ms']:.4f} ms, device "
+              f"{dms:.4f}, the FP layer's 3-NN {row['wrapper_ms']:.4f} "
+              f"(device {row['layer_device_ms']:.4f}); device ms by grid: "
+              + ", ".join(f"{g} {t:.4f}" for g, t in sweep.items()))
+        check(same > 0.99, f"the proven slab 3-NN disagrees with the full "
+              f"scan ({self.label})")
+        return row
+
+
+def x_sorted_rows(t: torch.Tensor) -> torch.Tensor:
+    """The rows of each cloud of `t` [B, N, 3] sorted by x, stably."""
+    order = torch.sort(t[..., 0], dim=-1, stable=True).indices
+    return torch.gather(t, 1, order[..., None].expand(-1, -1, 3)).contiguous()
+
+
+def slab_fp3_checks(dev, sx, sa1, centroids) -> None:
+    """The slab FP3 layer on the card: with the certificate holding, under
+    CUDA's sync debug mode set to raise (nothing is read on the host), its
+    K3 launches returning at once; and on the same cloud 20 times larger,
+    where the 0.06 bound no longer covers the neighbours, the certificate
+    refusing and the layer falling back to K3 over the x-sorted keys,
+    counted on the card, equal to the full scan."""
+    from regnet_for_3d_grasping_torch.models.backbone import (
+        FeaturePropagation)
+    from regnet_for_3d_grasping_torch.ops import _cuda, slab
+    torch.manual_seed(10)
+    fp = FeaturePropagation(515, (256, 256, 256), 3, 0.06).to(dev).eval()
+    dense = torch.rand(1, N_POINTS, 3, device=dev)
+    sparse = torch.randn(1, 5120, 512, device=dev)
+    with torch.no_grad():
+        fp(sx, centroids, dense, sparse, use_slab=True)   # warm
+        torch.cuda.synchronize()
+        before = (_cuda.fallbacks["fp3_slab"], dict(_cuda.launches))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fp(sx, centroids, dense, sparse, use_slab=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        full = fp(sx, centroids, dense, sparse)
+    torch.cuda.synchronize()
+    check(_cuda.fallbacks["fp3_slab"] == before[0]
+          and _cuda.launches["three_nn_slab"]
+          == before[1]["three_nn_slab"] + 1
+          and _cuda.launches["three_nn"] == before[1]["three_nn"] + 2,
+          "the slab FP3 layer did not take K8 and K3's gated launch once")
+    err = max_err(out, full)
+    print(f"slab FP3 layer (515 -> 256 channels) under sync debug mode "
+          f"'error': no sync; vs the full-scan layer max abs err {err:.3e}")
+
+    far_q, far_k = sx * 20.0, sx[:, sa1[0].long()] * 20.0
+    check(not bool(slab.three_nn_slab(far_q, x_sorted_rows(far_k),
+                                      0.06)[2].all()),
+          "K8 certificate held on a cloud 20 times the bound's scale")
+    fp = FeaturePropagation(16, (16,), 3, 0.06).to(dev).eval()
+    feat = torch.randn(1, 5120, 16, device=dev)
+    before = (_cuda.fallbacks["fp3_slab"], _cuda.launches["three_nn"])
+    with torch.no_grad():
+        via_slab = fp(far_q, far_k, None, feat, use_slab=True)
+        full = fp(far_q, far_k, None, feat)
+    check(_cuda.fallbacks["fp3_slab"] == before[0] + 1
+          and _cuda.launches["three_nn"] == before[1] + 2,
+          "the refused slab 3-NN did not fall back to K3")
+    err_fb = max_err(via_slab, full)
+    print(f"three_nn_slab fallback: FP layer vs full scan max abs err "
+          f"{err_fb:.3e}")
+    check(err_fb <= 1e-5, "the slab FP layer's fallback differs from the "
+          "full scan")
+
+
 def slab_kernels(dev, xyz, record, scan_calls) -> list:
     """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order (and
     the launch count of K11's and K5's calls `scan_calls`, in K6/K7's
@@ -985,10 +1234,6 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     sx, G = sc.xyz, FPS_GROUPS
     L = N_POINTS // G
     src = CSRC + "slab_select.cu"
-
-    def x_sorted(t):
-        order = torch.sort(t[..., 0], dim=-1, stable=True).indices
-        return t[:, order[0]].contiguous()
 
     sa1, got_m, sc12 = fps_grouped_kernels(dev, sx, record)
 
@@ -1029,8 +1274,8 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     c12 = torch.gather(c12, 1, torch.sort(
         c12[..., 0], dim=-1, stable=True).indices[..., None].expand(
             -1, -1, 3)).contiguous()
-    centroids = x_sorted(sx[:, sa1[0].long()])
-    c4000 = x_sorted(sx[:, got_m[0].long()])
+    centroids = x_sorted_rows(sx[:, sa1[0].long()])
+    c4000 = x_sorted_rows(sx[:, got_m[0].long()])
     calls = {}
     groups, *calls["group_slab: region grouping"] = k6(
         sc, c4000, 21, 0.008, 256, slab.GROUP_WIN, slab.GROUP_SPW, False,
@@ -1083,82 +1328,34 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
         sc, c4000, 12345, 8, "crop: 4000 proposals, K=64, win 256, spw 1")
     k12, *calls["crop_slab: training"] = k7(
         sc12, c12, 32, 12, "crop, training: 12 x 64 proposals")
-    select_launches(calls, scan_calls)
+    # K8: FP3, 25,600 sorted queries against the 5,120 x-sorted centroids.
+    # One call (span table, scan, merge and certificate: 3 launches) against
+    # its plain versions; and the FP layer's whole 3-NN, the call and K3's
+    # launches, which return at once on the card while the flag says proven
+    fp3 = K8Case(dev, sx, centroids, "FP3 serving: 25600 slab-sorted "
+                 "queries x 5120 x-sorted keys")
+    check(bool(fp3.nn.proven.all()),
+          "K8 certificate failed on the tabletop cloud")
+    check(all_equal(fp3.layer_nn(), (fp3.nn.idx, fp3.nn.d2)),
+          "the FP layer's 3-NN differs from K8's on a proven cloud")
+    fp3_12 = K8Case(dev, sc12.xyz, x_sorted_rows(sa1_centers(sc12.xyz)),
+                    "FP3 training: 12 slab-sorted clouds x 5120 x-sorted "
+                    "keys")
+    scan_calls["three_nn_slab: FP3 serving"] = (fp3.call, K8_KERNELS)
+    scan_calls["three_nn_slab and K3's flag-gated fallback: FP3 serving"] = (
+        fp3.layer_nn, K8_KERNELS + ("three_nn_split_kernel",
+                                    "three_nn_merge_kernel"))
+    scan_calls["three_nn_slab: FP3 training"] = (fp3_12.call, K8_KERNELS)
+    prof = select_launches(calls, scan_calls)
     for name in ("group_slab", "crop_slab"):
         record_rows(record, name, src, JAX_OPS + "slab.py:425",
                     [row for label, (row, _) in calls.items()
                      if label.startswith(name)])
-
-    # K8: FP3, 25,600 sorted queries against the 5,120 x-sorted centroids,
-    # with the bounded spans (the default) and the flat ones
-    def k8(flat, label):
-        start, stop, _ = slab.three_nn_spans(sx, centroids, 0.06, 3, flat)
-        ss = torch.stack([start, stop], -1).to(torch.int32).contiguous()
-
-        def kernel():
-            return slab.three_nn_slab_spans(sx, centroids, ss)
-
-        def wrapper():
-            return slab.three_nn_slab(sx, centroids, 0.06, 3, flat)
-
-        def plain():
-            return slab.three_nn_slab_plain(sx, centroids, ss)
-
-        got, ref = wrapper(), plain()
-        check(all_equal(kernel(), got[:2]),
-              f"K8 wrapper and launch differ ({label})")
-        check(torch.equal(got[0], ref[0]), f"K8 3-NN indices differ ({label})")
-        check(torch.allclose(got[1], ref[1], rtol=1e-6, atol=0),
-              f"K8 3-NN distances differ beyond rtol 1e-6 ({label})")
-        pairs = scanned_pairs(ss, N_POINTS, 256, 1024, 5120)
-        print(f"three_nn_slab {label}: {pairs} pairs scanned of "
-              f"{N_POINTS * 5120}, proven {bool(got[2].all())}")
-        return (got, max_err(got[:2], ref), cuda_ms(kernel, 20),
-                cuda_ms(plain, 3), nbytes(sx, centroids, ss, *got[:2]),
-                pairs * 10, cuda_ms(wrapper, 20))
-
-    nn, err, ms, plain_ms, bytes_, ops, wrap = k8(False, "bounded spans")
-    _, err_f, ms_f, plain_f, bytes_f, ops_f, wrap_f = k8(True, "flat spans")
-    check(bool(nn[2].all()), "K8 certificate failed on the tabletop cloud")
-
-    def cdist_topk():
-        return torch.cdist(sx, centroids).topk(3, dim=-1, largest=False)
-
-    lib = cdist_topk()
-    same = float((lib[1] == nn[0]).float().mean())
-    print(f"three_nn_slab vs cdist+topk: indices equal share {same:.5f}")
-    check(same > 0.99, "the proven slab 3-NN disagrees with the full scan")
-    record("three_nn_slab", CSRC + "three_nn_slab.cu",
-           JAX_OPS + "slab.py:853", err, ms, plain_ms, bytes_, ops,
-           cuda_ms(cdist_topk, 20), wrapper_ms=wrap, also=[{
-               "shape": "flat spans (slab.py:885)", "max_abs_err": err_f,
-               "ms": ms_f, "plain_ms": plain_f,
-               "bound_ms": bound(bytes_f, ops_f)[0], "wrapper_ms": wrap_f}])
-
-    # the certificate refusing, on the card: the same cloud 20 times larger,
-    # so the 0.06 bound no longer covers the neighbours and the FP layer
-    # runs K3 over the x-sorted keys; it must give what the full scan gives
-    from regnet_for_3d_grasping_torch.models.backbone import (
-        FeaturePropagation)
-    from regnet_for_3d_grasping_torch.ops import _cuda
-    far_q, far_k = sx * 20.0, sx[:, sa1[0].long()] * 20.0
-    check(not bool(slab.three_nn_slab(far_q, x_sorted(far_k), 0.06)[2].all()),
-          "K8 certificate held on a cloud 20 times the bound's scale")
-    torch.manual_seed(10)
-    fp = FeaturePropagation(16, (16,), 3, 0.06).to(dev).eval()
-    feat = torch.randn(1, 5120, 16, device=dev)
-    before = (_cuda.fallbacks["fp3_slab"], _cuda.launches["three_nn"])
-    with torch.no_grad():
-        via_slab = fp(far_q, far_k, None, feat, use_slab=True)
-        full = fp(far_q, far_k, None, feat)
-    check(_cuda.fallbacks["fp3_slab"] == before[0] + 1
-          and _cuda.launches["three_nn"] == before[1] + 2,
-          "the refused slab 3-NN did not fall back to K3")
-    err_fb = max_err(via_slab, full)
-    print(f"three_nn_slab fallback: FP layer vs full scan max abs err "
-          f"{err_fb:.3e}")
-    check(err_fb <= 1e-5, "the slab FP layer's fallback differs from the "
-          "full scan")
+    record_rows(record, "three_nn_slab", CSRC + "three_nn_slab.cu",
+                JAX_OPS + "slab.py:853",
+                [fp3.row(prof["three_nn_slab: FP3 serving"][1]),
+                 fp3_12.row(prof["three_nn_slab: FP3 training"][1], 1)])
+    slab_fp3_checks(dev, sx, sa1, centroids)
 
     # K9: the region pool (4,000 x 256 slots x 256 channels, win 128, spw 4)
     # and the refine pool (4,000 x 64 slots, win 256, spw 1)
@@ -1321,8 +1518,6 @@ def train(argv_extra, tmp, label, n_val, want_step, want_val):
           f"validation forwards): {launches}; 3-NN fallbacks {fallbacks}")
     for k in launches:
         want = 4 * want_step.get(k, 0) + n_val * want_val.get(k, 0)
-        if k == "three_nn":
-            want += fallbacks
         check(launches[k] == want, f"{label}: {k} launched {launches[k]} "
               f"times, expected {want}")
     # the weights of every stage moved away from the seed's initial model
@@ -1344,6 +1539,64 @@ def train(argv_extra, tmp, label, n_val, want_step, want_val):
           f"{statistics.median(v['loss_total'] for v in res['validation']):.4f}"
           f" (median of {n_val})")
     return launches
+
+
+class SlabNNProbe:
+    """Within the block, keeps a copy of every slab 3-NN call's queries,
+    keys and outputs (`slab.three_nn_slab_call` wrapped; copies made on the
+    card's stream, before K3 can overwrite the outputs), and `report`s why
+    a certificate failed: which clouds, their largest exact third-neighbour
+    distance against the bound, the tiles whose span the clamp cut, and
+    the queries that failed inside and outside those tiles."""
+
+    def __enter__(self):
+        from regnet_for_3d_grasping_torch.ops import slab
+        self.slab, self.calls = slab, []
+        self.orig = slab.three_nn_slab_call
+
+        def wrapped(query, key, bound=0.06, grid_span=3, count=None):
+            r = self.orig(query, key, bound, grid_span, count)
+            self.calls.append((query.clone(), key.clone(), bound, grid_span,
+                               r.d2.clone(), r.lr.clone(), r.proven.clone()))
+            return r
+
+        slab.three_nn_slab_call = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.slab.three_nn_slab_call = self.orig
+
+    def report(self) -> None:
+        from regnet_for_3d_grasping_torch.ops import knn
+        slab = self.slab
+        for i, (q, k, bound, grid_span, d2, lr, proven) in enumerate(
+                self.calls):
+            exact = knn.three_nn_kernel(q, k, sorted_keys=True)[1]
+            third = exact[..., 2].sqrt().amax(-1)                   # [B]
+            ss99 = slab.three_nn_spans(q, k, bound, 99)[0]
+            cut = (ss99[..., 1] - ss99[..., 0]) > grid_span         # [B, T]
+            tile = torch.arange(q.shape[1], device=q.device) // 256
+            qx = q[..., 0]
+            margin = torch.minimum(qx - lr[:, tile, 0], lr[:, tile, 1] - qx)
+            fails = d2[..., 2] > margin.clamp(min=0) ** 2           # [B, Nq]
+            in_cut = cut[:, tile]
+            bad = (~proven).nonzero().flatten().tolist()
+            print(f"slab 3-NN call {i} (batch {q.shape[0]}, bound {bound}, "
+                  f"clamp {grid_span} blocks): {len(bad)} clouds unproven "
+                  f"{bad}; largest third-neighbour distance "
+                  f"{float(third.max()):.5f} m over the batch; tiles cut by "
+                  f"the clamp per cloud {cut.sum(-1).tolist()} of "
+                  f"{cut.shape[1]}")
+            for b in bad:
+                kx = k[b, :, 0]
+                print(f"  cloud {b}: third-neighbour distance "
+                      f"{float(third[b]):.5f} m (bound {bound}), "
+                      f"{int(cut[b].sum())} tiles cut, "
+                      f"{int(fails[b].sum())} queries failed, "
+                      f"{int((fails[b] & in_cut[b]).sum())} of them in cut "
+                      f"tiles; x extent of the cloud "
+                      f"{float(qx[b].amax() - qx[b].amin()):.4f} m, of the "
+                      f"keys {float(kx.amax() - kx.amin()):.4f} m")
 
 
 def train_step_card_vs_cpu(tmp, dev) -> None:
@@ -1581,66 +1834,6 @@ def main() -> None:
                 JAX_OPS + "group_pallas.py:119", rows)
     got = group.group_regions_fused(xyz, c4000, 21, 0.008, 256, Lg)
 
-    # K4: region pool (4000 x 256 slots x 256 channels) and refine pool
-    groups = region.group_regions([21], xyz, c4000, 256, 0.008)
-    check(torch.equal(groups.index, torch.where(
-        (got[1] > 0)[..., None], got[0], 0)),
-        "region.group_regions does not return K11's picks")
-    feature = torch.randn(1, N_POINTS, 256, device=dev)
-    got = pooling.gather_max(feature, groups.index)
-    ref = pooling.gather_max_plain(feature, groups.index)
-    check(torch.equal(got, ref), "K4 gather-max differs (region pool)")
-    refine_idx = groups.index[..., :64].contiguous()
-    check(torch.equal(pooling.gather_max(feature, refine_idx),
-                      pooling.gather_max_plain(feature, refine_idx)),
-          "K4 gather-max differs (refine pool)")
-    index = groups.index
-
-    def embedding_bag():
-        return torch.nn.functional.embedding_bag(
-            index[0].long(), feature[0], mode="max")
-
-    check(torch.equal(embedding_bag()[None], ref),
-          "embedding_bag yardstick disagrees with gather-max")
-    record("gather_max", "regnet_for_3d_grasping_torch/csrc/gather_max.cu",
-           "regnet_for_3d_grasping_tpu/ops/pooling.py:216", max_err(got, ref),
-           cuda_ms(lambda: pooling.gather_max(feature, index), 20),
-           cuda_ms(lambda: pooling.gather_max_plain(feature, index), 5),
-           # the feature rows that the indices touch, not all of them
-           torch.unique(index).numel() * 256 * feature.element_size()
-           + nbytes(index, got), index.numel() * 256,
-           cuda_ms(embedding_bag, 20))
-
-    # K4's argmax form and the backward, at the pools of a training batch
-    # and at the 4,000-center region pool
-    g12 = region.group_regions([22], tx, c12, 256, 0.008)
-    f12 = relu_features(TRAIN_B, 14, dev)
-    cases = [
-        ("region pool, training: 12 x 64 x 256 slots", f12, g12.index, ()),
-        ("refine pool, training: 12 x 64 x 64 slots", f12,
-         g12.index[..., :64].contiguous(), ()),
-        ("region pool, 4000 x 256 slots", torch.relu(feature), index, ())]
-    backward_rows = pool_kernels(
-        record, "gather_max_argmax", CSRC + "gather_max.cu",
-        JAX_OPS + "pooling.py:216", pooling.gather_max_argmax,
-        pooling.gather_max_argmax_plain, cases, N_POINTS)
-    # the autograd wiring on the card: the pool's gradient is the scatter
-    # of its own winners, and the graph is not cut
-    f = f12.clone().requires_grad_()
-    before = dict(_cuda.launches)
-    pooled = pooling.gather_max(f, g12.index)
-    pooled.backward(torch.ones_like(pooled))
-    check(_cuda.launches["gather_max_argmax"]
-          == before["gather_max_argmax"] + 1
-          and _cuda.launches["gather_max_backward"]
-          == before["gather_max_backward"] + 1
-          and _cuda.launches["gather_max"] == before["gather_max"],
-          "a pool that needs a gradient did not take the argmax kernel")
-    check(f.grad is not None and torch.equal(f.grad, pooling.scatter_winner(
-        torch.ones_like(pooled), pooling.gather_max_argmax(f12, g12.index)[1],
-        N_POINTS)) and float(f.grad.sum()) == pooled.numel(),
-        "the pool's gradient is not the scatter of its winners")
-
     # K5: crop of 4000 proposals around the selected centers (the serving
     # path), and of the training and validation shapes' 64 proposals
     # (there the crop takes its plain path: checked, not on a path)
@@ -1674,10 +1867,59 @@ def main() -> None:
         rows.append(bucket_scan_case("crop", label, kernel, plain,
                                      (x, frames, bases), test_ops
                                      + inside * 10, inside, "crop", 64, L))
+        if M == N_CENTERS:    # the serving refine pool's indices, as the
+            cidx, ccount = kernel()    # model masks them
+            crop_idx = torch.where((ccount > 0)[..., None], cidx, 0)
         scan_calls[f"crop {label}"] = (
             kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
     record_rows(record, "crop", CSRC + "crop.cu",
                 JAX_OPS + "crop_pallas.py:145", rows)
+
+    # K4: the region pool (4,000 x 256 slots x 256 channels, K11's picks)
+    # and the refine pool (4,000 x 64 slots, K5's picks of the crop above)
+    groups = region.group_regions([21], xyz, c4000, 256, 0.008)
+    check(torch.equal(groups.index, torch.where(
+        (got[1] > 0)[..., None], got[0], 0)),
+        "region.group_regions does not return K11's picks")
+    feature = torch.randn(1, N_POINTS, 256, device=dev)
+    rows = [gather_max_case("region pool: 4000 x 256 slots", feature,
+                            groups.index),
+            gather_max_case("refine pool: 4000 x 64 slots of K5's crop",
+                            feature, crop_idx)]
+    record_rows(record, "gather_max", CSRC + "gather_max.cu",
+                JAX_OPS + "pooling.py:216", rows)
+    index = groups.index
+
+    # K4's argmax form and the backward, at the pools of a training batch
+    # and at the 4,000-center region pool
+    g12 = region.group_regions([22], tx, c12, 256, 0.008)
+    f12 = relu_features(TRAIN_B, 14, dev)
+    cases = [
+        ("region pool, training: 12 x 64 x 256 slots", f12, g12.index, ()),
+        ("refine pool, training: 12 x 64 x 64 slots", f12,
+         g12.index[..., :64].contiguous(), ()),
+        ("region pool, 4000 x 256 slots", torch.relu(feature), index, ())]
+    backward_rows = pool_kernels(
+        record, "gather_max_argmax", CSRC + "gather_max.cu",
+        JAX_OPS + "pooling.py:216", pooling.gather_max_argmax,
+        pooling.gather_max_argmax_plain, cases, N_POINTS,
+        kept=kept_stats)
+    # the autograd wiring on the card: the pool's gradient is the scatter
+    # of its own winners, and the graph is not cut
+    f = f12.clone().requires_grad_()
+    before = dict(_cuda.launches)
+    pooled = pooling.gather_max(f, g12.index)
+    pooled.backward(torch.ones_like(pooled))
+    check(_cuda.launches["gather_max_argmax"]
+          == before["gather_max_argmax"] + 1
+          and _cuda.launches["gather_max_backward"]
+          == before["gather_max_backward"] + 1
+          and _cuda.launches["gather_max"] == before["gather_max"],
+          "a pool that needs a gradient did not take the argmax kernel")
+    check(f.grad is not None and torch.equal(f.grad, pooling.scatter_winner(
+        torch.ones_like(pooled), pooling.gather_max_argmax(f12, g12.index)[1],
+        N_POINTS)) and float(f.grad.sum()) == pooled.numel(),
+        "the pool's gradient is not the scatter of its winners")
 
     # K6-K10 on the same cloud in slab order
     backward_rows += slab_kernels(dev, xyz, record, scan_calls)
@@ -1722,15 +1964,15 @@ def main() -> None:
             tmp, "slab")
     print(f"slab path: {fallbacks} of 3 forwards fell back to the full-scan "
           f"3-NN")
+    # K3 launches in every slab forward: its launches read K8's flag on
+    # the card and return at once where the slab 3-NN is proven
     want = {"fps_grouped": 2, "fps": 2, "group_slab": 2, "crop_slab": 1,
-            "three_nn_slab": 1, "gather_max_slab": 2, "ball_query": 0,
-            "gather_max": 0, "crop": 0, "group_regions": 0,
+            "three_nn_slab": 1, "three_nn": 1, "gather_max_slab": 2,
+            "ball_query": 0, "gather_max": 0, "crop": 0, "group_regions": 0,
             **dict.fromkeys(train_kernel_names, 0)}
     for k, n in want.items():
         check(slab_l[k] == 3 * n, f"{k}: {slab_l[k]} launches in 3 slab "
               f"forwards, expected {3 * n}")
-    check(slab_l["three_nn"] == fallbacks,
-          "K3 ran in a forward that did not fall back")
 
     # --- 7. one slab forward on the card and on the CPU ---------------------
     u = torch.rand(1, N_POINTS, generator=torch.Generator().manual_seed(3))
@@ -1750,12 +1992,14 @@ def main() -> None:
             ["--synthetic-scenes", "60"], tmp, "full-scan", n_val,
             {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
              "gather_max_argmax": 2, "gather_max_backward": 2}, val)
-        train_slab = train(
-            ["--slab-cell", str(SLAB_CELL), "--fps-groups", str(FPS_GROUPS)],
-            tmp, "slab", n_val,
-            {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
-             "three_nn_slab": 1, "gather_max_slab_argmax": 2,
-             "gather_max_backward": 2}, val)
+        with SlabNNProbe() as probe:
+            train_slab = train(
+                ["--slab-cell", str(SLAB_CELL), "--fps-groups",
+                 str(FPS_GROUPS)], tmp, "slab", n_val,
+                {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
+                 "three_nn_slab": 1, "three_nn": 1,
+                 "gather_max_slab_argmax": 2, "gather_max_backward": 2}, val)
+        probe.report()
         # --- 10. one training step on the card and on the CPU ---------------
         train_step_card_vs_cpu(tmp, dev)
 

@@ -127,6 +127,7 @@ def main(argv=None) -> dict:
     from regnet_for_3d_grasping_torch.config import tiny_config, train_config
     from regnet_for_3d_grasping_torch.data import (GraspDataset,
                                                    write_synthetic_dataset)
+    from regnet_for_3d_grasping_torch.ops import _cuda
     from regnet_for_3d_grasping_torch.runtime import resolve_device
     from regnet_for_3d_grasping_torch.train import trainer
     from regnet_for_3d_grasping_torch.utils import checkpoint as ckpt
@@ -231,6 +232,8 @@ def main(argv=None) -> dict:
         for epoch in range(resume_epoch, args.epoch):
             t_epoch = time.time()
             total, nb = 0.0, 0
+            # read once an epoch: on the card the count syncs
+            fallbacks = _cuda.fallbacks["fp3_slab"]
             for batch in train_ds.batches(batch_size, seed=epoch):
                 _sync(device)
                 t0 = time.perf_counter()
@@ -255,8 +258,13 @@ def main(argv=None) -> dict:
                 print(f"train epoch {epoch} [{nb}/{steps_per_epoch}] "
                       f"loss {loss:.4f} ({dt:.3f}s)")
             logger.scalar("epoch_train_loss", total / max(nb, 1), epoch)
+            note = ""
+            if args.slab_cell > 0.0:
+                fallbacks = _cuda.fallbacks["fp3_slab"] - fallbacks
+                logger.scalar("epoch_fp3_slab_fallbacks", fallbacks, epoch)
+                note = f", {fallbacks} steps' slab 3-NN fell back"
             print(f"epoch {epoch}: mean loss {total / max(nb, 1):.4f} "
-                  f"({time.time() - t_epoch:.1f}s)")
+                  f"({time.time() - t_epoch:.1f}s{note})")
             ckpt.save_checkpoint(ckpt_dir, epoch, model, optimizer)
             run_eval_epoch(logger, epoch, "validate", val_ds)
     return result

@@ -3,19 +3,29 @@
 // Replaces: regnet_for_3d_grasping_tpu/ops/pooling.py, gather_max_pallas
 //   (_kernel, dispatched from ops/pooling.py:270 for the region pool at
 //   models/regnet.py:270).
-// Bound on the H100: memory traffic from L2.  Each output value is a max
-//   over K gathered rows, so the kernel reads S*K*C floats (1 GB for the
-//   region pool at 4,000 x 256 x 256) where the function's own inputs are
-//   26 MB of features (which fit the 50 MB L2) and 4 MB of indices.
+// Bound on the H100: memory traffic from L2.  The function's inputs are
+//   the feature rows its indices touch (26 MB of features, which fit the
+//   50 MB L2) and 4 MB of indices; but most slots repeat a row: the bucket
+//   fill of K11 and K5 writes a region's first pick (slot 0's row) into
+//   every empty slot, so at the region pool (4,000 x 256 slots x 256
+//   channels) a row holds about 9 distinct rows of its 256 slots.  A
+//   kernel that walks every slot reads 1 GB from L2 for 37 MB of distinct
+//   rows.
 // Design: the TPU kernel's one-hot matrix products and 3-way bf16 split
-//   exist only because the TPU has no fast gather.  Here it is a direct
-//   gather: one block per (batch, proposal) loads the K indices into shared
-//   memory once, and each thread owns channels c, c+blockDim, ... and loops
-//   over the K rows, so every row read is coalesced along c.  The result is
-//   bit-exact (a max of copied values); a NaN wins as in torch.amax.
+//   exist only because the TPU has no fast gather.  Here one warp owns one
+//   (batch, proposal) row, 8 rows a block.  It loads the row's K indices
+//   coalesced (8 a lane at K = 256) and keeps slot k when k == 0 or
+//   index[k] != index[0] (`ops/pooling.kept_slots`): every dropped slot is
+//   a later copy of slot 0's row, so neither the max nor the lowest slot
+//   holding it changes, for any index tensor.  The kept slots are
+//   compacted in slot order into shared memory with __ballot_sync and
+//   __popc, and the warp walks the list reading each kept row with 16-byte
+//   loads (256 channels are 64 float4, two a lane), 4 rows' loads in
+//   flight, the max in registers.  The result is bit-exact (a max of
+//   copied values); a NaN wins as in torch.amax.
 //   Training uses the argmax form, which also writes the winner's source
 //   row: the lowest slot holding the maximum (strict `>` while walking up
-//   the slots), the rule of the TPU kernel's `with_argmax` output
+//   the kept slots), the rule of the TPU kernel's `with_argmax` output
 //   (pooling.py:146-167) and of argmax-then-take (pooling.py:241-246).
 //   The backward, an XLA scatter-add in the JAX package (pooling.py:285-296),
 //   is `scatter_winner_kernel`: dfeature[b, win[b,s,c], c] += g[b,s,c].  One
@@ -29,53 +39,175 @@
 
 namespace {
 
-__global__ void gather_max_kernel(const float* __restrict__ feature,
-                                  const int32_t* __restrict__ index,
-                                  float* __restrict__ out, int n, int c_total,
-                                  int s_total, int k_total) {
-  extern __shared__ int s_idx[];  // [K]
-  const int b = blockIdx.y, s = blockIdx.x;
-  const size_t row = (size_t)b * s_total + s;
-  for (int k = threadIdx.x; k < k_total; k += blockDim.x)
-    s_idx[k] = index[row * k_total + k];
-  __syncthreads();
-  feature += (size_t)b * n * c_total;
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    float m = feature[(size_t)s_idx[0] * c_total + c];
-    for (int k = 1; k < k_total; ++k) {
-      const float v = feature[(size_t)s_idx[k] * c_total + c];
-      if (v > m || v != v) m = v;
+constexpr int kRowsPerBlock = 8;    // warps a block, one row each
+constexpr int kPass = 256;          // slots a warp compacts at a time
+constexpr int kInFlight = 4;        // kept rows whose loads are in flight
+constexpr int kPassChannels = 256;  // channels a warp holds at a time
+constexpr unsigned kFull = 0xffffffffu;
+
+// V channels a load (4: float4, where C is a multiple of 4 and the
+// pointers are 16-byte aligned; else 1), U loads a lane per channel pass.
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  using W = int4;
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  using W = int;
+};
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float at(const float& v, int) { return v; }
+__device__ __forceinline__ void put(float4& v, int i, float x) {
+  if (i == 0) v.x = x;
+  else if (i == 1) v.y = x;
+  else if (i == 2) v.z = x;
+  else v.w = x;
+}
+__device__ __forceinline__ void put(float& v, int, float x) { v = x; }
+__device__ __forceinline__ void put(int4& v, int i, int x) {
+  if (i == 0) v.x = x;
+  else if (i == 1) v.y = x;
+  else if (i == 2) v.z = x;
+  else v.w = x;
+}
+__device__ __forceinline__ void put(int& v, int, int x) { v = x; }
+
+// Fold row `r`'s values `v` into the running max `m` (and winner `w`).
+template <bool kArgmax, int V>
+__device__ __forceinline__ void fold(typename Vec<V>::T& m,
+                                     typename Vec<V>::W& w,
+                                     const typename Vec<V>::T& v, int r) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float x = at(v, i), y = at(m, i);
+    if (kArgmax) {
+      if (x > y) {
+        put(m, i, x);
+        put(w, i, r);
+      }
+    } else if (x > y || x != x) {
+      put(m, i, x);
     }
-    out[row * c_total + c] = m;
   }
 }
 
-__global__ void gather_max_argmax_kernel(const float* __restrict__ feature,
-                                         const int32_t* __restrict__ index,
-                                         float* __restrict__ out,
-                                         int32_t* __restrict__ win, int n,
-                                         int c_total, int s_total,
-                                         int k_total) {
-  extern __shared__ int s_idx[];  // [K]
-  const int b = blockIdx.y, s = blockIdx.x;
-  const size_t row = (size_t)b * s_total + s;
-  for (int k = threadIdx.x; k < k_total; k += blockDim.x)
-    s_idx[k] = index[row * k_total + k];
-  __syncthreads();
-  feature += (size_t)b * n * c_total;
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    float m = feature[(size_t)s_idx[0] * c_total + c];
-    int w = s_idx[0];
-    for (int k = 1; k < k_total; ++k) {
-      const float v = feature[(size_t)s_idx[k] * c_total + c];
-      if (v > m) {
-        m = v;
-        w = s_idx[k];
-      }
-    }
-    out[row * c_total + c] = m;
-    win[row * c_total + c] = w;
+// Slots [k0, k0 + kPass) of a row's K indices, slot k0 + lane + 32 j in
+// v[j] (coalesced); -1 past the end.
+__device__ __forceinline__ void load_slots(int* v,
+                                           const int32_t* __restrict__ idx,
+                                           int k0, int k_total, int lane) {
+#pragma unroll
+  for (int j = 0; j < kPass / 32; ++j) {
+    const int k = k0 + j * 32 + lane;
+    v[j] = k < k_total ? __ldg(idx + k) : -1;
   }
+}
+
+// Rows b*S + s of index [B, S, K] -> out [B, S, C] (and win [B, S, C]).
+template <bool kArgmax, int V>
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+gather_max_kernel(const float* __restrict__ feature,
+                  const int32_t* __restrict__ index, float* __restrict__ out,
+                  int32_t* __restrict__ win, int n, int c_total, int s_total,
+                  long long rows, int k_total) {
+  using T = typename Vec<V>::T;
+  using W = typename Vec<V>::W;
+  constexpr int U = kPassChannels / (32 * V);
+  __shared__ int kept[kRowsPerBlock][kPass];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + warp;
+  if (row >= rows) return;  // the block syncs no more than a warp
+  const int b = (int)(row / s_total);
+  const int32_t* idx = index + row * k_total;
+  const T* f = reinterpret_cast<const T*>(feature + (size_t)b * n * c_total);
+  const int cv = c_total / V;  // loads a feature row
+  int* list = kept[warp];
+  // the first pass's indices, loaded before anything else: slot 0's row
+  // comes from them
+  int v[kPass / 32];
+  load_slots(v, idx, 0, k_total, lane);
+  const int first = __shfl_sync(kFull, v[0], 0);
+  for (int c0 = 0; c0 < cv; c0 += 32 * U) {
+    T m[U];
+    W w[U];
+    const T* r0 = f + (size_t)first * cv;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * 32 + lane;
+      if (c < cv) m[u] = __ldg(r0 + c);
+#pragma unroll
+      for (int i = 0; i < V; ++i) put(w[u], i, first);
+    }
+    for (int k0 = 0; k0 < k_total; k0 += kPass) {
+      if (c0 > 0 || k0 > 0) load_slots(v, idx, k0, k_total, lane);
+      // compact the kept slots of [k0, k0 + kPass) other than slot 0, in
+      // slot order
+      int count = 0;
+#pragma unroll
+      for (int j = 0; j < kPass / 32; ++j) {
+        if (k0 + j * 32 >= k_total) break;
+        const bool keep = v[j] != first && k0 + j * 32 + lane < k_total;
+        const unsigned mask = __ballot_sync(kFull, keep);
+        if (keep) list[count + __popc(mask & ((1u << lane) - 1u))] = v[j];
+        count += __popc(mask);
+      }
+      __syncwarp();
+      // groups of kInFlight rows, loads first; a group past the list's end
+      // repeats its last row, which changes neither the max nor the winner
+      for (int t = 0; t < count; t += kInFlight) {
+        int r[kInFlight];
+        T x[kInFlight][U];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) {
+          r[q] = list[min(t + q, count - 1)];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int c = c0 + u * 32 + lane;
+            if (c < cv) x[q][u] = __ldg(f + (size_t)r[q] * cv + c);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q)
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (c0 + u * 32 + lane < cv)
+              fold<kArgmax, V>(m[u], w[u], x[q][u], r[q]);
+      }
+      __syncwarp();  // the list is rewritten by the next pass
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * 32 + lane;
+      if (c >= cv) continue;
+      reinterpret_cast<T*>(out + row * c_total)[c] = m[u];
+      if (kArgmax) reinterpret_cast<W*>(win + row * c_total)[c] = w[u];
+    }
+  }
+}
+
+template <bool kArgmax>
+int launch_gather_max(const float* feature, const int32_t* index, float* out,
+                      int32_t* win, int batch, int n, int c_total, int s_total,
+                      int k_total, cudaStream_t stream) {
+  const long long rows = (long long)batch * s_total;
+  const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
+  const uintptr_t bases = (uintptr_t)feature | (uintptr_t)out |
+                          (kArgmax ? (uintptr_t)win : 0);
+  const bool wide = c_total % 4 == 0 && bases % 16 == 0;
+  if (wide)
+    gather_max_kernel<kArgmax, 4><<<grid, kRowsPerBlock * 32, 0, stream>>>(
+        feature, index, out, win, n, c_total, s_total, rows, k_total);
+  else
+    gather_max_kernel<kArgmax, 1><<<grid, kRowsPerBlock * 32, 0, stream>>>(
+        feature, index, out, win, n, c_total, s_total, rows, k_total);
+  return (int)cudaGetLastError();
 }
 
 // dfeature must be zero on entry.  Thread (b, c) adds g[b, s, c] to
@@ -104,11 +236,8 @@ extern "C" int regnet_gather_max(const float* feature, const int32_t* index,
                                  float* out, int batch, int n, int c_total,
                                  int s_total, int k_total,
                                  cudaStream_t stream) {
-  const int threads = c_total < 256 ? ((c_total + 31) / 32) * 32 : 256;
-  dim3 grid(s_total, batch);
-  gather_max_kernel<<<grid, threads, k_total * sizeof(int), stream>>>(
-      feature, index, out, n, c_total, s_total, k_total);
-  return (int)cudaGetLastError();
+  return launch_gather_max<false>(feature, index, out, nullptr, batch, n,
+                                  c_total, s_total, k_total, stream);
 }
 
 // The same, and win [B, S, C] int32 = index[b, s, k*] with k* the lowest
@@ -118,11 +247,8 @@ extern "C" int regnet_gather_max_argmax(const float* feature,
                                         int32_t* win, int batch, int n,
                                         int c_total, int s_total, int k_total,
                                         cudaStream_t stream) {
-  const int threads = c_total < 256 ? ((c_total + 31) / 32) * 32 : 256;
-  dim3 grid(s_total, batch);
-  gather_max_argmax_kernel<<<grid, threads, k_total * sizeof(int), stream>>>(
-      feature, index, out, win, n, c_total, s_total, k_total);
-  return (int)cudaGetLastError();
+  return launch_gather_max<true>(feature, index, out, win, batch, n, c_total,
+                                 s_total, k_total, stream);
 }
 
 // g [B, S, C] f32, win [B, S, C] int32 in [0, N) -> dfeature [B, N, C],

@@ -23,7 +23,8 @@ from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
 from regnet_for_3d_grasping_torch.ops.grouping import (gather_points,
                                                        group_points)
 from regnet_for_3d_grasping_torch.ops.knn import (interpolation_weights,
-                                                  three_interpolate, three_nn)
+                                                  three_interpolate, three_nn,
+                                                  three_nn_where)
 
 
 class SetAbstraction(nn.Module):
@@ -102,18 +103,25 @@ class FeaturePropagation(nn.Module):
         when its certificate holds for every query; else run the full scan
         over the sorted keys, so the result is always the exact 3-NN.  The
         indices address the sorted keys, and `sparse_feature` is permuted to
-        match.  Reading ``proven.all()`` is one device-to-host copy per
-        forward; a forward that falls back adds one to
+        match.  On the card nothing is read on the host: K8 sets a device
+        flag that K3's launches read, and adds to the device count
         ``_cuda.fallbacks["fp3_slab"]`` (a count that keeps growing means
         `nn_bound` is mis-scaled for the cloud's units)."""
         k_ord = torch.sort(sparse_xyz[..., 0], dim=-1, stable=True).indices
         key_sorted = gather_points(sparse_xyz, k_ord)
         feat_sorted = gather_points(sparse_feature, k_ord)
-        idx, d2, proven = slab.three_nn_slab(dense_xyz, key_sorted,
-                                             bound=self.nn_bound)
-        if not bool(proven.all()):
-            _cuda.fallbacks["fp3_slab"] += 1
-            idx, d2 = three_nn(dense_xyz, key_sorted, 3, sorted_keys=True)
+        dev = dense_xyz.device
+        if dev.type == "cpu":
+            idx, d2, proven = slab.three_nn_slab(dense_xyz, key_sorted,
+                                                 bound=self.nn_bound)
+            if not bool(proven.all()):
+                _cuda.fallbacks.add("fp3_slab")
+                idx, d2 = three_nn(dense_xyz, key_sorted, 3, sorted_keys=True)
+            return idx, d2, feat_sorted
+        r = slab.three_nn_slab_call(dense_xyz, key_sorted, self.nn_bound,
+                                    count=_cuda.fallbacks.on("fp3_slab", dev))
+        idx, d2 = three_nn_where(r.fallback, dense_xyz, key_sorted, r.idx,
+                                 r.d2, sorted_keys=True)
         return idx, d2, feat_sorted
 
 

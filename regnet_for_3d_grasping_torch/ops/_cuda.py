@@ -9,8 +9,9 @@ module import time: this module is imported on machines without a card.
 
 Every launch goes through `launch`, which adds one to ``launches[name]``
 and raises if the C entry point reports a CUDA error.  ``fallbacks`` counts
-the forwards in which the slab 3-NN's certificate failed and the full scan
-ran instead.
+the calls in which the slab 3-NN's certificate failed and the full scan
+ran instead: on the card K8 adds to a device count, which is read (and
+synchronized) only where ``fallbacks["fp3_slab"]`` is read.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ SIGNATURES = {
     "ball_query": ("ball_query", "regnet_ball_query",
                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
     "three_nn": ("three_nn", "regnet_three_nn",
-                 (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                 (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max": ("gather_max", "regnet_gather_max",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "crop": ("crop", "regnet_crop", (_P, _P, _P, _U, _P, _P, _P, _I, _I, _I,
@@ -57,7 +58,8 @@ SIGNATURES = {
                   (_P, _P, _P, _P, _U, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _I, _F, _F, _F, _F, _F, _F, _P)),
     "three_nn_slab": ("three_nn_slab", "regnet_three_nn_slab",
-                      (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+                      (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _F, _I, _I, _I, _P)),
     "gather_max_slab": ("gather_max_slab", "regnet_gather_max_slab",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "group_regions": ("group", "regnet_group_regions",
@@ -91,8 +93,44 @@ QUERIES = {
 KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
+
+class Counts:
+    """Named counts kept on the host (`add`) and, where a kernel counts on
+    the card, in an int64 on each card that the kernel adds to (`on`).
+    Reading a count (``counts[name]``) sums both and synchronizes with the
+    cards that hold it."""
+
+    def __init__(self, *names: str):
+        self._host = dict.fromkeys(names, 0)
+        self._dev: dict = {}
+
+    def add(self, name: str, n: int = 1) -> None:
+        self._host[name] += n
+
+    def on(self, name: str, device: torch.device) -> torch.Tensor:
+        """The device count `name` of `device` (int64 [1]), made at 0."""
+        key = (name, device_index(device))
+        if key not in self._dev:
+            # a normal tensor even under inference mode: `reset` zeroes it
+            # in place outside it
+            with torch.inference_mode(False):
+                self._dev[key] = torch.zeros(
+                    1, dtype=torch.int64, device=torch.device("cuda", key[1]))
+        return self._dev[key]
+
+    def __getitem__(self, name: str) -> int:
+        return self._host[name] + sum(int(t.item()) for (n, _), t
+                                      in self._dev.items() if n == name)
+
+    def reset(self) -> None:
+        for k in self._host:
+            self._host[k] = 0
+        for t in self._dev.values():
+            t.zero_()
+
+
 launches = dict.fromkeys(KERNELS, 0)
-fallbacks = {"fp3_slab": 0}
+fallbacks = Counts("fp3_slab")
 
 _fns: dict = {}
 _constants: dict = {}
@@ -100,9 +138,9 @@ _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (launches, fallbacks):
-        for k in counts:
-            counts[k] = 0
+    for k in launches:
+        launches[k] = 0
+    fallbacks.reset()
 
 
 def nvcc() -> str:

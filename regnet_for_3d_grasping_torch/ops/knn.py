@@ -98,12 +98,17 @@ def limits(device: torch.device) -> tuple:
 
 
 def three_nn_kernel(query: torch.Tensor, key: torch.Tensor,
-                    sorted_keys: bool = False):
+                    sorted_keys: bool = False,
+                    fallback: torch.Tensor | None = None, out=None):
     """Kernel K3: the three smallest (diff-square distance, index) pairs
     per query, ascending, ties to the smaller index.  The keys split into
     the ranges of `split_grid` (`sorted_keys`: sorted in x), and a merge
-    where there is more than one: 1 or 2 launches counted as one.  CPU
-    tensors take `three_nn_plain`."""
+    where there is more than one: 1 or 2 launches counted as one.
+
+    With `fallback` (a device int32 [1], K8's flag) and `out` (idx, dist),
+    the launches write `out` where the flag holds 1 and return at once
+    where it holds 0, read on the card.  CPU tensors take
+    `three_nn_plain`."""
     if query.device.type == "cpu":
         return three_nn_plain(query, key)
     B, N1, _ = query.shape
@@ -115,15 +120,39 @@ def three_nn_kernel(query: torch.Tensor, key: torch.Tensor,
     dev = query.device
     q, s = split_grid(B, N1, N2, _cuda.sm_count(dev), *limits(dev),
                       sorted_keys)
-    idx = torch.empty(B, N1, 3, dtype=torch.int32, device=dev)
-    dist = torch.empty(B, N1, 3, dtype=torch.float32, device=dev)
+    if out is None:
+        idx = torch.empty(B, N1, 3, dtype=torch.int32, device=dev)
+        dist = torch.empty(B, N1, 3, dtype=torch.float32, device=dev)
+    else:
+        idx, dist = out
+        _cuda.check(idx, "three_nn out idx", torch.int32, (B, N1, 3))
+        _cuda.check(dist, "three_nn out dist", torch.float32, (B, N1, 3))
+    if fallback is not None:
+        _cuda.check(fallback, "three_nn fallback", torch.int32, (1,))
     part_idx = part_dist = None
     if s > 1:   # each range's three, for the merge
         part_idx = torch.empty(B, s, 3, N1, dtype=torch.int32, device=dev)
         part_dist = torch.empty(B, s, 3, N1, dtype=torch.float32, device=dev)
     _cuda.launch("three_nn", dev, query, key, idx, dist, part_idx, part_dist,
-                 B, N1, N2, q, s)
+                 fallback, B, N1, N2, q, s)
     return idx, dist
+
+
+def three_nn_where(fallback: torch.Tensor, query: torch.Tensor,
+                   key: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
+                   sorted_keys: bool = False):
+    """`three_nn(query, key)` in place of (idx, dist) where the device
+    flag `fallback` (int32 [1]) holds 1, with no host read: K3 where
+    `use_kernel` holds, its launches reading the flag on the card; below
+    it, the plain path's result chosen by ``torch.where``."""
+    query = query.float().contiguous()
+    key = key.float().contiguous()
+    if use_kernel(query.shape[1], key.shape[1], 3):
+        return three_nn_kernel(query, key, sorted_keys, fallback,
+                               (idx, dist))
+    full = three_nn(query, key)
+    on = fallback.bool()
+    return torch.where(on, full[0], idx), torch.where(on, full[1], dist)
 
 
 def three_nn_plain(query: torch.Tensor, key: torch.Tensor,

@@ -4,7 +4,9 @@ Every call goes to kernel K4 (``csrc/gather_max.cu``) on a CUDA tensor: a
 max is a max, so the JAX package's Pallas/XLA split (which keeps the f32
 refine pool on XLA, ``pooling.py:53-54``) changes no value.  The bucket
 structure the TPU kernel needs is not needed by a direct gather, so there
-is no `stride` argument.
+is no `stride` argument.  The kernel reads only the slots `kept_slots`
+keeps: slot 0 and every slot whose row differs from slot 0's (the bucket
+fills of K11 and K5 copy slot 0's row into every empty slot).
 
 When `feature` needs a gradient the argmax form runs: it also gives the
 winner `win[b, s, c]`, the source row of the lowest slot holding the
@@ -78,6 +80,16 @@ class _GatherMax(torch.autograd.Function):
     def backward(ctx, g):
         (win,) = ctx.saved_tensors
         return scatter_winner(g, win, ctx.n), None
+
+
+def kept_slots(index: torch.Tensor) -> torch.Tensor:
+    """index [B, S, K] -> bool [B, S, K]: the slots K4 reads, slot 0 and
+    every slot whose row differs from slot 0's, in slot order.  A dropped
+    slot is a later copy of slot 0's row, so neither the max nor the lowest
+    slot holding it changes, for any index tensor."""
+    keep = index != index[..., :1]
+    keep[..., 0] = True
+    return keep
 
 
 def _check(feature, index):

@@ -18,11 +18,14 @@ Kernels (CUDA tensors) and their plain PyTorch versions (CPU tensors):
 
 The JAX package runs K6-K8 over two grid layouts (a full grid with skipped
 steps and a flat grid of live steps) that scan the same blocks in the same
-order; here one kernel over every ``(tile, scan block)`` stands for both.  A
-K6 or K7 call builds its span table, selects and fills its empty slots on
-the card in three launches (``csrc/slab_select.cu``); `slab_bounds` and
-`finish_select` are their plain versions.  K8's span table and its
-exactness certificate are plain PyTorch in the wrapper.
+order; here one kernel over every ``(tile, scan block)`` stands for both
+(K8 has the full grid only: the flat one has no caller).  A K6 or K7 call
+builds its span table, selects and fills its empty slots on the card in
+three launches (``csrc/slab_select.cu``); `slab_bounds` and
+`finish_select` are their plain versions.  So does a K8 call: span table,
+scan, and merge with the exactness certificate, which sets a device flag
+that the full-scan fallback (K3) reads on the card; `three_nn_spans`,
+`three_nn_slab_plain` and `three_nn_certificate` are its plain versions.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from regnet_for_3d_grasping_torch.ops import _cuda
+from regnet_for_3d_grasping_torch.ops import _cuda, knn
 from regnet_for_3d_grasping_torch.ops.grouping import group_points
 from regnet_for_3d_grasping_torch.ops.knn import _smallest_k
 from regnet_for_3d_grasping_torch.ops.pooling import scatter_winner
@@ -49,6 +52,10 @@ BALL_WIN, BALL_SPW = 256, 2
 
 _SCAN_K = 1024  # keys per block (3-NN)
 _TM_K = 256     # queries per tile (3-NN)
+# the blocks a SM that K8's scan aims at, counting the ones past a span's
+# stop: its grid sweep on the H100 (PERF.md) ran fastest at FP3 serving on
+# 4 parts a key block (2,400 blocks, about 1,900 live)
+NN_BLOCKS_PER_SM = 12
 
 _U32 = 0xFFFFFFFF
 # odd multipliers: h -> (h * odd) mod 2^23 permutes the 23-bit scores, one
@@ -414,46 +421,103 @@ def crop_slab_plain(xyz, frames, centers, ss, seed, box, K):
 # ---------------------------------------------------------------------------
 
 
-def three_nn_spans(query: torch.Tensor, key: torch.Tensor, bound: float,
-                   grid_span: int, flat: bool):
-    """Key-block span [start, stop) of every 256-query tile: the keys with
-    x within the tile's x-range widened by `bound`.
+class SlabNN(NamedTuple):
+    """K8's outputs: the 3-NN over each tile's span (`idx` [B, Nq, 3] int32,
+    `d2` [B, Nq, 3] ascending), the certificate (`proven` [B] bool, and on
+    the card `fallback` [1] int32, 1 where any cloud is unproven), the span
+    table `ss` [B, T, 2] int32 and the certificate's x bounds `lr`
+    [B, T, 2] f32 (the nearest unscanned key on the left and the right)."""
+    idx: torch.Tensor
+    d2: torch.Tensor
+    proven: torch.Tensor
+    fallback: torch.Tensor | None
+    ss: torch.Tensor
+    lr: torch.Tensor
 
-    With `flat` the spans are taken as they are unless they sum to more
-    than 2.5 blocks per tile; otherwise (and by default) each is clamped to
-    `grid_span` blocks, recentred on the slab.  These are the spans of the
-    JAX package's two grids.  Returns (start, stop) [B, T] int64 and the
-    padded query x [B, T, 256]."""
+
+def three_nn_spans(query: torch.Tensor, key: torch.Tensor, bound: float,
+                   grid_span: int = 3):
+    """Plain PyTorch version of K8's span table: the key-block span
+    [start, stop) of every 256-query tile, the keys with x within the
+    tile's x-range widened by `bound`, clamped to `grid_span` blocks and
+    recentred on the slab (JAX ``slab.py:805-835``); and the x of the
+    nearest unscanned key on either side, -1e38 / 1e38 past the ends (the
+    certificate's bounds, ``slab.py:904-915``).  Returns (ss [B, T, 2]
+    int32, lr [B, T, 2] f32)."""
     B, Nq, _ = query.shape
     NK = key.shape[1]
     nkb = n_scan_blocks_k(NK)
     qt = _pad_queries(query[..., :1], _TM_K, 1e10)[..., 0]
     T = qt.shape[1] // _TM_K
-    qt = qt.reshape(B, T, _TM_K)
-    lo, hi = _tile_range(qt, bound)
+    lo, hi = _tile_range(qt.reshape(B, T, _TM_K), bound)
     kx = key[..., 0].contiguous()
     srow = torch.searchsorted(kx, lo.contiguous(), right=False)
     erow = torch.searchsorted(kx, hi.contiguous(), right=True)
-    start_u = torch.clamp(srow // _SCAN_K, 0, nkb - 1)
-    stop_u = torch.minimum(torch.maximum(-(-erow // _SCAN_K), start_u + 1),
-                           torch.tensor(nkb, device=kx.device))
+    start = torch.clamp(srow // _SCAN_K, 0, nkb - 1)
+    stop = torch.clamp(torch.maximum(-(-erow // _SCAN_K), start + 1),
+                       max=nkb)
     cap = min(grid_span, nkb)
-    if cap >= nkb:
-        return start_u, stop_u, qt
-    mid = (srow + erow) // (2 * _SCAN_K)
-    s_ctr = torch.clamp(mid - cap // 2, 0, nkb - cap)
-    start = torch.where(stop_u - start_u > cap, s_ctr, start_u)
-    stop = torch.minimum(stop_u, start + cap)
-    if flat:
-        fits = (stop_u - start_u).sum() <= (B * T * 5) // 2
-        start = torch.where(fits, start_u, start)
-        stop = torch.where(fits, stop_u, stop)
-    return start, stop, qt
+    if cap < nkb:
+        mid = (srow + erow) // (2 * _SCAN_K)
+        s_ctr = torch.clamp(mid - cap // 2, 0, nkb - cap)
+        start_c = torch.where(stop - start > cap, s_ctr, start)
+        stop = torch.minimum(stop, start_c + cap)
+        start = start_c
+    left_row = start * _SCAN_K - 1
+    right_row = stop * _SCAN_K
+    big = torch.full((), _BIG, dtype=torch.float32, device=kx.device)
+    left_x = torch.where(left_row >= 0,
+                         torch.gather(kx, 1, left_row.clamp(min=0)), -big)
+    right_x = torch.where(right_row < NK,
+                          torch.gather(kx, 1, right_row.clamp(max=NK - 1)),
+                          big)
+    return (torch.stack([start, stop], -1).to(torch.int32),
+            torch.stack([left_x, right_x], -1))
+
+
+def three_nn_certificate(query: torch.Tensor, d2: torch.Tensor,
+                         lr: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8's certificate -> proven [B]: every
+    query's third distance is no larger than the squared x-gap to the
+    nearest key outside its tile's span (`lr`), the gap clamped at 0 (a
+    clamped span can leave a query outside its tile's window)."""
+    tile = torch.arange(query.shape[1], device=query.device) // _TM_K
+    qx = query[..., 0]
+    margin = torch.minimum(qx - lr[:, tile, 0], lr[:, tile, 1] - qx)
+    margin = margin.clamp(min=0.0)
+    return (d2[..., 2] <= margin * margin).all(-1)
+
+
+def three_nn_slab_grid(batch: int, tiles: int, cap: int, sms: int,
+                       threads: int, max_per_thread: int) -> tuple:
+    """(Q, parts): queries a thread and parts of a key block of K8's scan,
+    for `batch` x `tiles` query tiles of 256 and spans of at most `cap`
+    blocks, on a card of `sms` SMs and blocks of `threads` threads, Q up
+    to `max_per_thread` (a power of 2).
+
+    The rule of K3's `knn.split_grid`, counted over the span: Q is the
+    most queries a thread whose blocks (256 / (threads * Q) a tile) alone
+    put one on every SM, else 1; parts is the fewest of 1, 2 and 4 (at
+    least `knn.MIN_RANGE_KEYS` keys each) that give `NN_BLOCKS_PER_SM`
+    blocks a SM, counting `cap` blocks a tile (the span table is on the
+    card, so the blocks past a span's stop are launched and return at
+    once)."""
+    if min(batch, tiles, cap) < 1:
+        raise ValueError(f"three_nn_slab: empty grid {batch}, {tiles}, "
+                         f"{cap}")
+    q = max_per_thread
+    while q > 1 and batch * tiles * (_TM_K // (threads * q)) < sms:
+        q //= 2
+    blocks = batch * tiles * (_TM_K // (threads * q)) * cap
+    parts = 1
+    while (parts < _SCAN_K // knn.MIN_RANGE_KEYS
+           and blocks * parts < NN_BLOCKS_PER_SM * sms):
+        parts *= 2
+    return q, parts
 
 
 def three_nn_slab(query: torch.Tensor, key: torch.Tensor,
-                  bound: float = 0.06, grid_span: int = 3,
-                  flat: bool = False):
+                  bound: float = 0.06, grid_span: int = 3):
     """Kernel K8: the 3 nearest keys per query among the keys of its
     tile's span (`three_nn_spans`).
 
@@ -462,49 +526,52 @@ def three_nn_slab(query: torch.Tensor, key: torch.Tensor,
     diff-square distances, proven [B] bool).  `proven` certifies the result:
     every query's third distance is no larger than the squared x-gap to the
     nearest key outside the scanned span.  Where it is False the caller
-    runs the full scan.  CPU tensors take `three_nn_slab_plain`."""
+    runs the full scan (`models/backbone.py` does so on the card without
+    reading it).  CPU tensors take the plain versions."""
+    r = three_nn_slab_call(query, key, bound, grid_span)
+    return r.idx, r.d2, r.proven
+
+
+def three_nn_slab_call(query: torch.Tensor, key: torch.Tensor,
+                       bound: float = 0.06, grid_span: int = 3,
+                       count: torch.Tensor | None = None) -> SlabNN:
+    """K8 with all its outputs (`SlabNN`).  On the card, three launches
+    counted as one (span table; scan; merge and certificate) and no host
+    sync; `count` (int64 [1] on the card) gains one where the call's
+    certificate fails.  CPU tensors take `three_nn_spans`,
+    `three_nn_slab_plain` and `three_nn_certificate`."""
     query = query.float().contiguous()
     key = key.float().contiguous()
     B, Nq, _ = query.shape
     NK = key.shape[1]
     if Nq == 0 or NK == 0:
         raise ValueError(f"three_nn_slab: empty input {Nq}, {NK}")
-    start, stop, qt = three_nn_spans(query, key, bound, grid_span, flat)
-    ss = torch.stack([start, stop], -1).to(torch.int32).contiguous()
-    idx, d2 = three_nn_slab_spans(query, key, ss)
-
-    # certificate: the nearest unscanned key on either side, by x alone
-    kx = key[..., 0]
-    big = torch.tensor(_BIG, dtype=torch.float32, device=kx.device)
-    left_row = start * _SCAN_K - 1
-    right_row = stop * _SCAN_K
-    left_x = torch.where(left_row >= 0,
-                         torch.gather(kx, 1, left_row.clamp(min=0)), -big)
-    right_x = torch.where(right_row < NK,
-                          torch.gather(kx, 1, right_row.clamp(max=NK - 1)),
-                          big)
-    margin = torch.minimum(qt - left_x[..., None], right_x[..., None] - qt)
-    # a clamped span can leave a query outside its tile's window: margin 0
-    margin = margin.clamp(min=0.0).reshape(B, -1)[:, :Nq]
-    proven = (d2[..., 2] <= margin * margin).all(-1)
-    return idx, d2, proven
-
-
-def three_nn_slab_spans(query: torch.Tensor, key: torch.Tensor,
-                        ss: torch.Tensor):
-    """K8 over given spans `ss` [B, T, 2] int32 (start, stop): the launch
-    alone.  Returns (index, d2) [B, Nq, 3].  CPU tensors take
-    `three_nn_slab_plain`."""
     if query.device.type == "cpu":
-        return three_nn_slab_plain(query, key, ss)
-    (B, Nq, _), NK = query.shape, key.shape[1]
+        ss, lr = three_nn_spans(query, key, bound, grid_span)
+        idx, d2 = three_nn_slab_plain(query, key, ss)
+        return SlabNN(idx, d2, three_nn_certificate(query, d2, lr), None, ss,
+                      lr)
     _cuda.check(query, "three_nn_slab query", torch.float32, (B, Nq, 3))
     _cuda.check(key, "three_nn_slab key", torch.float32, (B, NK, 3))
-    idx = torch.empty(B, Nq, 3, dtype=torch.int32, device=query.device)
-    d2 = torch.empty(B, Nq, 3, dtype=torch.float32, device=query.device)
-    _cuda.launch("three_nn_slab", query.device, query, key, ss, idx, d2,
-                 B, Nq, NK)
-    return idx, d2
+    dev = query.device
+    T = -(-Nq // _TM_K)
+    cap = min(grid_span, n_scan_blocks_k(NK))
+    q, parts = three_nn_slab_grid(B, T, cap, _cuda.sm_count(dev),
+                                  *knn.limits(dev))
+    ss = torch.empty(B, T, 2, dtype=torch.int32, device=dev)
+    lr = torch.empty(B, T, 2, dtype=torch.float32, device=dev)
+    pidx = torch.empty(B, cap * parts, 3, T * _TM_K, dtype=torch.int32,
+                       device=dev)
+    pd2 = torch.empty(B, cap * parts, 3, T * _TM_K, dtype=torch.float32,
+                      device=dev)
+    idx = torch.empty(B, Nq, 3, dtype=torch.int32, device=dev)
+    d2 = torch.empty(B, Nq, 3, dtype=torch.float32, device=dev)
+    proven = torch.empty(B, dtype=torch.bool, device=dev)
+    fallback = torch.empty(1, dtype=torch.int32, device=dev)
+    _cuda.launch("three_nn_slab", dev, query, key, ss, lr, pidx, pd2, idx,
+                 d2, proven, fallback, count, B, Nq, NK, bound, cap, q,
+                 parts)
+    return SlabNN(idx, d2, proven, fallback, ss, lr)
 
 
 def three_nn_slab_plain(query: torch.Tensor, key: torch.Tensor,

@@ -1,4 +1,5 @@
-"""K3's key-split 3-NN (``csrc/three_nn.cu``), on the CPU.
+"""K3's key-split 3-NN (``csrc/three_nn.cu`` on ``csrc/three_nn.cuh``), on
+the CPU.
 
 The kernel splits the keys into S ranges of ceil(N2 / S) in index order; a
 block of 128 threads owns 128*Q queries (Q a thread, strided by 128) x one
@@ -34,15 +35,18 @@ from regnet_for_3d_grasping_tpu.ops.knn_pallas import three_nn_pallas
 from regnet_for_3d_grasping_torch.ops import knn
 
 H100_SMS = 132
-SOURCE = Path(__file__).resolve().parents[1] / "regnet_for_3d_grasping_torch" \
-    / "csrc" / "three_nn.cu"
+CSRC = Path(__file__).resolve().parents[1] / "regnet_for_3d_grasping_torch" \
+    / "csrc"
 INF = np.float32(3e38)
 
 
 def cxx_constant(name):
-    """The int constant `name` of three_nn.cu: the wrapper reads it from
-    the built library, which needs a card; here from the source."""
-    found = re.findall(rf"\b{name} = (\d+);", SOURCE.read_text())
+    """The int constant `name` of three_nn.cu and the scan it shares with
+    K8 (three_nn.cuh): the wrapper reads it from the built library, which
+    needs a card; here from the sources."""
+    text = (CSRC / "three_nn.cu").read_text() + (CSRC / "three_nn.cuh"
+                                                 ).read_text()
+    found = re.findall(rf"\b{name} = (\d+);", text)
     assert len(found) == 1, f"{name}: {found}"
     return int(found[0])
 
@@ -111,10 +115,11 @@ def test_split_grid_refuses_empty_searches():
 # --- (b) the emulation ------------------------------------------------------
 
 class Best3:
-    """Best3 of three_nn.cu for a vector of queries."""
+    """Best3 of three_nn.cuh for a vector of queries; `empty` is the
+    distance of an empty slot (K3's 3e38, K8's 1e38)."""
 
-    def __init__(self, n):
-        self.d = np.full((n, 3), INF, np.float32)
+    def __init__(self, n, empty=INF):
+        self.d = np.full((n, 3), empty, np.float32)
         self.i = np.zeros((n, 3), np.int64)
 
     def insert(self, d, j):
