@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the nine CUDA sources (fourteen kernel entry points) of
+2. build: the nine CUDA sources (sixteen kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -27,7 +27,12 @@ result unless every phase passed):
    split, and merge where it splits the keys), the pool K4 at the region
    pool and on the crop K5's own 4,000 x 64 output (with the slots it
    keeps: mean, p90 and most a row, and the rows a call reads, at every
-   K4 shape) and the argmax and backward forms of the pools K4 and K9, of
+   K4 shape), the bf16 forms of K4 and K9 at their serving shapes (bit for
+   bit, rows read, the bound at 2 bytes a channel, ``embedding_bag`` on
+   bf16 where torch runs it; K9's also at 8 channels a thread, the form
+   its entry point offers beside the wrapper's 4; a bf16 pool asked for a
+   gradient must raise)
+   and the argmax and backward forms of the pools K4 and K9, of
    the training paths (12 clouds, 64 centers), with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
    their span tables scan and the pairs that pass; for K11, K5, K2 and K3
@@ -50,15 +55,14 @@ result unless every phase passed):
 4. the full-scan path: the port's infer CLI on 3 tabletop clouds with the
    trained weights (``weights/r5_real_e100.npz``), the kernel launch
    counters reset just before and read just after;
-5. one of those clouds again on the CPU through the plain versions,
-   compared with the card's output;
 6. the sorted-slab serving path: the CLI again with ``--slab-cell 0.04
    --fps-groups 8`` on the same clouds, counters reset and read as in 4
    (K3 launches in every forward: it returns at once on the card where the
    slab 3-NN is proven), and the count of forwards whose slab 3-NN fell
    back to the full scan;
-7. one slab forward on the card and on the CPU with the same sort noise
-   and seeds, compared;
+11. bf16 on the full scan (``--bf16``) and 12. the JAX package's serving
+   configuration of record (``--fast``: bf16 + slab 0.04 + G = 8), counters
+   as in 4: each bf16 pool twice a forward, no f32 pool;
 8. training, full scan: the port's train CLI for 4 steps at batch 12 and
    full width on synthetic scenes made from a seed (and its validation
    forwards), counters reset before and read after, losses finite, weights
@@ -71,7 +75,16 @@ result unless every phase passed):
     weights and seeds and dropout off: selections equal, loss within 1e-4,
     the gradients of the score and proposal heads within 2 % of their largest
     entry and
-    that of SA1's first layer within 15 %.
+    that of SA1's first layer within 15 %;
+5., 7., 13., 14. one forward of each serving path (full scan, slab, bf16
+   full scan, ``--fast``) on the card and on the CPU (plain versions, the
+   CPU twin of the bf16 GEMM) with the same seeds and sort noise: f32
+   scores within 1e-4 and every selection 99 % equal; bf16 as
+   `compare_phases` says (the scores against how far two GEMM recipes on
+   the CPU drift apart, everything after the score with the CPU's
+   centers on both sides).  The CPU's forwards run in one helper process
+   beside the training phases (after the serving phases, whose latencies
+   are host-bound).
 
 The last lines are the kernels' JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -79,6 +92,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pickle
 import statistics
@@ -93,6 +107,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 N_POINTS, N_CENTERS = 25600, 4000
+CPU_THREADS = 4      # the CPU reference forwards' threads, beside the card
 WEIGHTS = ROOT / "weights" / "r5_real_e100.npz"
 # H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -287,22 +302,68 @@ def kept_stats(index: torch.Tensor) -> dict:
     return out
 
 
+def bit_equal(got, ref) -> bool:
+    """Equal bit for bit (a max copies values: nothing may round)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(got.view(view[got.dtype]), ref.view(view[ref.dtype]))
+
+
+def library_ms(fn, agrees, label, bf16: bool) -> dict:
+    """The library yardstick's times; it must run and agree with the plain
+    version (`agrees(output)`).  On bf16 rows (`bf16`) torch may refuse
+    it: then None and the reason."""
+    try:
+        out = fn()
+    except (RuntimeError, NotImplementedError) as e:
+        if not bf16:
+            raise
+        reason = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        print(f"{label}: no library time ({reason})")
+        return {"library_ms": None, "library_none": reason}
+    check(agrees(out), f"the library yardstick disagrees ({label})")
+    return {"library_ms": cuda_ms(fn, 20),
+            "library_device_ms": device_ms(fn, 20)}
+
+
+def k9_bf16_vec8(feature, index, off, win, spw, ref, label) -> dict:
+    """K9's bf16 form at 8 channels a thread (16-byte loads, 8 row groups
+    a block; its entry point's `vec` = 8, which the wrapper never asks
+    for), bit-equal to the plain version `ref` and timed, to set beside
+    the 4-channel form the wrapper runs."""
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    (B, N, C), (S, K) = feature.shape, index.shape[1:]
+    out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
+    off = off.to(torch.int32).contiguous()
+
+    def call():
+        _cuda.launch("gather_max_slab_bf16", feature.device, feature, index,
+                     off, out, B, N, C, S, K, win, spw, 8)
+        return out
+
+    check(bit_equal(call(), ref), f"K9 bf16 at 8 channels a thread "
+          f"differs ({label})")
+    row = {"vec8_ms": cuda_ms(call, 20), "vec8_device_ms": device_ms(call, 20)}
+    print(f"gather_max_slab {label}: 8 channels a thread {row}")
+    return row
+
+
 def gather_max_case(label, feature, index) -> dict:
-    """Phase 3 for K4's forward at one shape: equal to `gather_max_plain`
-    and to ``embedding_bag`` (max); times with and without the host, the
-    plain version's and the library's; the bound counts the feature rows
-    the indices touch (each read once), not all of them."""
+    """Phase 3 for K4's forward at one shape, f32 or bf16 rows: equal bit
+    for bit to `gather_max_plain` and to ``embedding_bag`` (max), where
+    torch runs it; times with and without the host, the plain version's
+    and the library's; the bound counts the feature rows the indices
+    touch (each read once, at the rows' element size), not all of them."""
     from regnet_for_3d_grasping_torch.ops import pooling
     got = pooling.gather_max(feature, index)
     ref = pooling.gather_max_plain(feature, index)
-    check(torch.equal(got, ref), f"K4 gather-max differs ({label})")
+    check(bit_equal(got, ref), f"K4 gather-max differs ({label})")
 
     def embedding_bag():
         return torch.nn.functional.embedding_bag(
             index[0].long(), feature[0], mode="max")
 
-    check(torch.equal(embedding_bag()[None], ref),
-          f"embedding_bag yardstick disagrees with gather-max ({label})")
     print(f"gather_max {label}:")
     return {"shape": label, "max_abs_err": max_err(got, ref),
             "ms": cuda_ms(lambda: pooling.gather_max(feature, index), 20),
@@ -312,11 +373,10 @@ def gather_max_case(label, feature, index) -> dict:
                       * feature.element_size() + nbytes(index, got)),
             # the compares this run's data needs: one a kept slot and channel
             "ops": int(pooling.kept_slots(index).sum()) * feature.shape[-1],
-            "library_ms": cuda_ms(embedding_bag, 20),
             "device_ms": device_ms(lambda: pooling.gather_max(feature, index),
-                                   20),
-            "library_device_ms": device_ms(embedding_bag, 20)} \
-        | kept_stats(index)
+                                   20)} \
+        | library_ms(embedding_bag, lambda out: torch.equal(out[None], ref),
+                     f"K4 {label}", feature.dtype == torch.bfloat16) | kept_stats(index)
 
 
 ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bytes", "ops",
@@ -1227,7 +1287,7 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     profiler session).  Returns the rows of the pools' backward at K9's
     shapes."""
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
-    from regnet_for_3d_grasping_torch.ops import fps, slab
+    from regnet_for_3d_grasping_torch.ops import _cuda, fps, pooling, slab
 
     _, sc = slab.sort_cloud(xyz, SLAB_CELL,
                             generator=torch.Generator().manual_seed(7))
@@ -1362,7 +1422,7 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     feature = torch.randn(1, N_POINTS, 256,
                           generator=torch.Generator().manual_seed(9)).to(dev)
 
-    def k9(index, off, win, spw, label):
+    def k9(feature, index, off, win, spw, label):
         def kernel():
             return slab.gather_max_slab(feature, index, off, win, spw)
 
@@ -1379,12 +1439,15 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
                 flat_idx, feature[0], offsets, mode="max")
 
         got, ref = kernel(), plain()
-        check(torch.equal(got, ref), f"K9 gather_max_slab differs ({label})")
+        check(bit_equal(got, ref), f"K9 gather_max_slab differs ({label})")
+        bf16 = feature.dtype == torch.bfloat16
         has = n_cov > 0
-        check(bool((got[0][~has] == -1e38).all()),
-              f"K9 rows without a covered slot are not -1e38 ({label})")
-        check(torch.equal(embedding_bag()[has], ref[0][has]),
-              f"embedding_bag yardstick disagrees with K9 ({label})")
+        nothing = torch.tensor(-1e38, dtype=feature.dtype)
+        check(bool((got[0][~has] == nothing.to(dev)).all()),
+              f"K9 rows without a covered slot are not {float(nothing)} "
+              f"({label})")
+        lib = library_ms(embedding_bag, lambda out: torch.equal(
+            out[has], ref[0][has]), f"K9 {label}", bf16)
         print(f"gather_max_slab {label}: {int(cover.sum())} covered slots of "
               f"{cover.numel()}, {int((~has).sum())} rows without one")
         # bytes: the feature rows the covered slots touch, not all of them
@@ -1395,31 +1458,49 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
                 "plain_ms": cuda_ms(plain, 3),
                 "bytes": (touched * feature.shape[-1] * feature.element_size()
                           + nbytes(index, off, got)),
-                "ops": int(cover.sum()) * 256,
-                "library_ms": cuda_ms(embedding_bag, 20),
-                "device_ms": device_ms(kernel, 20),
-                "library_device_ms": device_ms(embedding_bag, 20)}
+                "ops": int(cover.sum()) * 256, "rows_read": touched} | lib \
+            | {"device_ms": device_ms(kernel, 20)} \
+            | (k9_bf16_vec8(feature, index, off, win, spw, ref, label)
+               if bf16 else {})
 
     g_idx = torch.where((groups[2] & (groups[1] > 0))[..., None], groups[0], 0)
     c_idx = torch.where(crops[2][..., None], crops[0], 0)
-    rows = [{"shape": "region pool: 4000 x 256 slots, win 128, spw 4"}
-            | k9(g_idx, groups[3], slab.GROUP_WIN, slab.GROUP_SPW,
-                 "region pool"),
-            {"shape": "refine pool: 4000 x 64 slots, win 256, spw 1"}
-            | k9(c_idx, crops[3], slab.CROP_WIN, slab.CROP_SPW,
-                 "refine pool")]
-    record_rows(record, "gather_max_slab", CSRC + "gather_max_slab.cu",
-                JAX_OPS + "slab.py:1072", rows)
+    # the f32 form, and the bf16 form (a bf16 compute dtype: `--fast`) on
+    # the same values rounded to bf16
+    for name, f in (("gather_max_slab", feature),
+                    ("gather_max_slab_bf16", feature.bfloat16())):
+        rows = [{"shape": "region pool: 4000 x 256 slots, win 128, spw 4"}
+                | k9(f, g_idx, groups[3], slab.GROUP_WIN, slab.GROUP_SPW,
+                     f"{name} region pool"),
+                {"shape": "refine pool: 4000 x 64 slots, win 256, spw 1"}
+                | k9(f, c_idx, crops[3], slab.CROP_WIN, slab.CROP_SPW,
+                     f"{name} refine pool")]
+        record_rows(record, name, CSRC + "gather_max_slab.cu",
+                    JAX_OPS + "slab.py:1072", rows)
     # the kernel reads 4 channels a load: the wrapper refuses a C that is
-    # not a multiple of 4 and features that are not 16-byte aligned
-    shifted = torch.empty(feature.numel() + 1, device=dev)[1:]
-    for bad in (feature[..., :255].contiguous(), shifted.view(feature.shape)):
+    # not a multiple of 4 and features not aligned to a load
+    for f in (feature, feature.bfloat16()):
+        shifted = torch.empty(f.numel() + 1, dtype=f.dtype, device=dev)[1:]
+        for bad in (f[..., :255].contiguous(), shifted.view(f.shape)):
+            try:
+                slab.gather_max_slab(bad, g_idx, groups[3], slab.GROUP_WIN,
+                                     slab.GROUP_SPW)
+            except ValueError:
+                continue
+            check(False, "K9 took features it cannot read 4 channels a "
+                  "load")
+    # bf16 training is not ported: a bf16 pool asked for a gradient raises
+    # and launches nothing
+    before = dict(_cuda.launches)
+    for pool in (lambda f: slab.gather_max_slab(
+            f, g_idx, groups[3], slab.GROUP_WIN, slab.GROUP_SPW),
+                 lambda f: pooling.gather_max(f, g_idx)):
         try:
-            slab.gather_max_slab(bad, g_idx, groups[3], slab.GROUP_WIN,
-                                 slab.GROUP_SPW)
-        except ValueError:
+            pool(feature.bfloat16().requires_grad_())
+        except NotImplementedError:
             continue
-        check(False, "K9 took features it cannot read 4 channels a load")
+        check(False, "a bf16 pool took a gradient")
+    check(_cuda.launches == before, "a refused bf16 pool launched a kernel")
 
     # K9's argmax form and the backward, at the pools of a training batch
     # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
@@ -1670,35 +1751,285 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
               f"training step: gradient of {name} differs")
 
 
-def card_vs_cpu(cfg, pc, dev, label, **randomness) -> None:
-    """One forward on the card and on the CPU (plain versions) with the
-    same randomness: scores within 1e-4, selections at least 99 % equal."""
-    from regnet_for_3d_grasping_torch.models.regnet import build_regnet
-    with torch.inference_mode():
-        out_g = build_regnet(cfg, WEIGHTS, "cuda")(
-            torch.from_numpy(pc)[None].to(dev), **randomness)
-        t0 = time.perf_counter()
-        out_c = build_regnet(cfg, WEIGHTS, "cpu")(torch.from_numpy(pc)[None],
-                                                  **randomness)
-    print(f"{label}: cpu forward {time.perf_counter() - t0:.1f}s")
-    score_g, score_c = out_g.score.cpu(), out_c.score
-    if out_c.point_order is not None:
-        same_order = float((out_g.point_order.cpu() == out_c.point_order)
-                           .float().mean())
-        print(f"{label}: point_order equal share {same_order:.5f}")
-        check(same_order >= 0.99, "slab order differs between card and CPU")
+def cpu_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`nn/layers.bf16_matmul`'s CPU recipe on any device: the f32 product
+    of the bf16-rounded operands (TF32 is off), rounded once to bf16."""
+    return torch.nn.functional.linear(
+        x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+    ).to(torch.bfloat16)
+
+
+def f64_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The bf16 GEMM summed in f64 (a sum of products of bf16 operands,
+    exact in all but rare cases, so in any order), rounded to f32 and then
+    to bf16: the same on the card and the CPU."""
+    return torch.nn.functional.linear(
+        x.to(torch.bfloat16).double(), w.to(torch.bfloat16).double()
+    ).float().to(torch.bfloat16)
+
+
+GEMMS = {"cpu": cpu_gemm, "f64": f64_gemm}
+
+
+@contextlib.contextmanager
+def replaced(module, name: str, value):
+    """`module.name` is `value` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+F64 = ", f64 GEMMs"      # a CPU forward with `f64_gemm`'s sums
+FIELDS = ("score", "center_index", "region_valid", "anchor_index",
+          "proposals", "crop_valid", "final_grasps", "refine_accept")
+
+
+def forward_fields(overrides: dict, pc: np.ndarray, device: str,
+                   randomness: dict, gemm: str = "native",
+                   center_index: np.ndarray | None = None) -> dict:
+    """One forward at ``infer_config(**overrides)`` with the trained
+    weights on `device` ("cpu": the plain versions and the CPU twin of the
+    bf16 GEMM) and the given randomness (numpy arrays for tensors) -> the
+    fields a card-CPU comparison reads, as numpy, and the seconds it
+    took.  `gemm`: the bf16 GEMMs' recipe, "native" (as the port runs
+    them), "cpu" (the CPU twin's, on the card too: `cpu_gemm`) or "f64"
+    (`f64_gemm`).  `center_index` [1, NC] (rows in the forward's own
+    order): the centers, in place of the masked FPS's picks."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+    from regnet_for_3d_grasping_torch.models import regnet
+    from regnet_for_3d_grasping_torch.nn import layers
+    from regnet_for_3d_grasping_torch.ops.grouping import gather_points
+    if device == "cpu":
+        torch.set_num_threads(CPU_THREADS)
+    kw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+          for k, v in randomness.items()}
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if gemm != "native":
+            stack.enter_context(replaced(layers, "bf16_matmul",
+                                         GEMMS[gemm]))
+        if center_index is not None:
+            idx = torch.from_numpy(center_index).to(device)
+            stack.enter_context(replaced(
+                regnet, "select_score_centers",
+                lambda cloud, *_: (gather_points(cloud, idx), idx)))
+        stack.enter_context(torch.inference_mode())
+        model = regnet.build_regnet(infer_config(**overrides), WEIGHTS,
+                                    device)
+        out = model(torch.from_numpy(pc)[None].to(device), **kw)
+    fields = {k: getattr(out, k).float().cpu().numpy() if
+              getattr(out, k).is_floating_point()
+              else getattr(out, k).cpu().numpy() for k in FIELDS}
+    if out.point_order is not None:
+        fields["point_order"] = out.point_order.cpu().numpy()
+    fields["seconds"] = time.perf_counter() - t0
+    return fields
+
+
+class CpuForwards:
+    """The CPU's side of the card-CPU comparisons: each forward runs in
+    one helper process (spawned, `CPU_THREADS` threads) while the card
+    phases go on, so they add little to the command's time.  `result`
+    waits for one; `close` stops the process."""
+
+    def __init__(self, pc: np.ndarray, cases: dict):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = {label: self.pool.submit(forward_fields, over, pc, "cpu",
+                                             *args)
+                     for label, (over, *args) in cases.items()}
+
+    def result(self, label: str) -> dict:
+        return self.jobs[label].result(timeout=900)
+
+    def close(self) -> None:
+        self.pool.shutdown(cancel_futures=True)
+
+
+def card_vs_cpu(card: dict, cpu: dict, label: str) -> dict:
+    """One forward on the card against the CPU's with the same weights and
+    randomness -> how far they agree, printed: the scores (in the input's
+    row order), the points on each side of score_thre (the FPS mask), the
+    equal shares of every selection, and the share of proposals whose
+    stage-2 and final grasps lie within 2e-2 of the CPU's largest entry
+    (the CPU tests' limit for the tiny model)."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+    score_g, score_c = card["score"], cpu["score"]
+    out = {}
+    if "point_order" in cpu:
+        out["point_order_equal"] = float(
+            (card["point_order"] == cpu["point_order"]).mean())
         # back to the input's row order, each by its own permutation
-        score_g = torch.empty_like(score_g).scatter_(
-            1, out_g.point_order.cpu().long(), score_g)
-        score_c = torch.empty_like(score_c).scatter_(
-            1, out_c.point_order.long(), score_c)
-    score_err = float((score_g - score_c).abs().max())
-    same = float((out_g.center_index.cpu() == out_c.center_index)
-                 .float().mean())
-    print(f"{label}: card vs cpu score max abs err {score_err:.3e}, "
-          f"center_index equal share {same:.5f}")
-    check(score_err <= 1e-4, "scores differ between card and CPU")
-    check(same >= 0.99, "center selection differs between card and CPU")
+        score_g, score_c = np.empty_like(score_g), np.empty_like(score_c)
+        np.put_along_axis(score_g, card["point_order"].astype(np.int64),
+                          card["score"], 1)
+        np.put_along_axis(score_c, cpu["point_order"].astype(np.int64),
+                          cpu["score"], 1)
+    err = np.abs(score_g - score_c)
+    thre = infer_config().region.score_thre
+    out |= {"score_max_abs_err": float(err.max()),
+            "score_abs_err_p99": float(np.quantile(err, 0.99)),
+            "score_sides_equal": float(((score_g > thre)
+                                        == (score_c > thre)).mean())}
+    for k in ("center_index", "region_valid", "anchor_index", "crop_valid",
+              "refine_accept"):
+        out[f"{k}_equal"] = float((card[k] == cpu[k]).mean())
+    for k in ("proposals", "final_grasps"):
+        row = np.abs(card[k] - cpu[k]).max(-1) / np.abs(cpu[k]).max()
+        out[f"{k}_within_2e-2"] = float((row <= 2e-2).mean())
+    print(f"{label}: card vs cpu " + ", ".join(
+        f"{k} {v:.5g}" for k, v in out.items()))
+    return out
+
+
+def hold(out: dict, label: str, share: float,
+         score_tol: float | None = None) -> None:
+    """Fails unless every selection and grasp share of `out` is at least
+    `share` and, where `score_tol` is given, every score lies within it of
+    the CPU's."""
+    check(out.get("point_order_equal", 1.0) == 1.0,
+          f"slab order differs between card and CPU ({label})")
+    check(score_tol is None or out["score_max_abs_err"] <= score_tol,
+          f"scores differ between card and CPU ({label})")
+    for k, v in out.items():
+        if k.endswith(("_equal", "_within_2e-2")) and k != "score_sides_equal":
+            check(v >= share, f"{k} {v:.5g} < {share} between card and CPU "
+                  f"({label})")
+
+
+def cpu_rows_on_card(index: np.ndarray, card: dict, cpu: dict) -> np.ndarray:
+    """Rows of the CPU forward's cloud -> the same points' rows in the
+    card's (the slab orders, each its own permutation of the input)."""
+    if "point_order" not in cpu:
+        return index
+    rank = np.argsort(card["point_order"], axis=1)
+    src = np.take_along_axis(cpu["point_order"].astype(np.int64),
+                             index.astype(np.int64), 1)
+    return np.take_along_axis(rank, src, 1).astype(index.dtype)
+
+
+def training_phases(dev) -> dict:
+    """Phases 8-10: training through the train CLI, 4 steps at batch 12 on
+    each path, and one step on the card against the CPU.  Returns the
+    launch counts by path."""
+    # 8./9. training: the train CLI, 4 steps at batch 12, both paths -----
+    # 60 scenes: the split keeps 48 for training (4 batches of 12) and 12
+    # for validation.  A validation forward runs the exact configuration at
+    # batch 1 and 64 centers: the crop takes its plain path there
+    # (64 x 25,600 pairs are under its kernel's threshold), as in training
+    n_val = 12
+    val = {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
+           "gather_max": 2}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_full = train(
+            ["--synthetic-scenes", "60"], tmp, "full-scan", n_val,
+            {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
+             "gather_max_argmax": 2, "gather_max_backward": 2}, val)
+        with SlabNNProbe() as probe:
+            train_slab = train(
+                ["--slab-cell", str(SLAB_CELL), "--fps-groups",
+                 str(FPS_GROUPS)], tmp, "slab", n_val,
+                {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
+                 "three_nn_slab": 1, "three_nn": 1,
+                 "gather_max_slab_argmax": 2, "gather_max_backward": 2}, val)
+        probe.report()
+        # 10. one training step on the card and on the CPU
+        train_step_card_vs_cpu(tmp, dev)
+    return {"train_full_scan": train_full, "train_slab": train_slab}
+
+
+def serving_phases(slab_kernel_names, train_kernel_names,
+                   bf16_kernel_names) -> dict:
+    """Phases 4, 6, 11 and 12: each serving path through the infer CLI on
+    3 clouds, launch counts reset before and read after.  Returns the
+    counts by path."""
+    f32_zero = dict.fromkeys(train_kernel_names + bf16_kernel_names, 0)
+    full_want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
+                 "crop": 1, "group_regions": 1,
+                 **dict.fromkeys(slab_kernel_names, 0), **f32_zero}
+    # K3 launches in every slab forward: its launches read K8's flag on
+    # the card and return at once where the slab 3-NN is proven
+    slab_want = {"fps_grouped": 2, "fps": 2, "group_slab": 2, "crop_slab": 1,
+                 "three_nn_slab": 1, "three_nn": 1, "gather_max_slab": 2,
+                 "ball_query": 0, "gather_max": 0, "crop": 0,
+                 "group_regions": 0, **f32_zero}
+    # the bf16 paths launch the bf16 pools and no f32 pool
+    bf16_full_want = full_want | {"gather_max": 0, "gather_max_bf16": 2}
+    fast_want = slab_want | {"gather_max_slab": 0, "gather_max_slab_bf16": 2}
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, label, flags, want in (
+                # 4. the full-scan path; 6. the sorted-slab serving path
+                ("full_scan", "full-scan", [], full_want),
+                ("slab", "slab", ["--slab-cell", str(SLAB_CELL),
+                                  "--fps-groups", str(FPS_GROUPS)],
+                 slab_want),
+                # 11. bf16 on the full scan; 12. the JAX configuration of
+                # record, bf16 + slab + G = 8
+                ("bf16_full_scan", "bf16-full-scan", ["--bf16"],
+                 bf16_full_want),
+                ("fast", "fast", ["--fast"], fast_want)):
+            _, launches, fallbacks = serve(flags, tmp, label)
+            for k, n in want.items():
+                check(launches[k] == 3 * n, f"{k}: {launches[k]} launches "
+                      f"in 3 {label} forwards, expected {3 * n}")
+            if "--slab-cell" in flags or "--fast" in flags:
+                print(f"{label} path: {fallbacks} of 3 forwards fell back to "
+                      f"the full-scan 3-NN")
+            paths[key] = launches
+    return paths
+
+
+def compare_phases(pc, compared, cpu) -> dict:
+    """Phases 5, 7, 13 and 14: one forward of each serving path on the
+    card against the CPU's (from the helper process).
+
+    f32: scores within 1e-4, and every selection (centers, regions,
+    anchors, crops, refine acceptance) and grasp share at least 99 %.
+    bf16: the trained network carries a one-ulp change of any bf16
+    rounding to its scores, and masked FPS, which is sequential, turns one
+    mask point that differs into other picks from then on; so how far the
+    CPU's own forward drifts from one with its GEMMs summed in f64
+    (`f64_gemm`) is the yardstick.  The card's forward (cuBLAS) is
+    printed beside it, with the card's forwards with the CPU twin's GEMM
+    recipe (`cpu_gemm`) and with f64 sums (against the CPU's f64 forward).
+    Held: the card's scores within twice the yardstick's largest and 99th
+    percentile differences, and, with both sides given the CPU's centers,
+    everything after the score: the selections at least 97 % equal and
+    97 % of the grasps within 2e-2 of the CPU's largest entry."""
+    agreement = {}
+    for label, (over, rand, *_) in compared.items():
+        if label.endswith(F64):
+            continue
+        ref = cpu.result(label)
+        print(f"{label}: cpu forward {ref['seconds']:.1f}s")
+        card = forward_fields(over, pc, "cuda", rand)
+        agreement[label] = out = card_vs_cpu(card, ref, label)
+        if "model.compute_dtype" not in over:
+            hold(out, label, 0.99, 1e-4)
+            continue
+        ref64 = cpu.result(label + F64)
+        yard = agreement[f"{label}: the CPU{F64} against the CPU"] = \
+            card_vs_cpu(ref64, ref, f"{label}, the CPU{F64}")
+        for k in ("score_max_abs_err", "score_abs_err_p99"):
+            check(out[k] <= 2 * yard[k], f"{k} {out[k]:.5g} above twice the "
+                  f"CPU's own {yard[k]:.5g} ({label})")
+        for gemm, base in (("cpu", ref), ("f64", ref64)):
+            run = f"{label}, GEMMs by the {gemm} recipe"
+            agreement[run] = card_vs_cpu(forward_fields(
+                over, pc, "cuda", rand, gemm), base, run)
+        run = f"{label}, the CPU's centers"
+        agreement[run] = card_vs_cpu(forward_fields(
+            over, pc, "cuda", rand, center_index=cpu_rows_on_card(
+                ref["center_index"], card, ref)), ref, run)
+        hold(agreement[run], run, 0.97)
+    print(json.dumps({"card_vs_cpu": agreement}))
+    return agreement
 
 
 def main() -> None:
@@ -1888,6 +2219,24 @@ def main() -> None:
                             feature, crop_idx)]
     record_rows(record, "gather_max", CSRC + "gather_max.cu",
                 JAX_OPS + "pooling.py:216", rows)
+    # the bf16 form (a bf16 compute dtype: `--bf16`) on the same values
+    # rounded to bf16, at the same two pools
+    fb = feature.bfloat16()
+    rows = [gather_max_case("region pool: 4000 x 256 slots, bf16", fb,
+                            groups.index),
+            gather_max_case("refine pool: 4000 x 64 slots of K5's crop, "
+                            "bf16", fb, crop_idx)]
+    nan = fb.clone()
+    nan[0, groups.index[0, 7, 3].long(), 5] = float("nan")
+    check(torch.equal(pooling.gather_max(nan, groups.index).isnan(),
+                      pooling.gather_max_plain(nan, groups.index).isnan()),
+          "K4 bf16 does not propagate a NaN as torch.amax does")
+    f7 = fb[..., :7].contiguous()     # 2-byte loads: C not a multiple of 8
+    check(bit_equal(pooling.gather_max(f7, crop_idx),
+                    pooling.gather_max_plain(f7, crop_idx)),
+          "K4 bf16 differs at C = 7")
+    record_rows(record, "gather_max_bf16", CSRC + "gather_max.cu",
+                JAX_OPS + "pooling.py:216 (bf16 rows, :53)", rows)
     index = groups.index
 
     # K4's argmax form and the backward, at the pools of a training batch
@@ -1933,83 +2282,46 @@ def main() -> None:
         print(smi)
         return
 
-    from regnet_for_3d_grasping_torch.config import infer_config
     slab_over = {"region.slab_cell": SLAB_CELL, "model.fps_groups": FPS_GROUPS,
                  "region.center_fps_groups": FPS_GROUPS}
+    bf16_over = {"model.compute_dtype": "bfloat16"}
     slab_kernel_names = ("fps_grouped", "group_slab", "crop_slab",
                          "three_nn_slab", "gather_max_slab")
     train_kernel_names = ("gather_max_argmax", "gather_max_backward",
                           "gather_max_slab_argmax")
+    bf16_kernel_names = ("gather_max_bf16", "gather_max_slab_bf16")
     cxyz, crgb = tabletop_cloud(np.random.RandomState(100))
     sel = np.random.RandomState(1).choice(len(cxyz), N_POINTS, False)
     pc = np.c_[cxyz, crgb][sel].astype(np.float32)
+    # one forward of each serving path on the card and on the CPU, with the
+    # same seeds and sort noise; the CPU's run in a helper process beside
+    # the training phases
+    full_rand = {"group_seeds": [11], "crop_seeds": [[15]]}
+    slab_rand = {"sort_u": torch.rand(1, N_POINTS, generator=torch.Generator()
+                                      .manual_seed(3)).numpy(),
+                 "sa1_seed": 16, "group_seeds": [17], "crop_seeds": [[18]]}
+    compared = {"full-scan": ({}, full_rand), "slab": (slab_over, slab_rand),
+                "bf16 full-scan": (bf16_over, full_rand),
+                "fast": (slab_over | bf16_over, slab_rand),
+                "bf16 full-scan" + F64: (bf16_over, full_rand, "f64"),
+                "fast" + F64: (slab_over | bf16_over, slab_rand, "f64")}
+    paths = serving_phases(slab_kernel_names, train_kernel_names,
+                           bf16_kernel_names)
+    # after the serving phases, whose host-bound latencies it would slow
+    cpu = CpuForwards(pc, compared)
+    try:
+        paths |= training_phases(dev)
+        compare_phases(pc, compared, cpu)
+    finally:
+        cpu.close()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # --- 4. the full-scan path: the infer CLI on 3 clouds ---------------
-        _, full, _ = serve([], tmp, "full-scan")
-        want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
-                "crop": 1, "group_regions": 1,
-                **dict.fromkeys(slab_kernel_names + train_kernel_names, 0)}
-        for k, n in want.items():
-            check(full[k] == 3 * n, f"{k}: {full[k]} launches in 3 full-scan "
-                  f"forwards, expected {3 * n}")
-
-        # --- 5. the same forward on the CPU, through the plain versions -----
-        card_vs_cpu(infer_config(), pc, dev, "full-scan", group_seeds=[11],
-                    crop_seeds=[[15]])
-
-        # --- 6. the sorted-slab serving path: the CLI on the same clouds ----
-        _, slab_l, fallbacks = serve(
-            ["--slab-cell", str(SLAB_CELL), "--fps-groups", str(FPS_GROUPS)],
-            tmp, "slab")
-    print(f"slab path: {fallbacks} of 3 forwards fell back to the full-scan "
-          f"3-NN")
-    # K3 launches in every slab forward: its launches read K8's flag on
-    # the card and return at once where the slab 3-NN is proven
-    want = {"fps_grouped": 2, "fps": 2, "group_slab": 2, "crop_slab": 1,
-            "three_nn_slab": 1, "three_nn": 1, "gather_max_slab": 2,
-            "ball_query": 0, "gather_max": 0, "crop": 0, "group_regions": 0,
-            **dict.fromkeys(train_kernel_names, 0)}
-    for k, n in want.items():
-        check(slab_l[k] == 3 * n, f"{k}: {slab_l[k]} launches in 3 slab "
-              f"forwards, expected {3 * n}")
-
-    # --- 7. one slab forward on the card and on the CPU ---------------------
-    u = torch.rand(1, N_POINTS, generator=torch.Generator().manual_seed(3))
-    card_vs_cpu(infer_config(**slab_over), pc, dev, "slab", sort_u=u,
-                sa1_seed=16, group_seeds=[17], crop_seeds=[[18]])
-
-    # --- 8./9. training: the train CLI, 4 steps at batch 12, both paths -----
-    # 60 scenes: the split keeps 48 for training (4 batches of 12) and 12
-    # for validation.  A validation forward runs the exact configuration at
-    # batch 1 and 64 centers: the crop takes its plain path there
-    # (64 x 25,600 pairs are under its kernel's threshold), as in training
-    n_val = 12
-    val = {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
-           "gather_max": 2}
-    with tempfile.TemporaryDirectory() as tmp:
-        train_full = train(
-            ["--synthetic-scenes", "60"], tmp, "full-scan", n_val,
-            {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
-             "gather_max_argmax": 2, "gather_max_backward": 2}, val)
-        with SlabNNProbe() as probe:
-            train_slab = train(
-                ["--slab-cell", str(SLAB_CELL), "--fps-groups",
-                 str(FPS_GROUPS)], tmp, "slab", n_val,
-                {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
-                 "three_nn_slab": 1, "three_nn": 1,
-                 "gather_max_slab_argmax": 2, "gather_max_backward": 2}, val)
-        probe.report()
-        # --- 10. one training step on the card and on the CPU ---------------
-        train_step_card_vs_cpu(tmp, dev)
-
-    paths = {"full_scan": full, "slab": slab_l, "train_full_scan": train_full,
-             "train_slab": train_slab}
     main_path = {**dict.fromkeys(results, "full_scan"),
                  **dict.fromkeys(slab_kernel_names, "slab"),
                  "gather_max_argmax": "train_full_scan",
                  "gather_max_backward": "train_full_scan",
-                 "gather_max_slab_argmax": "train_slab"}
+                 "gather_max_slab_argmax": "train_slab",
+                 "gather_max_bf16": "bf16_full_scan",
+                 "gather_max_slab_bf16": "fast"}
     for k in results:
         results[k]["launches"] = paths[main_path[k]][k]
         results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}

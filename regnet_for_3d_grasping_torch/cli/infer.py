@@ -10,10 +10,16 @@ next to the input, with ``_data`` replaced by ``_data_predict`` in the path.
 (slab order with ``--slab-cell``), beside the input cloud as loaded: the
 JAX CLI writes the two the same way and pairs them nowhere.
 
+``--fast`` is the JAX package's serving configuration of record: bf16
+network compute with f32 geometry, the sorted slab (cell 0.04) and grouped
+FPS (G = 8); ``--bf16`` alone is bf16 on the full scan.  ``--slab-cell``
+and ``--fps-groups`` override what ``--fast`` derives, as in the JAX CLI.
+
 Usage:
   python -m regnet_for_3d_grasping_torch.cli.infer --no-eval \\
       --folder-name /path/to/virtual_data \\
-      --checkpoint weights/r5_real_e100.npz [--slab-cell 0.04 --fps-groups 8]
+      --checkpoint weights/r5_real_e100.npz [--fast | --bf16]
+      [--slab-cell 0.04 --fps-groups 8]
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ def build_parser():
     p.add_argument("--checkpoint", type=str, default="",
                    help="weights npz (weights/*.npz); random init if empty")
     p.add_argument("--center-num", type=int, default=4000)
+    p.add_argument("--group-num-more", type=int, default=2048,
+                   help="wide-region points (the JAX CLI's flag; no model "
+                        "path reads it)")
     p.add_argument("--all-points-num", type=int, default=25600)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--no-eval", action="store_true",
@@ -44,17 +53,46 @@ def build_parser():
     p.add_argument("--num-refine", type=int, default=1)
     p.add_argument("--refine-pose", default="full",
                    choices=["full", "center", "off"])
-    p.add_argument("--slab-cell", type=float, default=0.0,
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 network compute (geometry stays f32)")
+    p.add_argument("--fast", action="store_true",
+                   help="the serving configuration of record: bf16 + "
+                        "sorted slab (cell 0.04) + stratified FPS (G = 8)")
+    p.add_argument("--slab-cell", type=float, default=-1.0,
                    help="sorted-slab cell in meters (0 = exact full scans; "
-                        "the serving configuration uses 0.04)")
-    p.add_argument("--fps-groups", type=int, default=1,
+                        "default: 0.04 with --fast, else 0)")
+    p.add_argument("--fps-groups", type=int, default=-1,
                    help="stratified-FPS groups at SA1 and the center "
-                        "selection (1 = exact; the serving configuration "
-                        "uses 8)")
+                        "selection (1 = exact; default: 8 with --fast, "
+                        "else 1)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
     return p
+
+
+def config_from_args(args):
+    """The inference configuration the flags ask for, derived as the JAX
+    CLI derives it (``cli/infer.py:148-167``)."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+
+    slab_cell = args.slab_cell if args.slab_cell >= 0.0 else \
+        (0.04 if args.fast else 0.0)
+    fps_groups = args.fps_groups if args.fps_groups >= 1 else \
+        (8 if args.fast else 1)
+    return infer_config(**{
+        "region.center_num": args.center_num,
+        "region.group_num_more": args.group_num_more,
+        "region.num_points": args.all_points_num,
+        "region.accept_margin": args.accept_margin,
+        "region.refine_iters": args.num_refine,
+        "region.slab_cell": slab_cell,
+        "region.center_fps_groups": fps_groups,
+        "model.fps_groups": fps_groups,
+        "region.refine_pose": args.refine_pose,
+        "model.compute_dtype": ("bfloat16" if args.bf16 or args.fast
+                                else "float32"),
+    })
 
 
 def load_cloud(pc_path: str, all_points_num: int,
@@ -90,21 +128,12 @@ def main(argv=None) -> list:
     if not args.no_eval:
         raise NotImplementedError(
             "the geometric evaluator is not ported yet (ROADMAP.md queue A "
-            "item 10); run with --no-eval")
+            "item 2); run with --no-eval")
 
-    from regnet_for_3d_grasping_torch.config import infer_config
     from regnet_for_3d_grasping_torch.models.regnet import build_regnet
     from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
 
-    cfg = infer_config(**{
-        "region.slab_cell": args.slab_cell,
-        "region.center_fps_groups": args.fps_groups,
-        "model.fps_groups": args.fps_groups,
-        "region.center_num": args.center_num,
-        "region.accept_margin": args.accept_margin,
-        "region.refine_iters": args.num_refine,
-        "region.refine_pose": args.refine_pose,
-    })
+    cfg = config_from_args(args)
     torch.manual_seed(args.seed)          # random init without weights
     model = build_regnet(cfg, args.checkpoint or None, args.device)
     device = next(model.parameters()).device

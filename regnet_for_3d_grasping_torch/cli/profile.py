@@ -2,12 +2,14 @@
 the card.
 
     python -m regnet_for_3d_grasping_torch.cli.profile [--clouds 3]
-        [--slab-cell 0.04 --fps-groups 8]
+        [--slab-cell 0.04 --fps-groups 8] [--bf16]
     python -m regnet_for_3d_grasping_torch.cli.profile --train
         [--batch-size 12] [--slab-cell 0.04 --fps-groups 8]
 
 Runs the inference preset (25,600 points, 4,000 centers, the trained
-weights; with the two flags, the sorted-slab serving configuration) on
+weights; with the two flags, the sorted-slab serving configuration; with
+``--bf16``, the bf16 compute dtype, which with both is the infer CLI's
+``--fast``) on
 synthetic tabletop clouds, two warm-up forwards first, then runs the
 next `--clouds` forwards untraced and once more under ``torch.profiler``,
 and prints: the host-clock latency of each forward both ways, the device
@@ -15,8 +17,9 @@ busy share (summed kernel time over wall time, against the traced and the
 untraced forwards; overlapping kernels would count twice), the
 device-to-host copies per forward (in slab mode one of them is the read of
 the 3-NN certificate), the forwards that fell back to the full-scan 3-NN,
-and the device time per forward of the ten costliest kernels and of every
-kernel of ``csrc/``.
+the device time per forward of the ten costliest kernels and of every
+kernel of ``csrc/``, and the GEMMs' share (cuBLAS's matrix-product
+kernels).
 
 With ``--train``: the training preset (25,600 points, 64 centers, batch 12,
 all three losses, freshly initialised weights) on synthetic scenes made
@@ -44,6 +47,8 @@ def main(argv=None) -> None:
     p.add_argument("--weights", default=str(WEIGHTS))
     p.add_argument("--slab-cell", type=float, default=0.0)
     p.add_argument("--fps-groups", type=int, default=1)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 network compute (geometry stays f32)")
     p.add_argument("--train", action="store_true",
                    help="profile one training step instead of forwards")
     p.add_argument("--batch-size", type=int, default=12)
@@ -61,7 +66,9 @@ def main(argv=None) -> None:
 
     cfg = infer_config(**{"region.slab_cell": args.slab_cell,
                           "model.fps_groups": args.fps_groups,
-                          "region.center_fps_groups": args.fps_groups})
+                          "region.center_fps_groups": args.fps_groups,
+                          "model.compute_dtype": ("bfloat16" if args.bf16
+                                                  else "float32")})
     model = build_regnet(cfg, args.weights, "cuda")
     gen = torch.Generator().manual_seed(0)
     clouds = []
@@ -120,9 +127,22 @@ def main(argv=None) -> None:
             print(f"  {e.self_device_time_total / 1e3 / n:9.3f} "
                   f"x{e.count // n:<5d} {e.key[:90]}")
     own_ms = sum(e.self_device_time_total for e in own) / 1e3 / n
+    gemm = [e for e in kernels if is_gemm(e.key)]
+    gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3 / n
     print(f"the port's own kernels {own_ms:.3f} ms, library and elementwise "
           f"kernels {busy / n - own_ms:.3f} ms per forward, "
           f"{sum(e.count for e in kernels) // n} kernel launches per forward")
+    print(f"GEMMs (cuBLAS) {gemm_ms:.3f} ms in "
+          f"{sum(e.count for e in gemm) // n} launches per forward, "
+          f"{gemm_ms / (busy / n):.3f} of the busy time; elementwise and "
+          f"other library kernels {busy / n - own_ms - gemm_ms:.3f} ms")
+
+
+def is_gemm(name: str) -> bool:
+    """A matrix-product kernel of cuBLAS (its own, CUTLASS's or the
+    architecture's generated kernels)."""
+    return any(k in name.lower() for k in ("gemm", "xmma", "cutlass",
+                                            "cublas", "sm90_", "nvjet"))
 
 
 def device_kernels(prof) -> list:

@@ -58,6 +58,7 @@ class ModelConfig:
     fps_groups: int = 1
     # x-bound of the last FP's slab 3-NN, in the cloud's units (meters)
     fp3_nn_bound: float = 0.06
+    # "float32" or "bfloat16" (network compute; geometry stays f32)
     compute_dtype: str = "float32"
 
 
@@ -69,6 +70,7 @@ class RegionConfig:
     center_num: int = 64         # 4000 at inference
     score_thre: float = 0.5
     group_num: int = 256
+    group_num_more: int = 1024   # wide-region points; no model path reads it
     r_time_group: float = 0.1    # radius = max(gripper dims) * r_time
     gripper_num: int = 64
     min_region_points: int = 5
@@ -138,7 +140,8 @@ def train_config(**overrides) -> PipelineConfig:
 
 def infer_config(**overrides) -> PipelineConfig:
     """Inference preset: 4000 centers."""
-    cfg = PipelineConfig(region=RegionConfig(center_num=4000))
+    cfg = PipelineConfig(region=RegionConfig(center_num=4000,
+                                             group_num_more=2048))
     return _override(cfg, overrides)
 
 
@@ -154,7 +157,8 @@ def tiny_config(**overrides) -> PipelineConfig:
                           feature_channels=32,
                           refine_group_channels=16),
         region=RegionConfig(num_points=512, center_num=8, group_num=16,
-                            gripper_num=16, max_gt_grasps=32),
+                            group_num_more=32, gripper_num=16,
+                            max_gt_grasps=32),
         eval=EvalConfig(max_grasps=32),
         train=TrainConfig(batch_size=2),
     )

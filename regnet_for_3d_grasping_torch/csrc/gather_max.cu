@@ -27,6 +27,14 @@
 //   row: the lowest slot holding the maximum (strict `>` while walking up
 //   the kept slots), the rule of the TPU kernel's `with_argmax` output
 //   (pooling.py:146-167) and of argmax-then-take (pooling.py:241-246).
+//   The bf16 form (a bf16 compute dtype; JAX dispatches the TPU kernel's
+//   bf16 branch, `terms = (fw,)`, pooling.py:124-125, from S*K*C >= 2^25,
+//   :53) is the same kernel on 16-bit rows: a 16-byte load is 8 channels
+//   (256 channels: one load a lane), each value compared as the f32 it
+//   widens to exactly and copied bit for bit, so it equals the plain max
+//   bit for bit (a NaN wins and stays, as in torch.amax; __hmax2 would
+//   drop it).  Half the bytes of the f32 form, the same reads from L2.
+//   Its argmax form and backward (bf16 training) are not ported.
 //   The backward, an XLA scatter-add in the JAX package (pooling.py:285-296),
 //   is `scatter_winner_kernel`: dfeature[b, win[b,s,c], c] += g[b,s,c].  One
 //   thread owns one (batch, channel) column and walks the S rows in order,
@@ -36,6 +44,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -45,18 +54,31 @@ constexpr int kInFlight = 4;        // kept rows whose loads are in flight
 constexpr int kPassChannels = 256;  // channels a warp holds at a time
 constexpr unsigned kFull = 0xffffffffu;
 
-// V channels a load (4: float4, where C is a multiple of 4 and the
-// pointers are 16-byte aligned; else 1), U loads a lane per channel pass.
-template <int V>
+// Element types: float, and bf16 as its 16 raw bits (uint16_t), compared
+// as the f32 it widens to and copied bit for bit.  Vec<E, V>: V elements
+// a load (16 bytes: 4 floats or 8 bf16, where C is a multiple of V and
+// the pointers are 16-byte aligned; else 1), W the winners of the argmax
+// form (f32 only).
+template <typename E, int V>
 struct Vec;
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
   using W = int4;
 };
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
+  using W = int;
+};
+template <>
+struct Vec<uint16_t, 8> {
+  using T = uint4;
+  using W = int4;  // unused: no bf16 argmax form
+};
+template <>
+struct Vec<uint16_t, 1> {
+  using T = unsigned short;
   using W = int;
 };
 
@@ -64,6 +86,13 @@ __device__ __forceinline__ float at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 __device__ __forceinline__ float at(const float& v, int) { return v; }
+__device__ __forceinline__ float at(const uint4& v, int i) {
+  const unsigned w = i < 2 ? v.x : i < 4 ? v.y : i < 6 ? v.z : v.w;
+  return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
+}
+__device__ __forceinline__ float at(const unsigned short& v, int) {
+  return __uint_as_float((unsigned)v << 16);
+}
 __device__ __forceinline__ void put(float4& v, int i, float x) {
   if (i == 0) v.x = x;
   else if (i == 1) v.y = x;
@@ -79,21 +108,43 @@ __device__ __forceinline__ void put(int4& v, int i, int x) {
 }
 __device__ __forceinline__ void put(int& v, int, int x) { v = x; }
 
+// m's element i := v's element i, bit for bit.
+__device__ __forceinline__ void take(float4& m, const float4& v, int i) {
+  put(m, i, at(v, i));
+}
+__device__ __forceinline__ void take(float& m, const float& v, int) {
+  m = v;
+}
+__device__ __forceinline__ unsigned merge(unsigned d, unsigned s, int hi) {
+  return hi ? (d & 0x0000ffffu) | (s & 0xffff0000u)
+            : (d & 0xffff0000u) | (s & 0x0000ffffu);
+}
+__device__ __forceinline__ void take(uint4& m, const uint4& v, int i) {
+  if (i < 2) m.x = merge(m.x, v.x, i & 1);
+  else if (i < 4) m.y = merge(m.y, v.y, i & 1);
+  else if (i < 6) m.z = merge(m.z, v.z, i & 1);
+  else m.w = merge(m.w, v.w, i & 1);
+}
+__device__ __forceinline__ void take(unsigned short& m,
+                                     const unsigned short& v, int) {
+  m = v;
+}
+
 // Fold row `r`'s values `v` into the running max `m` (and winner `w`).
-template <bool kArgmax, int V>
-__device__ __forceinline__ void fold(typename Vec<V>::T& m,
-                                     typename Vec<V>::W& w,
-                                     const typename Vec<V>::T& v, int r) {
+template <typename E, bool kArgmax, int V>
+__device__ __forceinline__ void fold(typename Vec<E, V>::T& m,
+                                     typename Vec<E, V>::W& w,
+                                     const typename Vec<E, V>::T& v, int r) {
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const float x = at(v, i), y = at(m, i);
     if (kArgmax) {
       if (x > y) {
-        put(m, i, x);
+        take(m, v, i);
         put(w, i, r);
       }
     } else if (x > y || x != x) {
-      put(m, i, x);
+      take(m, v, i);
     }
   }
 }
@@ -111,14 +162,16 @@ __device__ __forceinline__ void load_slots(int* v,
 }
 
 // Rows b*S + s of index [B, S, K] -> out [B, S, C] (and win [B, S, C]).
-template <bool kArgmax, int V>
+template <typename E, bool kArgmax, int V>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-gather_max_kernel(const float* __restrict__ feature,
-                  const int32_t* __restrict__ index, float* __restrict__ out,
+gather_max_kernel(const E* __restrict__ feature,
+                  const int32_t* __restrict__ index, E* __restrict__ out,
                   int32_t* __restrict__ win, int n, int c_total, int s_total,
                   long long rows, int k_total) {
-  using T = typename Vec<V>::T;
-  using W = typename Vec<V>::W;
+  static_assert(!kArgmax || std::is_same<E, float>::value,
+                "the argmax form is f32 only");
+  using T = typename Vec<E, V>::T;
+  using W = typename Vec<E, V>::W;
   constexpr int U = kPassChannels / (32 * V);
   __shared__ int kept[kRowsPerBlock][kPass];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -142,8 +195,10 @@ gather_max_kernel(const float* __restrict__ feature,
     for (int u = 0; u < U; ++u) {
       const int c = c0 + u * 32 + lane;
       if (c < cv) m[u] = __ldg(r0 + c);
+      if (kArgmax) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) put(w[u], i, first);
+        for (int i = 0; i < V; ++i) put(w[u], i, first);
+      }
     }
     for (int k0 = 0; k0 < k_total; k0 += kPass) {
       if (c0 > 0 || k0 > 0) load_slots(v, idx, k0, k_total, lane);
@@ -178,7 +233,7 @@ gather_max_kernel(const float* __restrict__ feature,
 #pragma unroll
           for (int u = 0; u < U; ++u)
             if (c0 + u * 32 + lane < cv)
-              fold<kArgmax, V>(m[u], w[u], x[q][u], r[q]);
+              fold<E, kArgmax, V>(m[u], w[u], x[q][u], r[q]);
       }
       __syncwarp();  // the list is rewritten by the next pass
     }
@@ -192,20 +247,22 @@ gather_max_kernel(const float* __restrict__ feature,
   }
 }
 
-template <bool kArgmax>
-int launch_gather_max(const float* feature, const int32_t* index, float* out,
+template <typename E, bool kArgmax>
+int launch_gather_max(const E* feature, const int32_t* index, E* out,
                       int32_t* win, int batch, int n, int c_total, int s_total,
                       int k_total, cudaStream_t stream) {
+  constexpr int kWide = 16 / sizeof(E);  // elements a 16-byte load
   const long long rows = (long long)batch * s_total;
   const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
   const uintptr_t bases = (uintptr_t)feature | (uintptr_t)out |
                           (kArgmax ? (uintptr_t)win : 0);
-  const bool wide = c_total % 4 == 0 && bases % 16 == 0;
+  const bool wide = c_total % kWide == 0 && bases % 16 == 0;
   if (wide)
-    gather_max_kernel<kArgmax, 4><<<grid, kRowsPerBlock * 32, 0, stream>>>(
-        feature, index, out, win, n, c_total, s_total, rows, k_total);
+    gather_max_kernel<E, kArgmax, kWide>
+        <<<grid, kRowsPerBlock * 32, 0, stream>>>(
+            feature, index, out, win, n, c_total, s_total, rows, k_total);
   else
-    gather_max_kernel<kArgmax, 1><<<grid, kRowsPerBlock * 32, 0, stream>>>(
+    gather_max_kernel<E, kArgmax, 1><<<grid, kRowsPerBlock * 32, 0, stream>>>(
         feature, index, out, win, n, c_total, s_total, rows, k_total);
   return (int)cudaGetLastError();
 }
@@ -236,8 +293,21 @@ extern "C" int regnet_gather_max(const float* feature, const int32_t* index,
                                  float* out, int batch, int n, int c_total,
                                  int s_total, int k_total,
                                  cudaStream_t stream) {
-  return launch_gather_max<false>(feature, index, out, nullptr, batch, n,
-                                  c_total, s_total, k_total, stream);
+  return launch_gather_max<float, false>(feature, index, out, nullptr, batch,
+                                         n, c_total, s_total, k_total,
+                                         stream);
+}
+
+// The same on bf16 features (their raw 16 bits): out [B, S, C] bf16, bit
+// for bit the max of the gathered values.
+extern "C" int regnet_gather_max_bf16(const uint16_t* feature,
+                                      const int32_t* index, uint16_t* out,
+                                      int batch, int n, int c_total,
+                                      int s_total, int k_total,
+                                      cudaStream_t stream) {
+  return launch_gather_max<uint16_t, false>(feature, index, out, nullptr,
+                                            batch, n, c_total, s_total,
+                                            k_total, stream);
 }
 
 // The same, and win [B, S, C] int32 = index[b, s, k*] with k* the lowest
@@ -247,8 +317,8 @@ extern "C" int regnet_gather_max_argmax(const float* feature,
                                         int32_t* win, int batch, int n,
                                         int c_total, int s_total, int k_total,
                                         cudaStream_t stream) {
-  return launch_gather_max<true>(feature, index, out, win, batch, n, c_total,
-                                 s_total, k_total, stream);
+  return launch_gather_max<float, true>(feature, index, out, win, batch, n,
+                                        c_total, s_total, k_total, stream);
 }
 
 // g [B, S, C] f32, win [B, S, C] int32 in [0, N) -> dfeature [B, N, C],

@@ -31,10 +31,20 @@
 //   combination the lowest position among equal maxima, and the list keeps
 //   slot order with the first of repeated rows), 0 for a row with no
 //   covered slot.  Its backward is the scatter kernel of gather_max.cu.
+//   The bf16 form (the TPU kernel's bf16 branch, `terms = (fw,)`,
+//   slab.py:969) is the same kernel on 16-bit rows, the same 4 channels a
+//   thread (an 8-byte load): values compared as the f32 they widen to and
+//   copied bit for bit, and a query with no covered slot pools to
+//   bf16(-1e38), the sentinel JAX stores in bf16 (`jnp.full(..., -_BIG,
+//   dtype)`, :955).  Its entry point also runs 8 channels a thread
+//   (16-byte loads, 8 row groups a block), which the wrapper never asks
+//   for: chip_smoke.py times it beside the 4-channel form (PERF.md).  Its
+//   argmax form (bf16 training) is not ported.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -42,12 +52,30 @@ constexpr int kThreads = 256;
 constexpr int kTile = 128;    // queries per tile (one `off` each)
 constexpr int kScan = 2048;   // rows per scan block
 constexpr int kUnroll = 4;    // row loads in flight per thread
-constexpr int V = 4;          // channels per thread and 16-byte load
-constexpr float kBig = 1e38f;
 
-template <typename T>
-struct alignas(16) Vec {
-  T v[V];
+// Element types: float, and bf16 as its 16 raw bits (uint16_t), compared
+// as the f32 it widens to and copied bit for bit; a thread owns the V
+// channels of one load (V = 4: 16 bytes of f32, 8 of bf16).
+__device__ __forceinline__ float value(float x) { return x; }
+__device__ __forceinline__ float value(uint16_t x) {
+  return __uint_as_float((unsigned)x << 16);
+}
+// -1e38, the pooled "nothing", as each type stores it: bf16(-1e38) rounds
+// to nearest even to 0xfe96 (-9.9692e37), what JAX's bf16 `jnp.full` holds
+template <typename E>
+__device__ __forceinline__ E nothing();
+template <>
+__device__ __forceinline__ float nothing<float>() {
+  return -1e38f;
+}
+template <>
+__device__ __forceinline__ uint16_t nothing<uint16_t>() {
+  return 0xfe96u;
+}
+
+template <typename T, int L>
+struct alignas(sizeof(T) * L) Vec {
+  T v[L];
 };
 
 // Slot k's row when it lies in the slot's own window, else -1.
@@ -89,30 +117,34 @@ __device__ int compact_cover(const int32_t* idx, int off, int rps, int spw,
 
 // Folds value v at list position i into (m, p): plain max (NaN wins and
 // stays) or, for the argmax form, the first strict maximum.
-template <bool kArgmax>
-__device__ __forceinline__ void take(float& m, int& p, float v, int i) {
+template <bool kArgmax, typename E>
+__device__ __forceinline__ void take(E& m, int& p, E v, int i) {
+  const float x = value(v), y = value(m);
   if (kArgmax) {
-    if (v > m) {
+    if (x > y) {
       m = v;
       p = i;
     }
-  } else if (v > m || v != v) {
+  } else if (x > y || x != x) {
     m = v;
   }
 }
 
-// Grid (S, B), kThreads threads; C a multiple of V and the arrays 16-byte
-// aligned (the launch refuses anything else).
-template <bool kArgmax>
+// Grid (S, B), kThreads threads, V channels a thread; C a multiple of V
+// and the arrays aligned to a load of V elements (the launch refuses
+// anything else).
+template <typename E, bool kArgmax, int V>
 __global__ void __launch_bounds__(kThreads)
-gather_max_slab_kernel(const float* __restrict__ feature,
+gather_max_slab_kernel(const E* __restrict__ feature,
                        const int32_t* __restrict__ index,
                        const int32_t* __restrict__ off_blk,
-                       float* __restrict__ out, int32_t* __restrict__ winner,
+                       E* __restrict__ out, int32_t* __restrict__ winner,
                        int n, int c_total, int s_total, int k_total, int win,
                        int spw) {
-  using FV = Vec<float>;
-  using IV = Vec<int>;
+  static_assert(!kArgmax || std::is_same<E, float>::value,
+                "the argmax form is f32 only");
+  using FV = Vec<E, V>;
+  using IV = Vec<int, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   FV* s_max = reinterpret_cast<FV*>(smem);              // [kThreads]
   IV* s_pos = reinterpret_cast<IV*>(s_max + kThreads);  // [kThreads]
@@ -138,7 +170,7 @@ gather_max_slab_kernel(const float* __restrict__ feature,
     FV m;
     IV p;
     for (int e = 0; e < V; ++e) {
-      m.v[e] = -kBig;
+      m.v[e] = nothing<E>();
       p.v[e] = INT_MAX;
     }
     if (g < groups) {
@@ -171,13 +203,13 @@ gather_max_slab_kernel(const float* __restrict__ feature,
           if (kArgmax) q = s_pos[h * cols_t + j];
 #pragma unroll
           for (int e = 0; e < V; ++e) {
+            const float x = value(o.v[e]), y = value(m.v[e]);
             if (kArgmax) {
-              if (o.v[e] > m.v[e] ||
-                  (o.v[e] == m.v[e] && q.v[e] < p.v[e])) {
+              if (x > y || (x == y && q.v[e] < p.v[e])) {
                 m.v[e] = o.v[e];
                 p.v[e] = q.v[e];
               }
-            } else if (o.v[e] > m.v[e] || o.v[e] != o.v[e]) {
+            } else if (x > y || x != x) {
               m.v[e] = o.v[e];
             }
           }
@@ -197,18 +229,19 @@ gather_max_slab_kernel(const float* __restrict__ feature,
   }
 }
 
-template <bool kArgmax>
-int launch(const float* feature, const int32_t* index,
-           const int32_t* off_blk, float* out, int32_t* winner, int batch,
-           int n, int c_total, int s_total, int k_total, int win, int spw,
-           cudaStream_t stream) {
+template <typename E, bool kArgmax, int V = 4>
+int launch(const E* feature, const int32_t* index, const int32_t* off_blk,
+           E* out, int32_t* winner, int batch, int n, int c_total,
+           int s_total, int k_total, int win, int spw, cudaStream_t stream) {
   if (c_total % V != 0 ||
-      ((uintptr_t)feature | (uintptr_t)out | (uintptr_t)winner) % 16 != 0)
+      ((uintptr_t)feature | (uintptr_t)out | (uintptr_t)winner) %
+              sizeof(Vec<E, V>) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kThreads * V * 4 * (kArgmax ? 2 : 1) +
-                      (size_t)k_total * sizeof(int);
+  const size_t smem =
+      (size_t)kThreads * (sizeof(Vec<E, V>) + (kArgmax ? V * 4 : 0)) +
+      (size_t)k_total * sizeof(int);
   const dim3 grid(s_total, batch);
-  auto kernel = gather_max_slab_kernel<kArgmax>;
+  auto kernel = gather_max_slab_kernel<E, kArgmax, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -231,8 +264,29 @@ extern "C" int regnet_gather_max_slab(const float* feature,
                                       int batch, int n, int c_total,
                                       int s_total, int k_total, int win,
                                       int spw, cudaStream_t stream) {
-  return launch<false>(feature, index, off_blk, out, nullptr, batch, n,
-                       c_total, s_total, k_total, win, spw, stream);
+  return launch<float, false>(feature, index, off_blk, out, nullptr, batch,
+                              n, c_total, s_total, k_total, win, spw, stream);
+}
+
+// The same on bf16 features (their raw 16 bits): out [B, S, C] bf16, bit
+// for bit the max over the covered slots, bf16(-1e38) where no slot is
+// covered; `vec` channels a thread, 4 (8-byte aligned) or 8 (C a multiple
+// of 8, 16-byte aligned).
+extern "C" int regnet_gather_max_slab_bf16(const uint16_t* feature,
+                                           const int32_t* index,
+                                           const int32_t* off_blk,
+                                           uint16_t* out, int batch, int n,
+                                           int c_total, int s_total,
+                                           int k_total, int win, int spw,
+                                           int vec, cudaStream_t stream) {
+  if (vec == 8)
+    return launch<uint16_t, false, 8>(feature, index, off_blk, out, nullptr,
+                                      batch, n, c_total, s_total, k_total,
+                                      win, spw, stream);
+  if (vec != 4) return (int)cudaErrorInvalidValue;
+  return launch<uint16_t, false, 4>(feature, index, off_blk, out, nullptr,
+                                    batch, n, c_total, s_total, k_total, win,
+                                    spw, stream);
 }
 
 // The same, and winner [B, S, C] int32: the row of the lowest covered slot
@@ -241,6 +295,6 @@ extern "C" int regnet_gather_max_slab_argmax(
     const float* feature, const int32_t* index, const int32_t* off_blk,
     float* out, int32_t* winner, int batch, int n, int c_total, int s_total,
     int k_total, int win, int spw, cudaStream_t stream) {
-  return launch<true>(feature, index, off_blk, out, winner, batch, n,
-                      c_total, s_total, k_total, win, spw, stream);
+  return launch<float, true>(feature, index, off_blk, out, winner, batch, n,
+                             c_total, s_total, k_total, win, spw, stream);
 }

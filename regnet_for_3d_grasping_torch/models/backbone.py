@@ -6,7 +6,15 @@ In training mode the seg head drops out with ``cfg.dropout_prob``.  Given a `Sor
 cell, SA1's ball query (kernel K6) and the last FP's 3-NN (kernel K8, with
 its exactness certificate and full-scan fallback) run the sorted-slab
 kernels; every other layer, and every layer without them, runs the
-full-scan paths."""
+full-scan paths.
+
+At a bf16 compute dtype the layers follow flax (`nn/layers.py`) and the
+JAX package's promotions: the relative xyz stays f32 and, beside bf16
+features, makes the MLP's f32 input, which its Dense rounds to bf16; the
+max over neighbours is taken in bf16; the 3-NN weights are f32, so the
+interpolated features and their concatenation with the bf16 skip are f32
+until the MLP rounds them; the score is the sigmoid of the f32 logit.
+All geometry stays f32."""
 
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ import torch
 from torch import nn
 
 from regnet_for_3d_grasping_torch.config import ModelConfig
-from regnet_for_3d_grasping_torch.nn.layers import BatchNorm, SharedMLP
+from regnet_for_3d_grasping_torch.nn.layers import (BatchNorm, Dense,
+                                                    SharedMLP, compute_dtype)
 from regnet_for_3d_grasping_torch.ops import _cuda, slab
 from regnet_for_3d_grasping_torch.ops.ball_query import ball_query
 from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
@@ -32,13 +41,13 @@ class SetAbstraction(nn.Module):
 
     def __init__(self, in_channels: int, num_centroids: int, radius: float,
                  num_neighbours: int, mlp_channels: Sequence[int],
-                 fps_groups: int = 1):
+                 fps_groups: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_centroids = num_centroids
         self.radius = radius
         self.num_neighbours = num_neighbours
         self.fps_groups = fps_groups
-        self.mlp = SharedMLP(in_channels + 3, mlp_channels)
+        self.mlp = SharedMLP(in_channels + 3, mlp_channels, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None,
                 sc: slab.SortedCloud | None = None, slab_cell: float = 0.0,
@@ -77,11 +86,12 @@ class FeaturePropagation(nn.Module):
     """3-NN inverse-distance interpolation -> concat skip -> shared MLP."""
 
     def __init__(self, in_channels: int, mlp_channels: Sequence[int],
-                 num_neighbours: int = 3, nn_bound: float = 0.06):
+                 num_neighbours: int = 3, nn_bound: float = 0.06,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_neighbours = num_neighbours
         self.nn_bound = nn_bound
-        self.mlp = SharedMLP(in_channels, mlp_channels)
+        self.mlp = SharedMLP(in_channels, mlp_channels, dtype=dtype)
 
     def forward(self, dense_xyz, sparse_xyz, dense_feature, sparse_feature,
                 use_slab: bool = False):
@@ -131,6 +141,7 @@ class PointNet2Seg(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.input_channels = cfg.input_channels
+        dtype = compute_dtype(cfg.compute_dtype)
         c_in = cfg.input_channels - 3
         skip = [c_in]
         for i, (s, r, k, ch) in enumerate(zip(
@@ -139,16 +150,17 @@ class PointNet2Seg(nn.Module):
             # SA1 holds nearly all of the FPS work; the deeper layers' inputs
             # are FPS-ordered, not random, and stay exact
             self.add_module(f"sa{i}", SetAbstraction(
-                c_in, s, r, k, ch, cfg.fps_groups if i == 0 else 1))
+                c_in, s, r, k, ch, cfg.fps_groups if i == 0 else 1, dtype))
             c_in = ch[-1]
             skip.append(c_in)
         for i, (ch, k) in enumerate(zip(cfg.fp_channels,
                                         cfg.num_fp_neighbours)):
             self.add_module(f"fp{i}", FeaturePropagation(
-                c_in + skip[-2 - i], ch, k, cfg.fp3_nn_bound))
+                c_in + skip[-2 - i], ch, k, cfg.fp3_nn_bound, dtype))
             c_in = ch[-1]
-        self.seg_mlp = SharedMLP(c_in, cfg.seg_channels, cfg.dropout_prob)
-        self.score_dense = nn.Linear(cfg.seg_channels[-1], 1, bias=False)
+        self.seg_mlp = SharedMLP(c_in, cfg.seg_channels, cfg.dropout_prob,
+                                 dtype)
+        self.score_dense = Dense(cfg.seg_channels[-1], 1, dtype)
         self.score_bn = BatchNorm(1)
         self.n_sa = len(cfg.num_centroids)
         self.n_fp = len(cfg.fp_channels)

@@ -16,6 +16,13 @@ The randomness is explicit: u32 selection seeds and the sort noise `u` are
 passed in (the tests pass the values the JAX package derives from its
 keys), or drawn from a ``torch.Generator``.
 
+``model.compute_dtype = "bfloat16"`` is the JAX package's
+``REGNet(cfg, dtype=jnp.bfloat16)``: the network computes in bf16 (the
+pools take K4's and K9's bf16 forms) and all geometry stays f32; the
+refine step's ``refine_reg * depth`` rounds in bf16 and the acceptance
+test subtracts the bf16 logits, as in JAX.  Its gradient (bf16 training)
+is not ported: a bf16 pool asked for one raises.
+
 ``model.train()`` / ``.eval()`` is the JAX package's ``train`` flag (batch
 statistics and dropout).  The forward builds an autograd graph whenever
 gradients are enabled: the selections carry none, both pools carry the
@@ -38,6 +45,7 @@ from regnet_for_3d_grasping_torch.geometry.region import (
     group_seed_count, select_score_centers, use_slab_backbone)
 from regnet_for_3d_grasping_torch.models.heads import RefineHead, TwoStageHead
 from regnet_for_3d_grasping_torch.models.score_net import ScoreNet
+from regnet_for_3d_grasping_torch.nn.layers import compute_dtype
 from regnet_for_3d_grasping_torch.ops import slab
 from regnet_for_3d_grasping_torch.ops.grouping import gather_points
 from regnet_for_3d_grasping_torch.ops.pooling import gather_max
@@ -67,15 +75,25 @@ class REGNetOutput(NamedTuple):
     point_order: torch.Tensor | None = None
 
 
+def weak(s: float, dtype: torch.dtype) -> float:
+    """The Python float `s` as JAX's weak typing uses it beside an array
+    of `dtype`: rounded to `dtype` first.  torch multiplies a bf16 tensor
+    by the unrounded float, which rounds some products differently."""
+    return float(torch.tensor(s, dtype=dtype))
+
+
 def decode_proposals(reg: torch.Tensor, anchor_idx: torch.Tensor,
                      center_xyz: torch.Tensor, radius: float) -> torch.Tensor:
     """reg [B,NC,A,R], anchor_idx [B,NC], center_xyz [B,NC,3] -> [B,NC,R]
-    (center, unit axis_y, theta, scores...)."""
+    (center, unit axis_y, theta, scores...), f32.  With bf16 residuals,
+    as in JAX: ``sel * radius`` is a bf16 product (the radius rounded to
+    bf16) before the f32 centers are added, and the f32 anchor templates
+    promote the rest."""
     R = reg.shape[-1]
     sel = torch.gather(reg, -2, anchor_idx[..., None, None].expand(
         *anchor_idx.shape, 1, R))[..., 0, :]
     t = anchor_templates(reg.device)[anchor_idx]
-    center = sel[..., :3] * radius + center_xyz
+    center = sel[..., :3] * weak(radius, sel.dtype) + center_xyz
     r_raw = sel[..., 3:6] + t[..., :3]
     axis_y = r_raw / torch.sqrt((r_raw * r_raw).sum(-1, keepdim=True)
                                 + 1e-12)
@@ -85,12 +103,12 @@ def decode_proposals(reg: torch.Tensor, anchor_idx: torch.Tensor,
 
 def _check_supported(cfg: PipelineConfig) -> None:
     r, m = cfg.region, cfg.model
+    compute_dtype(m.compute_dtype)
     later = [
-        (m.compute_dtype != "float32", "a bf16 compute dtype", "A11"),
-        (r.center_select != "fps", 'center_select="bucket"', "A9"),
-        (r.pose_search_k > 0, "pose_search_k", "A9"),
-        (r.refine_guard, "refine_guard", "A9"),
-        (r.center_min_z is not None, "center_min_z", "A9"),
+        (r.center_select != "fps", 'center_select="bucket"', "A5"),
+        (r.pose_search_k > 0, "pose_search_k", "A5"),
+        (r.refine_guard, "refine_guard", "A5"),
+        (r.center_min_z is not None, "center_min_z", "A5"),
     ]
     for bad, what, item in later:
         if bad:
@@ -216,7 +234,8 @@ class REGNet(nn.Module):
             cur, crop_valid, refine_logits, refine_reg = self._refine(
                 pc, feature, pooled, proposals_sg, crop_seeds, sc)
             refine_accept = ((refine_logits[..., 1] - refine_logits[..., 0]
-                              > region.accept_margin) & crop_valid)
+                              > weak(region.accept_margin,
+                                     refine_logits.dtype)) & crop_valid)
             score_accept = refine_accept & (cur[..., 7]
                                             > region.grasp_score_thre)
         else:
@@ -252,8 +271,9 @@ class REGNet(nn.Module):
             pooled_grip = _pool(feature, crop.index_in_all, crop.valid,
                                 crop.slab_off, slab.CROP_WIN, slab.CROP_SPW)
             refine_logits, refine_reg = self.refine_head(pooled_grip, pooled)
+            depth = weak(cfg.gripper.depth, refine_reg.dtype)
             nxt = torch.cat(
-                [cur[..., :3] + refine_reg[..., :3] * cfg.gripper.depth,
+                [cur[..., :3] + refine_reg[..., :3] * depth,
                  cur[..., 3:] + refine_reg[..., 3:]], -1)
             if region.refine_pose == "center":
                 nxt = torch.cat([nxt[..., :3], cur[..., 3:7], nxt[..., 7:]],

@@ -18,6 +18,45 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """``ModelConfig.compute_dtype`` -> the torch dtype."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown compute dtype {name!r}: one of "
+                         f"{sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., I] @ w [O, I]^T in bf16, summed in f32, rounded once to
+    bf16: cuBLAS on the card (with its reduced-precision reduction off,
+    `runtime.resolve_device`); on the CPU the product of the bf16-rounded
+    operands in f32, rounded once, which is what XLA's CPU dot gives for a
+    bf16 flax ``Dense`` (torch's own CPU bf16 matmul differs from it by
+    one ulp on a few entries)."""
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    if x.device.type == "cuda":
+        return F.linear(x, w)
+    return F.linear(x.float(), w.float()).to(torch.bfloat16)
+
+
+class Dense(nn.Linear):
+    """Bias-free ``nn.Linear`` at a compute dtype (flax ``Dense(dtype=)``):
+    in bf16 the f32 kernel is rounded at use."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=False)
+        self.compute = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute == torch.float32:
+            return F.linear(x, self.weight)
+        return bf16_matmul(x, self.weight)
 
 
 class BatchNorm(nn.Module):
@@ -35,10 +74,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalises in at least f32 and returns `x`'s dtype (flax's
+        ``force_float32_reductions``)."""
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = ((x * x).mean(axes) - mean * mean).clamp(min=0.0)
+            xf = x.float() if x.dtype == torch.bfloat16 else x
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 # flax's factors: its momentum 1 - 0.1, and 1 - that
                 keep = 1.0 - self.momentum
@@ -47,16 +89,17 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(x.dtype)
 
 
 class ConvBN(nn.Module):
-    """Pointwise dense layer + BatchNorm + optional ReLU."""
+    """Pointwise dense layer + BatchNorm + optional ReLU, at compute dtype
+    `dtype`."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 relu: bool = True):
+                 relu: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = nn.Linear(in_channels, out_channels, bias=False)
+        self.dense = Dense(in_channels, out_channels, dtype)
         self.bn = BatchNorm(out_channels)
         self.relu = relu
 
@@ -80,11 +123,13 @@ class SharedMLP(nn.Module):
     after every block in training mode when ``dropout_prob > 0``."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
-                 dropout_prob: float = 0.0):
+                 dropout_prob: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout_prob = dropout_prob
         for i, ch in enumerate(channels):
-            self.add_module(f"layer{i}", ConvBN(in_channels, ch))
+            self.add_module(f"layer{i}", ConvBN(in_channels, ch,
+                                                dtype=dtype))
             in_channels = ch
 
     def forward(self, x: torch.Tensor,

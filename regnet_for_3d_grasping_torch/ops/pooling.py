@@ -13,6 +13,11 @@ winner `win[b, s, c]`, the source row of the lowest slot holding the
 maximum, and the backward adds each ``g[b, s, c]`` to
 ``dfeature[b, win[b, s, c], c]`` (JAX ``pooling.py:265-299``).  That is not
 the gradient of ``amax``, which splits a tie evenly.
+
+bf16 features (a bf16 compute dtype; JAX dispatches its kernel's bf16 form,
+``pooling.py:53``) take K4's bf16 form, ``gather_max_bf16``, which returns
+bf16 bit for bit as the plain max does.  Its argmax form and the backward
+(bf16 training) are not ported: a bf16 pool asked for a gradient raises.
 """
 
 from __future__ import annotations
@@ -23,19 +28,36 @@ from regnet_for_3d_grasping_torch.ops import _cuda
 from regnet_for_3d_grasping_torch.ops.grouping import group_points
 
 
+BF16_TRAINING = ("the gradient of a bf16 pool (bf16 training) is not "
+                 "ported yet: ROADMAP.md queue A item 4")
+
+
+def check_dtype(t: torch.Tensor, what: str, dtypes: tuple) -> None:
+    """Raise unless a pool kernel takes `t`'s dtype: bf16 where only the
+    f32 forms take it (the argmax forms: bf16 training) is not ported."""
+    if t.dtype in dtypes:
+        return
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(BF16_TRAINING)
+    raise ValueError(f"{what}: expected one of {dtypes}, got {t.dtype}")
+
+
 def gather_max(feature: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """Kernel K4: feature [B, N, C] f32, index [B, S, K] with values in
-    [0, N) -> [B, S, C] = max_k feature[b, index[b, s, k], c].  CPU tensors
-    take the plain versions.  Differentiable in `feature` by the
-    first-winner rule."""
+    """Kernel K4: feature [B, N, C] f32 or bf16, index [B, S, K] with
+    values in [0, N) -> [B, S, C] = max_k feature[b, index[b, s, k], c], in
+    `feature`'s dtype.  CPU tensors take the plain versions.  Differentiable
+    in f32 `feature` by the first-winner rule."""
     if torch.is_grad_enabled() and feature.requires_grad:
+        if feature.dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_TRAINING)
         return _GatherMax.apply(feature, index)
     if feature.device.type == "cpu":
         return gather_max_plain(feature, index)
-    B, N, C, S, K = _check(feature, index)
+    B, N, C, S, K = _check(feature, index, (torch.float32, torch.bfloat16))
     out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
-    _cuda.launch("gather_max", feature.device, feature, index, out, B, N, C,
-                 S, K)
+    name = "gather_max" if feature.dtype == torch.float32 \
+        else "gather_max_bf16"
+    _cuda.launch(name, feature.device, feature, index, out, B, N, C, S, K)
     return out
 
 
@@ -92,10 +114,11 @@ def kept_slots(index: torch.Tensor) -> torch.Tensor:
     return keep
 
 
-def _check(feature, index):
+def _check(feature, index, dtypes=(torch.float32,)):
     B, N, C = feature.shape
     S, K = index.shape[1:]
-    _cuda.check(feature, "gather_max feature", torch.float32, (B, N, C))
+    check_dtype(feature, "gather_max feature", dtypes)
+    _cuda.check(feature, "gather_max feature", feature.dtype, (B, N, C))
     _cuda.check(index, "gather_max index", torch.int32, (B, S, K))
     if K == 0 or S == 0:
         raise ValueError(f"gather_max: empty index {tuple(index.shape)}")

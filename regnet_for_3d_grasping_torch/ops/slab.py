@@ -39,7 +39,9 @@ import torch
 from regnet_for_3d_grasping_torch.ops import _cuda, knn
 from regnet_for_3d_grasping_torch.ops.grouping import group_points
 from regnet_for_3d_grasping_torch.ops.knn import _smallest_k
-from regnet_for_3d_grasping_torch.ops.pooling import scatter_winner
+from regnet_for_3d_grasping_torch.ops.pooling import (BF16_TRAINING,
+                                                    check_dtype,
+                                                    scatter_winner)
 
 _TM = 128      # queries per tile (selection and pooling)
 _SCAN = 2048   # rows per scan block
@@ -619,23 +621,33 @@ def gather_max_slab(fs: torch.Tensor, index: torch.Tensor,
     span origins.  Slot ``j = kc*rps + w*spw + s`` is covered when its row
     lies in its own window ``[(off + kc)*2048 + w*win, +win)``; every fill
     value is also some slot's own pick, so skipping uncovered slots changes
-    no maximum.  A query with no covered slot pools to -1e38.  CPU tensors
-    take the plain versions.
+    no maximum.  A query with no covered slot pools to -1e38 in `fs`'s
+    dtype (bf16(-1e38) for bf16 rows, as JAX's ``jnp.full(..., -_BIG,
+    dtype)``).  bf16 rows take K9's bf16 form, ``gather_max_slab_bf16``.
+    CPU tensors take the plain versions.
 
     When `fs` needs a gradient the argmax form runs and the backward adds
     each ``g[b, s, c]`` to the winner's row, the lowest covered slot holding
     the maximum (JAX ``gather_max_slab_vjp``, ``slab.py:1084-1110``).  A
     query with no covered slot sends its gradient to row 0: mask it, as the
-    model does with ``torch.where``."""
+    model does with ``torch.where``.  A bf16 `fs` that needs a gradient
+    raises: bf16 training is not ported."""
     if torch.is_grad_enabled() and fs.requires_grad:
+        if fs.dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_TRAINING)
         return _GatherMaxSlab.apply(fs, index, off_blk, win, spw)
-    off_blk = _check_gmax_slab(fs, index, off_blk, win, spw)
+    off_blk = _check_gmax_slab(fs, index, off_blk, win, spw,
+                               (torch.float32, torch.bfloat16))
     if fs.device.type == "cpu":
         return gather_max_slab_plain(fs, index, off_blk, win, spw)
     (B, N, C), (S, K) = fs.shape, index.shape[1:]
     out = torch.empty(B, S, C, dtype=fs.dtype, device=fs.device)
-    _cuda.launch("gather_max_slab", fs.device, fs, index, off_blk, out, B, N,
-                 C, S, K, win, spw)
+    if fs.dtype == torch.float32:
+        _cuda.launch("gather_max_slab", fs.device, fs, index, off_blk, out,
+                     B, N, C, S, K, win, spw)
+    else:    # 4 channels a thread, as the f32 form
+        _cuda.launch("gather_max_slab_bf16", fs.device, fs, index, off_blk,
+                     out, B, N, C, S, K, win, spw, 4)
     return out
 
 
@@ -670,8 +682,10 @@ class _GatherMaxSlab(torch.autograd.Function):
         return scatter_winner(g, winner, ctx.n), None, None, None, None
 
 
-def _check_gmax_slab(fs, index, off_blk, win, spw) -> torch.Tensor:
-    """Validate K9's arguments; returns `off_blk` as contiguous int32."""
+def _check_gmax_slab(fs, index, off_blk, win, spw,
+                     dtypes=(torch.float32,)) -> torch.Tensor:
+    """Validate K9's arguments (`fs` of one of `dtypes` on the card);
+    returns `off_blk` as contiguous int32."""
     B, N, C = fs.shape
     S, K = index.shape[1:]
     rps = (_SCAN // win) * spw
@@ -683,12 +697,14 @@ def _check_gmax_slab(fs, index, off_blk, win, spw) -> torch.Tensor:
         raise ValueError(f"gather_max_slab: off_blk {tuple(off_blk.shape)}, "
                          f"expected {(B, T)}")
     if fs.device.type != "cpu":
-        _cuda.check(fs, "gather_max_slab fs", torch.float32, (B, N, C))
+        check_dtype(fs, "gather_max_slab fs", dtypes)
+        _cuda.check(fs, "gather_max_slab fs", fs.dtype, (B, N, C))
         _cuda.check(index, "gather_max_slab index", torch.int32, (B, S, K))
-        if C % 4 or fs.data_ptr() % 16:
+        align = 4 * fs.element_size()
+        if C % 4 or fs.data_ptr() % align:
             raise ValueError(f"gather_max_slab: the kernel reads 4 channels "
                              f"a load: C={C} must be a multiple of 4 and fs "
-                             f"16-byte aligned")
+                             f"{align}-byte aligned")
     return off_blk
 
 

@@ -12,6 +12,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     Also turns TF32 off for matrix products and convolutions: the JAX
     package computes all geometry in full f32 (``Precision.HIGHEST``), and
     TF32's 10-bit mantissa would flip which points fall inside a radius.
+    bf16 products (a bf16 compute dtype) keep f32 accumulation, as XLA's
+    do: cuBLAS's reduced-precision reduction is off.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -20,4 +22,5 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

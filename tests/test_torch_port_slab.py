@@ -706,13 +706,15 @@ def slice_cloud(B=2, N=4096, seed=0):
     return np.concatenate([xyz, rng.rand(B, N, 3).astype(np.float32)], -1)
 
 
-def run_slice(neighbours):
-    """Both models on the same cloud, weights and randomness; returns (JAX
-    output, port output, port model launches of the fallback counter)."""
+def run_slice(neighbours, dtype=None):
+    """Both models on the same cloud, weights and randomness, at compute
+    dtype `dtype` (JAX's); returns (JAX output, port output, port model
+    launches of the fallback counter)."""
     over = dict(SLICE, **{"model.num_neighbours": neighbours})
     jcfg = jtiny(**over)
     port_over = {k: v for k, v in over.items() if k != "region.num_points"}
-    cfg = tiny_config(**port_over)
+    cfg = tiny_config(**port_over, **{
+        "model.compute_dtype": jnp.dtype(dtype or jnp.float32).name})
     pc = slice_cloud()
     # slab mode adds no parameter: initialise on the full-scan path
     plain = jtiny(**dict(over, **{"region.slab_cell": 0.0,
@@ -726,7 +728,7 @@ def run_slice(neighbours):
     # tests/test_torch_port_model.py, tiny_variables)
     bb = variables["params"]["score_net"]["backbone"]
     bb["score_dense"]["kernel"] = np.abs(bb["score_dense"]["kernel"])
-    _, s = jax.jit(JScoreNet(plain.model).apply)(
+    _, s = jax.jit(JScoreNet(plain.model, dtype=dtype).apply)(
         {c: variables[c]["score_net"] for c in variables}, jnp.asarray(pc))
     logit = np.log(np.asarray(s) / (1.0 - np.asarray(s)))
     k = 16.0 / np.ptp(logit)
@@ -768,7 +770,7 @@ def run_slice(neighbours):
         mp.setattr(jregnet, "group_regions", group_spy)
         mp.setattr(jregnet, "closing_region_crop_dense", crop_spy)
         # op by op, as tests/test_torch_port_model.py runs the JAX model
-        ref = JREGNet(jcfg).apply(variables, jnp.asarray(pc),
+        ref = JREGNet(jcfg, dtype=dtype).apply(variables, jnp.asarray(pc),
                                   rngs={"sampling": jax.random.PRNGKey(3)})
     finally:
         mp.undo()
@@ -847,17 +849,20 @@ def test_slab_forward_draws_its_randomness_from_the_generator():
         model(pc)
 
 
-def test_full_width_slab_config_builds_and_bf16_still_raises():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_width_slab_config_builds(dtype):
+    """The f32 slab serving configuration and, since the bf16 compute
+    dtype was ported, the JAX configuration of record (bf16 + slab + G = 8,
+    which raised before)."""
     over = {"region.slab_cell": 0.04, "model.fps_groups": 8,
-            "region.center_fps_groups": 8}
+            "region.center_fps_groups": 8, "model.compute_dtype": dtype}
     model = REGNet(infer_config(**over))
     assert model.score_net.backbone.sa0.fps_groups == 8
     assert model.score_net.backbone.sa1.fps_groups == 1
+    assert model.grn_head.stem.dense.compute == getattr(torch, dtype)
     assert region.use_slab_backbone(25600, 64)
     assert region._use_slab_group(25600, 256)
     assert region._use_slab_crop(25600, 64)
-    with pytest.raises(NotImplementedError, match="A11"):
-        REGNet(infer_config(**over, **{"model.compute_dtype": "bfloat16"}))
 
 
 def test_infer_cli_slab_flags(tmp_path):
@@ -881,8 +886,10 @@ def test_infer_cli_slab_flags(tmp_path):
     with open(tmp_path / "scene_data_predict" / "0000.p", "rb") as f:
         pred = pickle.load(f)
     np.testing.assert_array_equal(pred["scores"][:, 0], out.score[0].numpy())
-    # the bf16 flags wait for the bf16 compute dtype: not accepted yet
-    for flag in ("--fast", "--bf16"):
-        with pytest.raises(SystemExit):
-            infer.main(["--folder-name", str(folder), "--no-eval",
-                        "--device", "cpu", flag])
+    # --fast serves the bf16 configuration of record on the same cloud
+    recs = infer.main(["--folder-name", str(folder), "--center-num", "128",
+                       "--all-points-num", "4096", "--device", "cpu",
+                       "--no-eval", "--fast"])
+    out = recs[0]["out"]
+    assert out.point_order is not None and out.reg.dtype == torch.bfloat16
+    assert torch.isfinite(out.final_grasps).all()
