@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the nine CUDA sources (sixteen kernel entry points) of
+2. build: the nine CUDA sources (nineteen kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -30,15 +30,19 @@ result unless every phase passed):
    K4 shape), the bf16 forms of K4 and K9 at their serving shapes (bit for
    bit, rows read, the bound at 2 bytes a channel, ``embedding_bag`` on
    bf16 where torch runs it; K9's also at 8 channels a thread, the form
-   its entry point offers beside the wrapper's 4; a bf16 pool asked for a
-   gradient must raise)
-   and the argmax and backward forms of the pools K4 and K9, of
+   its entry point offers beside the wrapper's 4)
+   and the argmax and backward forms of the pools K4 and K9, f32 and bf16
+   (bf16 training; bit for bit, K4's bf16 argmax also with a NaN and at
+   C = 7, the bf16 backward against its plain version's ordered sum), of
    the training paths (12 clouds, 64 centers), with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
    their span tables scan and the pairs that pass; for K11, K5, K2 and K3
    from the operations an exact test needs on the run's pairs and the
    pairs that pass), and a library call where one computes the same
-   function.  A K6
+   function (the bf16 backward: ``index_add_``, torch has no bf16
+   ``embedding_bag`` backward); a pool that needs a gradient launches the
+   argmax form and the backward of its dtype once each and nothing else,
+   and its gradient is the scatter of its winners.  A K6
    or K7 call (span table, selection, fill) is held against
    ``slab_bounds``, the plain selection and ``finish_select``, span table
    included, and its device activities are counted with ``torch.profiler``
@@ -76,6 +80,16 @@ result unless every phase passed):
     the gradients of the score and proposal heads within 2 % of their largest
     entry and
     that of SA1's first layer within 15 %;
+15. bf16 training (``--bf16``), full scan, and 16. the run of record,
+    ``--bf16 --slab-cell 0.04 --fps-groups 8``: as 8 and 9, with each step
+    launching the bf16 argmax forms and the bf16 backward and no f32 pool,
+    the validation forwards f32 at exact geometry (f32 pools), and the
+    share of regions with a pick in each step printed;
+17. one bf16 training step at batch 2 on the card against the CPU's (in a
+    second helper process), both given the CPU's centers: the loss and the
+    gradients of the score head's Dense, the proposal head's stem and
+    SA1's first layer within `BF16_STEP_MULTIPLE` times the larger of the
+    two sides' own drifts with f64 GEMM sums (`bf16_step_card_vs_cpu`);
 5., 7., 13., 14. one forward of each serving path (full scan, slab, bf16
    full scan, ``--fast``) on the card and on the CPU (plain versions, the
    CPU twin of the bf16 GEMM) with the same seeds and sort noise: f32
@@ -218,11 +232,13 @@ def embedding_bag_pair(feature, index):
     def fwd():
         return torch.nn.functional.embedding_bag(flat, w, mode="max")
 
-    out = fwd()
-    g = torch.ones_like(out)
+    graph = []
 
     def bwd():
-        return torch.autograd.grad(out, w, g, retain_graph=True)
+        if not graph:       # the forward once, on first use
+            graph.append(fwd())
+        return torch.autograd.grad(graph[0], w, torch.ones_like(graph[0]),
+                                   retain_graph=True)
 
     return fwd, bwd
 
@@ -231,10 +247,13 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
                  n_points, pooled_slots=None, kept=None) -> list:
     """Phase 3 for an argmax pool (K4's or K9's) and its backward at the
     shapes `cases` = [(label, feature, index, extra args)], the first the
-    main path's.  Winners and pooled values must equal the plain version's;
-    the backward, which sums in a fixed order, must repeat itself bit for
-    bit and agree with the plain ``index_add_`` (atomic, unordered) within
-    rtol 1e-5 / atol 1e-5.  The forward's bound counts the feature rows
+    main path's.  Winners and pooled values must equal the plain version's
+    (bit for bit); the backward, which sums in a fixed order, must repeat
+    itself bit for bit and, on f32, agree with the plain ``index_add_``
+    (atomic, unordered) within rtol 1e-5 / atol 1e-5, on bf16 equal the
+    plain version's ordered sum, rounded at each add, bit for bit.  The
+    gradient `g` has the feature's dtype.  The forward's bound counts the
+    feature rows
     that this run's indices touch (`pooled_slots` masks the slots that are
     pooled over; all, when None), not the whole feature array.  `kept`: a
     function of the index that gives the rows' read statistics (K4's
@@ -242,19 +261,23 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
     record over both pools."""
     from regnet_for_3d_grasping_torch.ops import pooling
     rows_f, rows_b = [], []
+    bf16 = cases[0][1].dtype == torch.bfloat16
     for label, feature, index, extra in cases:
         got, ref = argmax(feature, index, *extra), plain(feature, index,
                                                          *extra)
-        check(all_equal(got, ref), f"{name_fwd} differs ({label})")
+        check(bit_equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"{name_fwd} differs ({label})")
         win = got[1]
         g = torch.randn(got[0].shape, device=feature.device,
                         generator=torch.Generator(
-                            device=feature.device).manual_seed(1))
+                            device=feature.device).manual_seed(1)
+                        ).to(feature.dtype)
         df = pooling.scatter_winner(g, win, n_points)
         check(torch.equal(df, pooling.scatter_winner(g, win, n_points)),
               f"the backward of {name_fwd} is not deterministic ({label})")
         df_plain = pooling.scatter_winner_plain(g, win, n_points)
-        check(torch.allclose(df, df_plain, rtol=1e-5, atol=1e-5),
+        check(bit_equal(df, df_plain) if bf16 else
+              torch.allclose(df, df_plain, rtol=1e-5, atol=1e-5),
               f"the backward of {name_fwd} differs ({label})")
         lib_f, lib_b = embedding_bag_pair(feature, index)
         rows_id = (index.long() + torch.arange(
@@ -262,6 +285,12 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
         if pooled_slots is not None:
             rows_id = rows_id[pooled_slots(index, *extra)]
         touched = torch.unique(rows_id).numel()
+        # K4's yardstick pools every slot, as K4 does; K9's too, where K9
+        # pools its covered slots alone (`pooled_slots`), so only K4's is
+        # held to the plain version
+        lib = library_ms(lib_f, lambda out: pooled_slots is not None
+                         or bit_equal(out.reshape(got[0].shape), ref[0]),
+                         f"{name_fwd} {label}", bf16)
         rows_f.append({
             "shape": label, "max_abs_err": max_err(got, ref),
             "ms": cuda_ms(lambda: argmax(feature, index, *extra), 20),
@@ -269,10 +298,9 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
             "bytes": (touched * feature.shape[-1] * feature.element_size()
                       + nbytes(index, *got)),
             "ops": index.numel() * feature.shape[-1],
-            "library_ms": cuda_ms(lib_f, 10),
-            "device_ms": device_ms(lambda: argmax(feature, index, *extra), 10),
-            "library_device_ms": device_ms(lib_f, 10)}
-            | (kept(index) if kept else {}))
+            "device_ms": device_ms(lambda: argmax(feature, index, *extra),
+                                   10)}
+            | lib | (kept(index) if kept else {}))
         rows_b.append({
             "shape": label, "max_abs_err": max_err(df, df_plain),
             "ms": cuda_ms(lambda: pooling.scatter_winner(g, win, n_points),
@@ -280,9 +308,55 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
             "plain_ms": cuda_ms(lambda: pooling.scatter_winner_plain(
                 g, win, n_points), 5),
             "bytes": nbytes(g, win, df), "ops": g.numel(),
-            "library_ms": cuda_ms(lib_b, 10)})
+            "device_ms": device_ms(lambda: pooling.scatter_winner(
+                g, win, n_points), 10)}
+            | backward_library(lib_b, g, win, n_points))
     record_rows(record, name_fwd, src, replaces, rows_f)
     return rows_b
+
+
+def backward_library(embedding_bag_bwd, g, win, n: int) -> dict:
+    """The library yardstick of the backward: ``embedding_bag``'s (the
+    max's gradient), or, where torch has none (on bf16), one
+    ``index_add_`` of `g` into the flattened winner keys (atomic: another
+    order of the same sums)."""
+    try:
+        return {"library_ms": cuda_ms(embedding_bag_bwd, 10),
+                "library_device_ms": device_ms(embedding_bag_bwd, 10),
+                "library": "embedding_bag backward"}
+    except (RuntimeError, NotImplementedError):
+        if g.dtype != torch.bfloat16:
+            raise
+    B, S, C = g.shape
+    keys = ((win.long() + torch.arange(B, device=g.device)[:, None, None]
+             * n) * C + torch.arange(C, device=g.device)).reshape(-1)
+    flat = g.reshape(-1)
+
+    def index_add():
+        return torch.zeros(B * n * C, dtype=g.dtype,
+                           device=g.device).index_add_(0, keys, flat)
+
+    return {"library_ms": cuda_ms(index_add, 10),
+            "library_device_ms": device_ms(index_add, 10),
+            "library": "index_add_"}
+
+
+def pool_gradient(pool, feature, argmax_name, backward_name) -> tuple:
+    """`pool` of a copy of `feature` that needs a gradient, and its
+    backward of ones -> (the gradient, the pooled values); fails unless
+    they launched the argmax form `argmax_name` once and the backward
+    `backward_name` once, and no other kernel."""
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    f = feature.clone().requires_grad_()
+    before = dict(_cuda.launches)
+    pooled = pool(f)
+    pooled.backward(torch.ones_like(pooled))
+    delta = {k: n - before[k] for k, n in _cuda.launches.items()
+             if n != before[k]}
+    check(delta == {argmax_name: 1, backward_name: 1} and f.grad is not None
+          and f.grad.dtype == feature.dtype,
+          f"a {feature.dtype} pool that needs a gradient launched {delta}")
+    return f.grad, pooled
 
 
 def kept_stats(index: torch.Tensor) -> dict:
@@ -1285,9 +1359,9 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order (and
     the launch count of K11's and K5's calls `scan_calls`, in K6/K7's
     profiler session).  Returns the rows of the pools' backward at K9's
-    shapes."""
+    shapes, f32 and bf16."""
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
-    from regnet_for_3d_grasping_torch.ops import _cuda, fps, pooling, slab
+    from regnet_for_3d_grasping_torch.ops import fps, pooling, slab
 
     _, sc = slab.sort_cloud(xyz, SLAB_CELL,
                             generator=torch.Generator().manual_seed(7))
@@ -1489,23 +1563,11 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
                 continue
             check(False, "K9 took features it cannot read 4 channels a "
                   "load")
-    # bf16 training is not ported: a bf16 pool asked for a gradient raises
-    # and launches nothing
-    before = dict(_cuda.launches)
-    for pool in (lambda f: slab.gather_max_slab(
-            f, g_idx, groups[3], slab.GROUP_WIN, slab.GROUP_SPW),
-                 lambda f: pooling.gather_max(f, g_idx)):
-        try:
-            pool(feature.bfloat16().requires_grad_())
-        except NotImplementedError:
-            continue
-        check(False, "a bf16 pool took a gradient")
-    check(_cuda.launches == before, "a refused bf16 pool launched a kernel")
-
     # K9's argmax form and the backward, at the pools of a training batch
     # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
     # indices, held against their plain versions at this batch too) and at
-    # the 4,000-center region pool
+    # the 4,000-center region pool; the bf16 forms (bf16 training) at the
+    # training pools on the same values rounded to bf16
     print(f"training batch in slab order: {int(g12[1].sum())} points in "
           f"radius, {int((g12[2] & (g12[1] > 0)).sum())} of "
           f"{TRAIN_B * TRAIN_CENTERS} regions with a pick, "
@@ -1520,11 +1582,29 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
          (k12[3], slab.CROP_WIN, slab.CROP_SPW)),
         ("region pool, 4000 x 256 slots", f1, g_idx,
          (groups[3], slab.GROUP_WIN, slab.GROUP_SPW))]
-    return pool_kernels(
+    rows = pool_kernels(
         record, "gather_max_slab_argmax", CSRC + "gather_max_slab.cu",
         JAX_OPS + "slab.py:1072", slab.gather_max_slab_argmax,
         slab.gather_max_slab_argmax_plain, cases, N_POINTS,
         slab.slab_cover)
+    rows_bf16 = pool_kernels(
+        record, "gather_max_slab_argmax_bf16", CSRC + "gather_max_slab.cu",
+        JAX_OPS + "slab.py:1072 (bf16 rows, with_argmax; :996-1010)",
+        slab.gather_max_slab_argmax, slab.gather_max_slab_argmax_plain,
+        [(label + ", bf16", f.bfloat16(), i, e)
+         for label, f, i, e in cases[:2]], N_POINTS, slab.slab_cover)
+    # a pool that needs a gradient takes the argmax form and the backward of
+    # its dtype, and its gradient is the scatter of its own winners
+    region_idx, region_args = cases[0][2], cases[0][3]
+    for f, suffix in ((f12, ""), (f12.bfloat16(), "_bf16")):
+        grad, pooled = pool_gradient(
+            lambda x: slab.gather_max_slab(x, region_idx, *region_args), f,
+            "gather_max_slab_argmax" + suffix, "gather_max_backward" + suffix)
+        check(bit_equal(grad, pooling.scatter_winner(
+            torch.ones_like(pooled), slab.gather_max_slab_argmax(
+                f, region_idx, *region_args)[1], N_POINTS)),
+            f"K9's gradient is not the scatter of its winners ({f.dtype})")
+    return rows, rows_bf16
 
 
 def serve(argv_extra, tmp, label):
@@ -1581,9 +1661,20 @@ def train(argv_extra, tmp, label, n_val, want_step, want_val):
             "--model-path", str(Path(tmp) / "models"), "--log-path",
             str(Path(tmp) / "log"), "--tag", label, "--batch-size",
             str(TRAIN_B), "--epoch", "1", "--seed", "1", *argv_extra]
+    from regnet_for_3d_grasping_torch.train import trainer
+    picks = []      # each train step's share of regions with a pick
+    forward_losses = trainer.forward_losses
+
+    def spy(model, *args, **kwargs):
+        out = forward_losses(model, *args, **kwargs)
+        if model.training:
+            picks.append(out[0].region_valid.float().mean().detach())
+        return out
+
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    res = train_cli.main(argv)
+    with replaced(trainer, "forward_losses", spy):
+        res = train_cli.main(argv)
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
     fallbacks = _cuda.fallbacks["fp3_slab"]
@@ -1618,7 +1709,13 @@ def train(argv_extra, tmp, label, n_val, want_step, want_val):
           f"{[round(x, 3) for x in ms]}; peak device memory "
           f"{peak / 2**30:.3f} GiB; validation loss_total "
           f"{statistics.median(v['loss_total'] for v in res['validation']):.4f}"
-          f" (median of {n_val})")
+          f" (median of {n_val}); share of regions with a pick in each step "
+          f"{[round(float(p), 4) for p in picks]}; compute dtype "
+          f"{res['cfg'].model.compute_dtype}, validation "
+          f"{res['eval_cfg'].model.compute_dtype}")
+    check(res["eval_cfg"].model.compute_dtype == "float32"
+          and res["eval_cfg"].region.slab_cell == 0.0,
+          f"{label}: validation forwards not f32 at exact geometry")
     return launches
 
 
@@ -1749,6 +1846,132 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
               f", cosine {cos:.6f})")
         check(float(g_c.abs().max()) > 0 and err <= tol and cos >= 0.99,
               f"training step: gradient of {name} differs")
+
+
+BF16_STEP_GRADS = ("score_net.backbone.score_dense.weight",
+                   "grn_head.stem.dense.weight",
+                   "score_net.backbone.sa0.mlp.layer0.dense.weight")
+# phase 17's limit: the card's step within this multiple of how far one
+# side's bf16 step moves when its GEMMs sum in f64, and never below one
+# bf16 ulp at the top of the value (2^-8 of it) (PERF.md §6)
+BF16_STEP_MULTIPLE, BF16_STEP_FLOOR = 3.0, 2.0 ** -8
+
+
+def bf16_step_fields(data_dir: str, device: str, gemm: str = "native",
+                     center_index: np.ndarray | None = None) -> dict:
+    """One refine-stage bf16 training step at batch 2, full scan, full
+    width (``train_config()``, dropout off, the initial weights of seed 5,
+    fixed seeds) on `device` ("cpu": the plain versions and the CPU twin of
+    the bf16 GEMM), forward, losses and backward -> its selections, loss,
+    the gradients of `BF16_STEP_GRADS` and the seconds it took, as numpy.
+    `gemm` and `center_index` as in `forward_fields`."""
+    from regnet_for_3d_grasping_torch.cli.train import build_model
+    from regnet_for_3d_grasping_torch.config import train_config
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.geometry import region
+    from regnet_for_3d_grasping_torch.models import regnet
+    from regnet_for_3d_grasping_torch.nn import layers
+    from regnet_for_3d_grasping_torch.ops.grouping import gather_points
+    from regnet_for_3d_grasping_torch.train import trainer
+    if device == "cpu":
+        torch.set_num_threads(CPU_THREADS - 1)
+    cfg = train_config(**{"model.dropout_prob": 0.0,
+                          "model.compute_dtype": "bfloat16"})
+    R = cfg.region
+    batch = next(GraspDataset(data_dir, "train", R.num_points,
+                              R.max_gt_grasps, 1).batches(2, seed=0))
+    kw = dict(
+        group_seeds=list(range(40, 40 + region.group_seed_count(
+            R.center_num, R.num_points, R.group_num))),
+        crop_seeds=[list(range(50, 50 + region.crop_seed_count(
+            R.center_num, R.num_points, R.gripper_num)))])
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if gemm != "native":
+            stack.enter_context(replaced(layers, "bf16_matmul",
+                                         GEMMS[gemm]))
+        if center_index is not None:
+            idx = torch.from_numpy(center_index).to(device)
+            stack.enter_context(replaced(
+                regnet, "select_score_centers",
+                lambda cloud, *_: (gather_points(cloud, idx), idx)))
+        model = build_model(cfg, 5, device).train()
+        out, total, _ = trainer.forward_losses(
+            model, trainer.device_batch(batch, device), "refine", **kw)
+        total.backward()
+    fields = {k: getattr(out, k).cpu().numpy() for k in (
+        "center_index", "region_valid", "anchor_index", "crop_valid")}
+    fields["loss"] = float(total.detach())
+    fields["grads"] = {n: model.get_parameter(n).grad.float().cpu().numpy()
+                       for n in BF16_STEP_GRADS}
+    fields["seconds"] = time.perf_counter() - t0
+    return fields
+
+
+def cpu_bf16_steps(data_dir: str) -> tuple:
+    """The CPU's bf16 training step, and the same step with its GEMMs
+    summed in f64 (`f64_gemm`) on the first's centers."""
+    native = bf16_step_fields(data_dir, "cpu")
+    return native, bf16_step_fields(data_dir, "cpu", "f64",
+                                    native["center_index"])
+
+
+def step_apart(a: dict, b: dict) -> dict:
+    """How far two bf16 training steps lie apart: the loss (absolute) and
+    each gradient of `BF16_STEP_GRADS` (largest difference over the
+    largest entry of `b`'s)."""
+    out = {"loss": abs(a["loss"] - b["loss"])}
+    for n in BF16_STEP_GRADS:
+        out[n] = float(np.abs(a["grads"][n] - b["grads"][n]).max()
+                       / np.abs(b["grads"][n]).max())
+    return out
+
+
+def bf16_step_card_vs_cpu(data_dir: str, cpu_job) -> dict:
+    """17. One bf16 training step on the card against the CPU's, both given
+    the CPU's centers (`cpu_bf16_steps` in the helper process).  Masked FPS
+    turns a one-ulp change of a bf16 score into other centers, and a
+    train-mode BatchNorm magnifies any rounding change, so the yardstick is
+    how far each side's own step moves when its GEMMs sum in f64: the loss,
+    each gradient and the share of anchors and of crops that differ must
+    lie within `BF16_STEP_MULTIPLE` times the larger of the two drifts (and
+    may always lie `BF16_STEP_FLOOR` of the loss or of the gradient's
+    largest entry apart, one bf16 ulp, or one anchor or crop: a drift of 0
+    would otherwise forbid any difference); the regions, which follow from
+    the centers and f32 geometry alone, at least 97 % equal."""
+    cpu, cpu64 = cpu_job.result(timeout=900)
+    card = bf16_step_fields(data_dir, "cuda",
+                            center_index=cpu["center_index"])
+    card64 = bf16_step_fields(data_dir, "cuda", "f64", cpu["center_index"])
+    print(f"bf16 training step, batch 2: cpu {cpu['seconds']:.1f}s (f64 "
+          f"GEMMs {cpu64['seconds']:.1f}s), card {card['seconds']:.2f}s; "
+          f"losses cpu {cpu['loss']:.6f}, cpu f64 GEMMs {cpu64['loss']:.6f},"
+          f" card {card['loss']:.6f}, card f64 GEMMs {card64['loss']:.6f}")
+    err, d_cpu, d_card = (step_apart(card, cpu), step_apart(cpu64, cpu),
+                          step_apart(card64, card))
+    # the regions follow from the centers and f32 geometry alone; the
+    # anchors are the argmax of 4 bf16 logits, which a rounding flips where
+    # two lie an ulp apart, and the crops follow the anchors
+    for k in ("region_valid", "anchor_index", "crop_valid"):
+        err[k], d_cpu[k], d_card[k] = (
+            float((a[k] != b[k]).mean())
+            for a, b in ((card, cpu), (cpu64, cpu), (card64, card)))
+        if k == "region_valid":
+            check(err[k] <= 0.03, f"bf16 training step: {k} "
+                  f"{1 - err[k]:.5f} equal between card and CPU")
+    for k in err:
+        if k == "region_valid":
+            continue
+        floor = (BF16_STEP_FLOOR * abs(cpu["loss"]) if k == "loss"
+                 else 1.0 / cpu[k].size if k in cpu else BF16_STEP_FLOOR)
+        limit = max(BF16_STEP_MULTIPLE * max(d_cpu[k], d_card[k]), floor)
+        print(f"bf16 training step, {k}: card vs cpu {err[k]:.4e}; drift "
+              f"with f64 GEMMs: cpu {d_cpu[k]:.4e}, card {d_card[k]:.4e}; "
+              f"limit {limit:.4e}")
+        check(np.isfinite(err[k]) and err[k] <= limit,
+              f"bf16 training step: {k} differs between card and CPU")
+    return {"card_vs_cpu": err, "cpu_f64_drift": d_cpu,
+            "card_f64_drift": d_card}
 
 
 def cpu_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -1940,7 +2163,25 @@ def training_phases(dev) -> dict:
         probe.report()
         # 10. one training step on the card and on the CPU
         train_step_card_vs_cpu(tmp, dev)
-    return {"train_full_scan": train_full, "train_slab": train_slab}
+        # 15./16. bf16 training (`--bf16`): the bf16 argmax forms and the
+        # bf16 backward in every step, no f32 pool; the validation forwards
+        # f32 at exact geometry, with the f32 pools
+        bf16_full = train(
+            ["--bf16"], tmp, "bf16-full-scan", n_val,
+            {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
+             "gather_max_argmax_bf16": 2, "gather_max_backward_bf16": 2},
+            val)
+        with SlabNNProbe() as probe:
+            bf16_slab = train(
+                ["--bf16", "--slab-cell", str(SLAB_CELL), "--fps-groups",
+                 str(FPS_GROUPS)], tmp, "bf16-slab", n_val,
+                {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
+                 "three_nn_slab": 1, "three_nn": 1,
+                 "gather_max_slab_argmax_bf16": 2,
+                 "gather_max_backward_bf16": 2}, val)
+        probe.report()
+    return {"train_full_scan": train_full, "train_slab": train_slab,
+            "train_bf16_full_scan": bf16_full, "train_bf16_slab": bf16_slab}
 
 
 def serving_phases(slab_kernel_names, train_kernel_names,
@@ -2253,28 +2494,49 @@ def main() -> None:
         JAX_OPS + "pooling.py:216", pooling.gather_max_argmax,
         pooling.gather_max_argmax_plain, cases, N_POINTS,
         kept=kept_stats)
+    # the bf16 argmax form (bf16 training) at the training pools, on the
+    # same values rounded to bf16, with a NaN and at C = 7 (2-byte loads)
+    f12b = f12.bfloat16()
+    bf16_backward_rows = pool_kernels(
+        record, "gather_max_argmax_bf16", CSRC + "gather_max.cu",
+        JAX_OPS + "pooling.py:216 (bf16 rows, with_argmax; :241-246)",
+        pooling.gather_max_argmax, pooling.gather_max_argmax_plain,
+        [(label + ", bf16", f.bfloat16(), i, e)
+         for label, f, i, e in cases[:2]], N_POINTS, kept=kept_stats)
+    nan = f12b.clone()
+    nan[3, g12.index[3, 7, 5].long(), 9] = float("nan")
+    nan[0, g12.index[0, 2, 0].long(), 4] = float("nan")
+    f7 = f12b[..., :7].contiguous()
+    for label, f in (("a NaN", nan), ("C = 7", f7)):
+        got = pooling.gather_max_argmax(f, g12.index)
+        ref = pooling.gather_max_argmax_plain(f, g12.index)
+        check(bit_equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"K4 bf16 argmax differs ({label})")
+    check(bool(got[0].isfinite().all())
+          and pooling.gather_max_argmax(nan, g12.index)[0].isnan().sum() >= 2,
+          "K4 bf16 argmax does not take a NaN as torch.argmax does")
     # the autograd wiring on the card: the pool's gradient is the scatter
     # of its own winners, and the graph is not cut
-    f = f12.clone().requires_grad_()
-    before = dict(_cuda.launches)
-    pooled = pooling.gather_max(f, g12.index)
-    pooled.backward(torch.ones_like(pooled))
-    check(_cuda.launches["gather_max_argmax"]
-          == before["gather_max_argmax"] + 1
-          and _cuda.launches["gather_max_backward"]
-          == before["gather_max_backward"] + 1
-          and _cuda.launches["gather_max"] == before["gather_max"],
-          "a pool that needs a gradient did not take the argmax kernel")
-    check(f.grad is not None and torch.equal(f.grad, pooling.scatter_winner(
-        torch.ones_like(pooled), pooling.gather_max_argmax(f12, g12.index)[1],
-        N_POINTS)) and float(f.grad.sum()) == pooled.numel(),
-        "the pool's gradient is not the scatter of its winners")
+    for f, suffix in ((f12, ""), (f12b, "_bf16")):
+        grad, pooled = pool_gradient(
+            lambda x: pooling.gather_max(x, g12.index), f,
+            "gather_max_argmax" + suffix, "gather_max_backward" + suffix)
+        check(bit_equal(grad, pooling.scatter_winner(
+            torch.ones_like(pooled), pooling.gather_max_argmax(
+                f, g12.index)[1], N_POINTS))
+            and float(grad.float().sum()) == pooled.numel(),
+            f"the pool's gradient is not the scatter of its winners "
+            f"({f.dtype})")
 
     # K6-K10 on the same cloud in slab order
-    backward_rows += slab_kernels(dev, xyz, record, scan_calls)
+    slab_rows, slab_rows_bf16 = slab_kernels(dev, xyz, record, scan_calls)
     record_rows(record, "gather_max_backward", CSRC + "gather_max.cu",
                 JAX_OPS + "pooling.py:285 (the XLA scatter-add of the "
-                "custom VJPs, also slab.py:1090)", backward_rows)
+                "custom VJPs, also slab.py:1090)", backward_rows + slab_rows)
+    record_rows(record, "gather_max_backward_bf16", CSRC + "gather_max.cu",
+                JAX_OPS + "pooling.py:285 and slab.py:1090 on bf16 g (the "
+                "XLA scatter-add in g.dtype)",
+                bf16_backward_rows + slab_rows_bf16)
     check(set(results) == set(_cuda.KERNELS),
           "not every kernel of the port was held against its plain version")
     if "--kernels-only" in sys.argv[1:]:
@@ -2288,7 +2550,9 @@ def main() -> None:
     slab_kernel_names = ("fps_grouped", "group_slab", "crop_slab",
                          "three_nn_slab", "gather_max_slab")
     train_kernel_names = ("gather_max_argmax", "gather_max_backward",
-                          "gather_max_slab_argmax")
+                          "gather_max_slab_argmax", "gather_max_argmax_bf16",
+                          "gather_max_backward_bf16",
+                          "gather_max_slab_argmax_bf16")
     bf16_kernel_names = ("gather_max_bf16", "gather_max_slab_bf16")
     cxyz, crgb = tabletop_cloud(np.random.RandomState(100))
     sel = np.random.RandomState(1).choice(len(cxyz), N_POINTS, False)
@@ -2307,13 +2571,27 @@ def main() -> None:
                 "fast" + F64: (slab_over | bf16_over, slab_rand, "f64")}
     paths = serving_phases(slab_kernel_names, train_kernel_names,
                            bf16_kernel_names)
-    # after the serving phases, whose host-bound latencies it would slow
+    # after the serving phases, whose host-bound latencies they would slow:
+    # the CPU's forwards, and its bf16 training steps in a second helper
+    import concurrent.futures
+    import multiprocessing
+    from regnet_for_3d_grasping_torch.data import write_synthetic_dataset
+    step_data = tempfile.TemporaryDirectory()
+    write_synthetic_dataset(step_data.name, 3, num_view=N_POINTS)
+    step_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
     cpu = CpuForwards(pc, compared)
     try:
+        cpu_steps = step_pool.submit(cpu_bf16_steps, step_data.name)
         paths |= training_phases(dev)
+        # 17. one bf16 training step on the card against the CPU
+        step = bf16_step_card_vs_cpu(step_data.name, cpu_steps)
         compare_phases(pc, compared, cpu)
     finally:
         cpu.close()
+        step_pool.shutdown(cancel_futures=True)
+        step_data.cleanup()
+    print(json.dumps({"bf16_train_step_card_vs_cpu": step}))
 
     main_path = {**dict.fromkeys(results, "full_scan"),
                  **dict.fromkeys(slab_kernel_names, "slab"),
@@ -2321,14 +2599,18 @@ def main() -> None:
                  "gather_max_backward": "train_full_scan",
                  "gather_max_slab_argmax": "train_slab",
                  "gather_max_bf16": "bf16_full_scan",
-                 "gather_max_slab_bf16": "fast"}
+                 "gather_max_slab_bf16": "fast",
+                 "gather_max_argmax_bf16": "train_bf16_full_scan",
+                 "gather_max_backward_bf16": "train_bf16_full_scan",
+                 "gather_max_slab_argmax_bf16": "train_bf16_slab"}
     for k in results:
         results[k]["launches"] = paths[main_path[k]][k]
         results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}
         check(results[k]["launches"] > 0 or k == "three_nn",
               f"{k} was never launched on its path")
     for k, path in (("group_regions", "train_full_scan"),
-                    ("gather_max_backward", "train_slab")):
+                    ("gather_max_backward", "train_slab"),
+                    ("gather_max_backward_bf16", "train_bf16_slab")):
         check(paths[path][k] > 0, f"{k} was never launched in {path}")
 
     print(json.dumps({"kernels": list(results.values())}))

@@ -4,7 +4,7 @@ the card.
     python -m regnet_for_3d_grasping_torch.cli.profile [--clouds 3]
         [--slab-cell 0.04 --fps-groups 8] [--bf16]
     python -m regnet_for_3d_grasping_torch.cli.profile --train
-        [--batch-size 12] [--slab-cell 0.04 --fps-groups 8]
+        [--batch-size 12] [--slab-cell 0.04 --fps-groups 8] [--bf16]
 
 Runs the inference preset (25,600 points, 4,000 centers, the trained
 weights; with the two flags, the sorted-slab serving configuration; with
@@ -22,11 +22,13 @@ kernel of ``csrc/``, and the GEMMs' share (cuBLAS's matrix-product
 kernels).
 
 With ``--train``: the training preset (25,600 points, 64 centers, batch 12,
-all three losses, freshly initialised weights) on synthetic scenes made
-from a seed; two warm-up steps, two untraced steps, then one step whose
-forward (with the losses) and whose backward (with the update) are traced
-apart.  It prints the step times, the peak device memory, and for each half
-the device busy time, the launches and the five costliest kernels.
+all three losses, freshly initialised weights; with ``--bf16``, bf16
+training, the train CLI's ``--bf16``) on synthetic scenes made from a
+seed; two warm-up steps, two untraced steps, then one step whose forward
+(with the losses) and whose backward (with the update) are traced apart.
+It prints the step times, the peak device memory, and for each half the
+device busy time, the launches, the GEMMs' time and the five costliest
+kernels.
 """
 
 from __future__ import annotations
@@ -185,7 +187,9 @@ def profile_train(args) -> None:
     B = args.batch_size
     cfg = train_config(**{"train.batch_size": B,
                           "region.slab_cell": args.slab_cell,
-                          "model.fps_groups": args.fps_groups})
+                          "model.fps_groups": args.fps_groups,
+                          "model.compute_dtype": ("bfloat16" if args.bf16
+                                                  else "float32")})
     with tempfile.TemporaryDirectory() as tmp:
         # the split keeps 80 % for training: make enough for one batch
         write_synthetic_dataset(tmp, -(-B * 5 // 4), num_view=25600)
@@ -224,7 +228,8 @@ def profile_train(args) -> None:
     t2 = time.perf_counter()
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"training step, batch {B}, "
-          f"{'slab' if args.slab_cell > 0 else 'full scan'}: warm-up "
+          f"{'slab' if args.slab_cell > 0 else 'full scan'}, "
+          f"{cfg.model.compute_dtype}: warm-up "
           f"{[round(t, 1) for t, _ in warm]} ms, untraced "
           f"{[round(t, 3) for t, _ in untraced]} ms (losses "
           f"{[round(v, 4) for _, v in warm + untraced]}), traced forward "
@@ -241,9 +246,12 @@ def profile_train(args) -> None:
         rows = device_kernels(prof)
         busy = sum(e.self_device_time_total for e in rows) / 1e3
         busy_all += busy
+        gemm = [e for e in rows if is_gemm(e.key)]
         print(f"{title}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
               f"traced wall, {sum(e.count for e in rows)} kernel launches; "
-              f"the five costliest kernels, device ms:")
+              f"GEMMs {sum(e.self_device_time_total for e in gemm) / 1e3:.3f}"
+              f" ms in {sum(e.count for e in gemm)} launches; the five "
+              f"costliest kernels, device ms:")
         for e in rows[:5]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} x{e.count:<5d} "
                   f"{e.key[:90]}")

@@ -6,13 +6,21 @@ validate[_score|_region], test[_score|_region] (loss metrics only).
 Usage:
   python -m regnet_for_3d_grasping_torch.cli.train --mode train \\
       --synthetic-scenes 24 --data-path /tmp/scenes --batch-size 12 \\
-      --epoch 1 [--slab-cell 0.04 --fps-groups 8] [--device cpu]
+      --epoch 1 [--bf16] [--slab-cell 0.04 --fps-groups 8] [--device cpu]
+
+``--bf16 --slab-cell 0.04 --fps-groups 8`` is the configuration that
+trained the served weights ``weights/r5_real_e100.npz``.  The training
+knobs (``--bf16``, ``--slab-cell``, ``--fps-groups``) apply to the train
+steps only: validation forwards run f32 at exact geometry, as the JAX
+CLI's ``exact_cfg`` does.  Under ``--bf16`` the network computes in bf16
+in the train steps (bf16 GEMMs, pools and losses' logits) while the
+parameters, the Adam state and BatchNorm's running statistics stay f32,
+and all geometry stays f32.
 
 Runs on the card unless ``--device cpu`` asks for the plain PyTorch
 versions of the kernels.  Not ported yet, so argparse rejects them (see
 ROADMAP.md queue A): --eval-grasps / --eval-every (the geometric evaluator),
---bf16, --native-loader, --geom-aug, --profile-dir, --remat, data
-parallelism.
+--native-loader, --geom-aug, --profile-dir, --remat, data parallelism.
 """
 
 from __future__ import annotations
@@ -79,6 +87,11 @@ def build_parser():
     p.add_argument("--slab-cell", type=float, default=0.0,
                    help="sorted-slab kernels in the TRAIN forward "
                         "(region.slab_cell; validation forwards stay exact)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 network compute in the TRAIN steps "
+                        "(model.compute_dtype; parameters, optimizer state "
+                        "and BatchNorm statistics stay f32; validation "
+                        "forwards stay f32)")
     p.add_argument("--fps-groups", type=int, default=1,
                    help="stratified FPS at SA1 in the TRAIN forward "
                         "(model.fps_groups; validation forwards stay exact)")
@@ -145,8 +158,8 @@ def main(argv=None) -> dict:
         args.num_points = cfg.region.num_points
     else:
         cfg = train_config(**{"region.num_points": args.num_points, **over})
-    # the fast-training knobs apply to the TRAIN config only; validation
-    # forwards keep the exact geometry of `exact_cfg`
+    # the training knobs apply to the TRAIN config only; validation
+    # forwards keep the exact geometry and f32 compute of `exact_cfg`
     exact_cfg = cfg
     if args.slab_cell > 0.0:
         cfg = dataclasses.replace(cfg, region=dataclasses.replace(
@@ -154,6 +167,9 @@ def main(argv=None) -> dict:
     if args.fps_groups > 1:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, fps_groups=args.fps_groups))
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="bfloat16"))
 
     if args.synthetic_scenes:
         write_synthetic_dataset(args.data_path, args.synthetic_scenes,

@@ -34,17 +34,23 @@
 //   widens to exactly and copied bit for bit, so it equals the plain max
 //   bit for bit (a NaN wins and stays, as in torch.amax; __hmax2 would
 //   drop it).  Half the bytes of the f32 form, the same reads from L2.
-//   Its argmax form and backward (bf16 training) are not ported.
+//   The argmax forms (f32 and bf16: bf16 training) take a kept slot that
+//   holds a larger value, or a NaN where the maximum so far is none, so a
+//   NaN wins at its first slot as in torch.argmax and jnp.argmax
+//   (pooling.py:243); a bf16 winner's value is copied bit for bit.
 //   The backward, an XLA scatter-add in the JAX package (pooling.py:285-296),
 //   is `scatter_winner_kernel`: dfeature[b, win[b,s,c], c] += g[b,s,c].  One
 //   thread owns one (batch, channel) column and walks the S rows in order,
 //   so no two threads touch one address and the sum order is fixed: the
 //   gradient is deterministic, with no atomics.  It is bound by its S
 //   dependent read-modify-writes per thread (64 at the training shape).
+//   On bf16 (bf16 training) it sums as XLA's bf16 scatter-add does on the
+//   CPU, `jnp.zeros(n*C, bf16).at[keys].add(g)`: in s order, each add
+//   taken in f32 and rounded to nearest even bf16 (tests/
+//   test_torch_port_train_bf16.py holds that rule against the JAX VJP).
 
 #include <cuda_runtime.h>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -58,7 +64,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // as the f32 it widens to and copied bit for bit.  Vec<E, V>: V elements
 // a load (16 bytes: 4 floats or 8 bf16, where C is a multiple of V and
 // the pointers are 16-byte aligned; else 1), W the winners of the argmax
-// form (f32 only).
+// form (V ints).
 template <typename E, int V>
 struct Vec;
 template <>
@@ -71,10 +77,13 @@ struct Vec<float, 1> {
   using T = float;
   using W = int;
 };
+struct alignas(16) int8v {
+  int4 lo, hi;
+};
 template <>
 struct Vec<uint16_t, 8> {
   using T = uint4;
-  using W = int4;  // unused: no bf16 argmax form
+  using W = int8v;
 };
 template <>
 struct Vec<uint16_t, 1> {
@@ -107,6 +116,9 @@ __device__ __forceinline__ void put(int4& v, int i, int x) {
   else v.w = x;
 }
 __device__ __forceinline__ void put(int& v, int, int x) { v = x; }
+__device__ __forceinline__ void put(int8v& v, int i, int x) {
+  put(i < 4 ? v.lo : v.hi, i & 3, x);
+}
 
 // m's element i := v's element i, bit for bit.
 __device__ __forceinline__ void take(float4& m, const float4& v, int i) {
@@ -139,7 +151,7 @@ __device__ __forceinline__ void fold(typename Vec<E, V>::T& m,
   for (int i = 0; i < V; ++i) {
     const float x = at(v, i), y = at(m, i);
     if (kArgmax) {
-      if (x > y) {
+      if (x > y || (x != x && y == y)) {
         take(m, v, i);
         put(w, i, r);
       }
@@ -168,8 +180,6 @@ gather_max_kernel(const E* __restrict__ feature,
                   const int32_t* __restrict__ index, E* __restrict__ out,
                   int32_t* __restrict__ win, int n, int c_total, int s_total,
                   long long rows, int k_total) {
-  static_assert(!kArgmax || std::is_same<E, float>::value,
-                "the argmax form is f32 only");
   using T = typename Vec<E, V>::T;
   using W = typename Vec<E, V>::W;
   constexpr int U = kPassChannels / (32 * V);
@@ -267,11 +277,26 @@ int launch_gather_max(const E* feature, const int32_t* index, E* out,
   return (int)cudaGetLastError();
 }
 
+// Element type of the backward: f32 adds in f32; bf16 (raw bits) adds in
+// f32 and rounds each sum to nearest even bf16.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) {
+  return __uint_as_float((unsigned)x << 16);
+}
+__device__ __forceinline__ void narrow(float x, float* to) { *to = x; }
+__device__ __forceinline__ void narrow(float x, uint16_t* to) {
+  // round to nearest even; a NaN becomes torch's bf16 NaN, 0x7fc0
+  const unsigned u = __float_as_uint(x);
+  *to = x != x ? (uint16_t)0x7fc0u
+               : (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
 // dfeature must be zero on entry.  Thread (b, c) adds g[b, s, c] to
 // dfeature[b, win[b, s, c], c] for s = 0, 1, ... in order.
-__global__ void scatter_winner_kernel(const float* __restrict__ g,
+template <typename E>
+__global__ void scatter_winner_kernel(const E* __restrict__ g,
                                       const int32_t* __restrict__ win,
-                                      float* __restrict__ dfeature, int n,
+                                      E* __restrict__ dfeature, int n,
                                       int c_total, int s_total) {
   const int b = blockIdx.y;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -281,8 +306,19 @@ __global__ void scatter_winner_kernel(const float* __restrict__ g,
   dfeature += (size_t)b * n * c_total;
   for (int s = 0; s < s_total; ++s) {
     const size_t at = (size_t)s * c_total + c;
-    dfeature[(size_t)win[at] * c_total + c] += g[at];
+    E* d = dfeature + (size_t)win[at] * c_total + c;
+    narrow(widen(*d) + widen(g[at]), d);
   }
+}
+
+template <typename E>
+int launch_backward(const E* g, const int32_t* win, E* dfeature, int batch,
+                    int n, int c_total, int s_total, cudaStream_t stream) {
+  const int threads = 64;
+  dim3 grid((c_total + threads - 1) / threads, batch);
+  scatter_winner_kernel<E><<<grid, threads, 0, stream>>>(g, win, dfeature,
+                                                         n, c_total, s_total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -321,15 +357,36 @@ extern "C" int regnet_gather_max_argmax(const float* feature,
                                         c_total, s_total, k_total, stream);
 }
 
+// The argmax form on bf16 features (their raw 16 bits): out bf16, the
+// winner's value bit for bit.
+extern "C" int regnet_gather_max_argmax_bf16(const uint16_t* feature,
+                                             const int32_t* index,
+                                             uint16_t* out, int32_t* win,
+                                             int batch, int n, int c_total,
+                                             int s_total, int k_total,
+                                             cudaStream_t stream) {
+  return launch_gather_max<uint16_t, true>(feature, index, out, win, batch,
+                                           n, c_total, s_total, k_total,
+                                           stream);
+}
+
 // g [B, S, C] f32, win [B, S, C] int32 in [0, N) -> dfeature [B, N, C],
 // zero on entry: dfeature[b, win[b, s, c], c] += g[b, s, c], in s order.
 extern "C" int regnet_gather_max_backward(const float* g, const int32_t* win,
                                           float* dfeature, int batch, int n,
                                           int c_total, int s_total,
                                           cudaStream_t stream) {
-  const int threads = 64;
-  dim3 grid((c_total + threads - 1) / threads, batch);
-  scatter_winner_kernel<<<grid, threads, 0, stream>>>(g, win, dfeature, n,
-                                                      c_total, s_total);
-  return (int)cudaGetLastError();
+  return launch_backward<float>(g, win, dfeature, batch, n, c_total, s_total,
+                                stream);
+}
+
+// The same on bf16 (raw bits): each add in f32, rounded to bf16, in s order.
+extern "C" int regnet_gather_max_backward_bf16(const uint16_t* g,
+                                               const int32_t* win,
+                                               uint16_t* dfeature, int batch,
+                                               int n, int c_total,
+                                               int s_total,
+                                               cudaStream_t stream) {
+  return launch_backward<uint16_t>(g, win, dfeature, batch, n, c_total,
+                                   s_total, stream);
 }

@@ -39,12 +39,15 @@
 //   dtype)`, :955).  Its entry point also runs 8 channels a thread
 //   (16-byte loads, 8 row groups a block), which the wrapper never asks
 //   for: chip_smoke.py times it beside the 4-channel form (PERF.md).  Its
-//   argmax form (bf16 training) is not ported.
+//   argmax form (bf16 training; slab.py:996-1010, which compares in f32
+//   and stores the f32 pick back to bf16 losslessly) is the argmax form
+//   above on 16-bit rows at 4 channels a thread: the winner's value
+//   copied bit for bit, bf16(-1e38) and winner 0 for a query with no
+//   covered slot.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -141,8 +144,6 @@ gather_max_slab_kernel(const E* __restrict__ feature,
                        E* __restrict__ out, int32_t* __restrict__ winner,
                        int n, int c_total, int s_total, int k_total, int win,
                        int spw) {
-  static_assert(!kArgmax || std::is_same<E, float>::value,
-                "the argmax form is f32 only");
   using FV = Vec<E, V>;
   using IV = Vec<int, V>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -234,8 +235,8 @@ int launch(const E* feature, const int32_t* index, const int32_t* off_blk,
            E* out, int32_t* winner, int batch, int n, int c_total,
            int s_total, int k_total, int win, int spw, cudaStream_t stream) {
   if (c_total % V != 0 ||
-      ((uintptr_t)feature | (uintptr_t)out | (uintptr_t)winner) %
-              sizeof(Vec<E, V>) != 0)
+      ((uintptr_t)feature | (uintptr_t)out) % sizeof(Vec<E, V>) != 0 ||
+      (uintptr_t)winner % sizeof(Vec<int, V>) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)kThreads * (sizeof(Vec<E, V>) + (kArgmax ? V * 4 : 0)) +
@@ -297,4 +298,16 @@ extern "C" int regnet_gather_max_slab_argmax(
     int k_total, int win, int spw, cudaStream_t stream) {
   return launch<float, true>(feature, index, off_blk, out, winner, batch, n,
                              c_total, s_total, k_total, win, spw, stream);
+}
+
+// The argmax form on bf16 features (their raw 16 bits), 4 channels a
+// thread (8-byte aligned): out bf16, the winner's value bit for bit,
+// bf16(-1e38) and winner 0 where no slot is covered.
+extern "C" int regnet_gather_max_slab_argmax_bf16(
+    const uint16_t* feature, const int32_t* index, const int32_t* off_blk,
+    uint16_t* out, int32_t* winner, int batch, int n, int c_total,
+    int s_total, int k_total, int win, int spw, cudaStream_t stream) {
+  return launch<uint16_t, true>(feature, index, off_blk, out, winner, batch,
+                                n, c_total, s_total, k_total, win, spw,
+                                stream);
 }

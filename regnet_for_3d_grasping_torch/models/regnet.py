@@ -20,8 +20,9 @@ keys), or drawn from a ``torch.Generator``.
 ``REGNet(cfg, dtype=jnp.bfloat16)``: the network computes in bf16 (the
 pools take K4's and K9's bf16 forms) and all geometry stays f32; the
 refine step's ``refine_reg * depth`` rounds in bf16 and the acceptance
-test subtracts the bf16 logits, as in JAX.  Its gradient (bf16 training)
-is not ported: a bf16 pool asked for one raises.
+test subtracts the bf16 logits, as in JAX.  In training mode (the train
+CLI's ``--bf16``) both pools take their bf16 argmax forms and the bf16
+backward; the parameters stay f32, each Dense rounding its kernel at use.
 
 ``model.train()`` / ``.eval()`` is the JAX package's ``train`` flag (batch
 statistics and dropout).  The forward builds an autograd graph whenever

@@ -8,6 +8,7 @@ import torch
 
 from regnet_for_3d_grasping_torch.train.losses import (  # noqa: F401
     cross_entropy,
+    log_softmax,
     smooth_l1,
 )
 
@@ -25,5 +26,5 @@ def smooth_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     if label_smoothing > 0:
         one_hot = one_hot * (1.0 - label_smoothing) \
             + label_smoothing / num_classes
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = log_softmax(logits)
     return -(one_hot * logp).sum(-1).mean()

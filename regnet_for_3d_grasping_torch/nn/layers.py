@@ -59,6 +59,16 @@ class Dense(nn.Linear):
         return bf16_matmul(x, self.weight)
 
 
+def batch_statistics(x: torch.Tensor):
+    """Train-mode BatchNorm statistics of `x` over all but the trailing
+    axis, in at least f32 (flax's ``_compute_stats`` with its fast
+    variance): ``mean``, ``max(0, E[x^2] - mean^2)``."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    mean = xf.mean(axes)
+    return mean, ((xf * xf).mean(axes) - mean * mean).clamp(min=0.0)
+
+
 class BatchNorm(nn.Module):
     """Batch normalization over the trailing axis, flax semantics;
     `momentum` in the torch convention (the weight of the new batch)."""
@@ -77,10 +87,7 @@ class BatchNorm(nn.Module):
         """Normalises in at least f32 and returns `x`'s dtype (flax's
         ``force_float32_reductions``)."""
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            xf = x.float() if x.dtype == torch.bfloat16 else x
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp(min=0.0)
+            mean, var = batch_statistics(x)
             with torch.no_grad():
                 # flax's factors: its momentum 1 - 0.1, and 1 - that
                 keep = 1.0 - self.momentum
@@ -111,10 +118,15 @@ class ConvBN(nn.Module):
 def dropout(x: torch.Tensor, p: float,
             generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout with an explicit generator (on `x`'s device): each
-    value is kept with probability 1 - p and scaled by 1 / (1 - p)."""
+    value is kept with probability 1 - p and divided by 1 - p.  The mask
+    is drawn in f32 whatever `x`'s dtype, so one generator gives one mask
+    in f32 and in bf16 (flax's Bernoulli mask does not depend on the
+    dtype either), and 1 - p is rounded to `x`'s dtype first, as JAX
+    rounds a Python float beside a bf16 array."""
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                      dtype=torch.float32) >= p
+    keep_prob = float(torch.tensor(1.0 - p, dtype=x.dtype))
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
 

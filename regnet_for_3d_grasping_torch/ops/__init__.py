@@ -7,7 +7,8 @@ kernels' plain PyTorch versions:
       (the keys split into ranges, grid by knn.split_grid: a split and,
       where there is more than one range, a merge)
   K4  pooling.gather_max                 csrc/gather_max.cu
-      (forward, argmax form, and the first-winner backward shared with K9)
+      (forward, argmax form, and the first-winner backward shared with K9;
+      each in f32 and bf16, as K9's two forms)
   K5  crop.closing_region_crop           csrc/crop.cu
       (K5, K11 and K2 share the bucket scan of csrc/bucket_scan.cuh, grid
       by bucket_scan.scan_grid: a scan and a fill, two launches a call)

@@ -77,6 +77,14 @@ SIGNATURES = {
     "gather_max_slab_bf16": ("gather_max_slab", "regnet_gather_max_slab_bf16",
                              (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P)),
+    "gather_max_argmax_bf16": ("gather_max", "regnet_gather_max_argmax_bf16",
+                               (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "gather_max_backward_bf16": ("gather_max",
+                                 "regnet_gather_max_backward_bf16",
+                                 (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "gather_max_slab_argmax_bf16": (
+        "gather_max_slab", "regnet_gather_max_slab_argmax_bf16",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 # C entry points that launch nothing (an occupancy query, the compile-time
 # constants of the bucket scan and of K3's grid), not counted; each returns

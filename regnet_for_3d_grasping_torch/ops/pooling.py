@@ -15,9 +15,12 @@ maximum, and the backward adds each ``g[b, s, c]`` to
 the gradient of ``amax``, which splits a tie evenly.
 
 bf16 features (a bf16 compute dtype; JAX dispatches its kernel's bf16 form,
-``pooling.py:53``) take K4's bf16 form, ``gather_max_bf16``, which returns
-bf16 bit for bit as the plain max does.  Its argmax form and the backward
-(bf16 training) are not ported: a bf16 pool asked for a gradient raises.
+``pooling.py:53``) take K4's bf16 forms, ``gather_max_bf16`` and, with a
+gradient (bf16 training), ``gather_max_argmax_bf16``, which return bf16 bit
+for bit as the plain max and argmax do.  The backward of a bf16 pool,
+``gather_max_backward_bf16``, sums as the JAX package's bf16 scatter-add
+does (``jnp.zeros(n*C, bf16).at[keys].add(g)``, ``pooling.py:295``): in s
+order, each add rounded to bf16 (held against ``jax.vjp`` on the CPU).
 """
 
 from __future__ import annotations
@@ -27,66 +30,62 @@ import torch
 from regnet_for_3d_grasping_torch.ops import _cuda
 from regnet_for_3d_grasping_torch.ops.grouping import group_points
 
-
-BF16_TRAINING = ("the gradient of a bf16 pool (bf16 training) is not "
-                 "ported yet: ROADMAP.md queue A item 4")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_dtype(t: torch.Tensor, what: str, dtypes: tuple) -> None:
-    """Raise unless a pool kernel takes `t`'s dtype: bf16 where only the
-    f32 forms take it (the argmax forms: bf16 training) is not ported."""
-    if t.dtype in dtypes:
-        return
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_TRAINING)
-    raise ValueError(f"{what}: expected one of {dtypes}, got {t.dtype}")
+def kernel_name(base: str, dtype: torch.dtype) -> str:
+    """The entry point of form `base` for `dtype` rows: ``base`` on f32,
+    ``base_bf16`` on bf16."""
+    return base if dtype == torch.float32 else base + "_bf16"
 
 
 def gather_max(feature: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """Kernel K4: feature [B, N, C] f32 or bf16, index [B, S, K] with
     values in [0, N) -> [B, S, C] = max_k feature[b, index[b, s, k], c], in
-    `feature`'s dtype.  CPU tensors take the plain versions.  Differentiable
-    in f32 `feature` by the first-winner rule."""
+    `feature`'s dtype.  CPU tensors take the plain versions.
+    Differentiable in `feature` by the first-winner rule."""
     if torch.is_grad_enabled() and feature.requires_grad:
-        if feature.dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_TRAINING)
         return _GatherMax.apply(feature, index)
     if feature.device.type == "cpu":
         return gather_max_plain(feature, index)
-    B, N, C, S, K = _check(feature, index, (torch.float32, torch.bfloat16))
+    B, N, C, S, K = _check(feature, index)
     out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
-    name = "gather_max" if feature.dtype == torch.float32 \
-        else "gather_max_bf16"
-    _cuda.launch(name, feature.device, feature, index, out, B, N, C, S, K)
+    _cuda.launch(kernel_name("gather_max", feature.dtype), feature.device,
+                 feature, index, out, B, N, C, S, K)
     return out
 
 
 def gather_max_argmax(feature: torch.Tensor, index: torch.Tensor):
-    """K4's argmax form -> (pooled [B, S, C], win [B, S, C] int32).  CPU
-    tensors take `gather_max_argmax_plain`.  No gradient: `gather_max` is
-    the differentiable entry."""
+    """K4's argmax form -> (pooled [B, S, C] in `feature`'s dtype, win
+    [B, S, C] int32).  CPU tensors take `gather_max_argmax_plain`.  No
+    gradient: `gather_max` is the differentiable entry."""
     if feature.device.type == "cpu":
         return gather_max_argmax_plain(feature, index)
     B, N, C, S, K = _check(feature, index)
     out = torch.empty(B, S, C, dtype=feature.dtype, device=feature.device)
     win = torch.empty(B, S, C, dtype=torch.int32, device=feature.device)
-    _cuda.launch("gather_max_argmax", feature.device, feature, index, out,
-                 win, B, N, C, S, K)
+    _cuda.launch(kernel_name("gather_max_argmax", feature.dtype),
+                 feature.device, feature, index, out, win, B, N, C, S, K)
     return out, win
 
 
 def scatter_winner(g: torch.Tensor, win: torch.Tensor, n: int) -> torch.Tensor:
-    """The backward of K4 and K9: g, win [B, S, C] -> dfeature [B, n, C]
-    with ``dfeature[b, win[b, s, c], c] += g[b, s, c]``, summed in s order
-    (deterministic).  CPU tensors take `scatter_winner_plain`."""
+    """The backward of K4 and K9: g [B, S, C] f32 or bf16, win [B, S, C]
+    -> dfeature [B, n, C] in `g`'s dtype with ``dfeature[b, win[b, s, c], c]
+    += g[b, s, c]``, summed in s order (deterministic; on bf16 each sum
+    rounded to bf16).  CPU tensors take `scatter_winner_plain`."""
     if g.device.type == "cpu":
         return scatter_winner_plain(g, win, n)
     B, S, C = g.shape
     g = g.contiguous()
-    _cuda.check(g, "gather_max backward g", torch.float32, (B, S, C))
+    if g.dtype not in DTYPES:
+        raise ValueError(f"gather_max backward g: expected one of {DTYPES}, "
+                         f"got {g.dtype}")
+    _cuda.check(g, "gather_max backward g", g.dtype, (B, S, C))
     _cuda.check(win, "gather_max backward win", torch.int32, (B, S, C))
     df = torch.zeros(B, n, C, dtype=g.dtype, device=g.device)
-    _cuda.launch("gather_max_backward", g.device, g, win, df, B, n, C, S)
+    _cuda.launch(kernel_name("gather_max_backward", g.dtype), g.device, g,
+                 win, df, B, n, C, S)
     return df
 
 
@@ -114,10 +113,12 @@ def kept_slots(index: torch.Tensor) -> torch.Tensor:
     return keep
 
 
-def _check(feature, index, dtypes=(torch.float32,)):
+def _check(feature, index):
     B, N, C = feature.shape
     S, K = index.shape[1:]
-    check_dtype(feature, "gather_max feature", dtypes)
+    if feature.dtype not in DTYPES:
+        raise ValueError(f"gather_max feature: expected one of {DTYPES}, got "
+                         f"{feature.dtype}")
     _cuda.check(feature, "gather_max feature", feature.dtype, (B, N, C))
     _cuda.check(index, "gather_max index", torch.int32, (B, S, K))
     if K == 0 or S == 0:
@@ -149,9 +150,21 @@ def gather_max_argmax_plain(feature: torch.Tensor, index: torch.Tensor,
 
 def scatter_winner_plain(g: torch.Tensor, win: torch.Tensor,
                          n: int) -> torch.Tensor:
-    """Plain PyTorch version of the backward: one ``index_add_`` over the
-    flattened keys ``win * C + c``."""
+    """Plain PyTorch version of the backward.  f32: one ``index_add_``
+    over the flattened keys ``win * C + c``.  bf16: row s at a time in s
+    order, each sum taken in f32 and rounded to bf16, as the JAX package's
+    bf16 scatter-add sums (``index_add_`` on bf16 would sum in another
+    order and precision)."""
     B, S, C = g.shape
+    if g.dtype == torch.bfloat16:
+        df = torch.zeros(B, n, C, dtype=g.dtype, device=g.device)
+        for s in range(S):
+            # distinct (b, c) of one row s address distinct entries
+            at = win[:, s:s + 1].long()                  # [B, 1, C]
+            cur = torch.gather(df, 1, at)
+            df.scatter_(1, at, (cur.float() + g[:, s:s + 1].float()).to(
+                g.dtype))
+        return df
     keys = win.long() * C + torch.arange(C, device=g.device)
     df = torch.zeros(B, n * C, dtype=g.dtype, device=g.device)
     for b in range(B):

@@ -39,8 +39,7 @@ import torch
 from regnet_for_3d_grasping_torch.ops import _cuda, knn
 from regnet_for_3d_grasping_torch.ops.grouping import group_points
 from regnet_for_3d_grasping_torch.ops.knn import _smallest_k
-from regnet_for_3d_grasping_torch.ops.pooling import (BF16_TRAINING,
-                                                    check_dtype,
+from regnet_for_3d_grasping_torch.ops.pooling import (DTYPES, kernel_name,
                                                     scatter_winner)
 
 _TM = 128      # queries per tile (selection and pooling)
@@ -630,14 +629,12 @@ def gather_max_slab(fs: torch.Tensor, index: torch.Tensor,
     each ``g[b, s, c]`` to the winner's row, the lowest covered slot holding
     the maximum (JAX ``gather_max_slab_vjp``, ``slab.py:1084-1110``).  A
     query with no covered slot sends its gradient to row 0: mask it, as the
-    model does with ``torch.where``.  A bf16 `fs` that needs a gradient
-    raises: bf16 training is not ported."""
+    model does with ``torch.where``.  bf16 rows take the bf16 argmax form,
+    ``gather_max_slab_argmax_bf16`` (JAX ``slab.py:996-1010``), and the
+    bf16 backward of `pooling.scatter_winner`."""
     if torch.is_grad_enabled() and fs.requires_grad:
-        if fs.dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_TRAINING)
         return _GatherMaxSlab.apply(fs, index, off_blk, win, spw)
-    off_blk = _check_gmax_slab(fs, index, off_blk, win, spw,
-                               (torch.float32, torch.bfloat16))
+    off_blk = _check_gmax_slab(fs, index, off_blk, win, spw)
     if fs.device.type == "cpu":
         return gather_max_slab_plain(fs, index, off_blk, win, spw)
     (B, N, C), (S, K) = fs.shape, index.shape[1:]
@@ -653,8 +650,8 @@ def gather_max_slab(fs: torch.Tensor, index: torch.Tensor,
 
 def gather_max_slab_argmax(fs: torch.Tensor, index: torch.Tensor,
                            off_blk: torch.Tensor, win: int, spw: int):
-    """K9's argmax form -> (pooled [B, S, C], winner [B, S, C] int32, 0
-    for a query with no covered slot).  CPU tensors take
+    """K9's argmax form -> (pooled [B, S, C] in `fs`'s dtype, winner
+    [B, S, C] int32, 0 for a query with no covered slot).  CPU tensors take
     `gather_max_slab_argmax_plain`.  No gradient: `gather_max_slab` is the
     differentiable entry."""
     off_blk = _check_gmax_slab(fs, index, off_blk, win, spw)
@@ -663,8 +660,8 @@ def gather_max_slab_argmax(fs: torch.Tensor, index: torch.Tensor,
     (B, N, C), (S, K) = fs.shape, index.shape[1:]
     out = torch.empty(B, S, C, dtype=fs.dtype, device=fs.device)
     winner = torch.empty(B, S, C, dtype=torch.int32, device=fs.device)
-    _cuda.launch("gather_max_slab_argmax", fs.device, fs, index, off_blk,
-                 out, winner, B, N, C, S, K, win, spw)
+    _cuda.launch(kernel_name("gather_max_slab_argmax", fs.dtype), fs.device,
+                 fs, index, off_blk, out, winner, B, N, C, S, K, win, spw)
     return out, winner
 
 
@@ -682,10 +679,9 @@ class _GatherMaxSlab(torch.autograd.Function):
         return scatter_winner(g, winner, ctx.n), None, None, None, None
 
 
-def _check_gmax_slab(fs, index, off_blk, win, spw,
-                     dtypes=(torch.float32,)) -> torch.Tensor:
-    """Validate K9's arguments (`fs` of one of `dtypes` on the card);
-    returns `off_blk` as contiguous int32."""
+def _check_gmax_slab(fs, index, off_blk, win, spw) -> torch.Tensor:
+    """Validate K9's arguments (`fs` f32 or bf16 on the card); returns
+    `off_blk` as contiguous int32."""
     B, N, C = fs.shape
     S, K = index.shape[1:]
     rps = (_SCAN // win) * spw
@@ -697,7 +693,9 @@ def _check_gmax_slab(fs, index, off_blk, win, spw,
         raise ValueError(f"gather_max_slab: off_blk {tuple(off_blk.shape)}, "
                          f"expected {(B, T)}")
     if fs.device.type != "cpu":
-        check_dtype(fs, "gather_max_slab fs", dtypes)
+        if fs.dtype not in DTYPES:
+            raise ValueError(f"gather_max_slab fs: expected one of {DTYPES}, "
+                             f"got {fs.dtype}")
         _cuda.check(fs, "gather_max_slab fs", fs.dtype, (B, N, C))
         _cuda.check(index, "gather_max_slab index", torch.int32, (B, S, K))
         align = 4 * fs.element_size()

@@ -41,9 +41,51 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (x * m).sum() / m.sum().clamp(min=1.0)
 
 
+class _LogSoftmaxBF16(torch.autograd.Function):
+    """``jax.nn.log_softmax`` over the last axis of bf16 logits, rounded
+    where XLA's CPU rounds its fused computation (and its VJP), not once
+    as torch's bf16 ``log_softmax``: ``sh = bf16(x - max)``, the exps in
+    f32, their sum rounded to bf16, its log rounded to bf16, ``bf16(sh -
+    log)``.  Backward: ``s = -g`` summed with a bf16 rounding at each add,
+    ``q = bf16(s / sum)``, ``bf16(g + bf16(q * bf16(exp)))``.  Sums run in
+    the axis' order.  (JAX's forward and VJP on the CPU, bit for bit but
+    where the two f32 exps are an ulp apart across a bf16 rounding:
+    tests/test_torch_port_train_bf16.py.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        sh = (x.float() - x.amax(-1, keepdim=True).float()).to(x.dtype)
+        e = torch.exp(sh.float())
+        den = e[..., :1]
+        for i in range(1, e.shape[-1]):
+            den = den + e[..., i:i + 1]
+        den = den.to(x.dtype)
+        ctx.save_for_backward(e, den)
+        return (sh.float() - torch.log(den.float()).to(x.dtype).float()
+                ).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, den = ctx.saved_tensors
+        s = -g[..., :1]
+        for i in range(1, g.shape[-1]):
+            s = (s.float() - g[..., i:i + 1].float()).to(g.dtype)
+        q = (s.float() / den.float()).to(g.dtype)
+        m = (q.float() * e.to(g.dtype).float()).to(g.dtype)
+        return (g.float() + m.float()).to(g.dtype)
+
+
+def log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_softmax`` over the last axis at the logits' dtype."""
+    if logits.dtype == torch.bfloat16:
+        return _LogSoftmaxBF16.apply(logits)
+    return torch.log_softmax(logits, dim=-1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-sample cross entropy over the last axis (integer labels)."""
-    logp = torch.log_softmax(logits, dim=-1)
+    """Per-sample cross entropy over the last axis (integer labels), at
+    the logits' dtype."""
+    logp = log_softmax(logits)
     return -torch.gather(logp, -1, labels[..., None])[..., 0]
 
 

@@ -386,19 +386,40 @@ def test_k9_gather_max_slab_plain_bf16_matches_pallas(geometry):
     assert not sel[0, -5:].any()
 
 
-def test_bf16_pool_gradient_raises():
-    """bf16 training (the argmax forms and the backward in bf16) is the
-    next slice: a bf16 pool asked for a gradient names that item."""
+def test_bf16_pool_gradient_raises(monkeypatch):
+    """(Kept under its name from before bf16 training was ported.)  A bf16
+    pool asked for a gradient no longer raises: it runs its argmax form
+    and, in the backward, the bf16 scatter of its winners (on the CPU their
+    plain versions, counted here), and the gradient is bf16."""
+    calls = []
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a: calls.append(name)
+                            or fn(*a))
+
+    counted(pooling, "gather_max_argmax_plain")
+    counted(pooling, "scatter_winner_plain")
+    counted(slab, "gather_max_slab_argmax_plain")
     feat = torch.randn(1, 64, 8).to(BF).requires_grad_()
-    idx = torch.zeros(1, 4, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        pooling.gather_max(feat, idx)
+    idx = torch.randint(0, 64, (1, 4, 8), dtype=torch.int32)
+    pooled = pooling.gather_max(feat, idx)
+    pooled.backward(torch.ones_like(pooled))
+    assert calls == ["gather_max_argmax_plain", "scatter_winner_plain"]
+    assert pooled.dtype == feat.grad.dtype == BF
+    assert float(feat.grad.float().sum()) == pooled.numel()
+    calls.clear()
     off = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        slab.gather_max_slab(feat, torch.zeros(1, 4, 64, dtype=torch.int32),
-                             off, slab.CROP_WIN, slab.CROP_SPW)
+    f2 = feat.detach().clone().requires_grad_()
+    pooled = slab.gather_max_slab(f2, torch.zeros(1, 4, 64, dtype=torch.int32),
+                                  off, slab.CROP_WIN, slab.CROP_SPW)
+    pooled.backward(torch.ones_like(pooled))
+    assert calls == ["gather_max_slab_argmax_plain", "scatter_winner_plain"]
+    assert f2.grad.dtype == BF and float(f2.grad[0, 0].float().sum()) == 32
+    calls.clear()
     with torch.no_grad():      # without a gradient the plain max runs
         assert pooling.gather_max(feat, idx).dtype == BF
+    assert calls == []
 
 
 def test_bf16_entry_points_and_sentinel_in_the_sources():

@@ -6,8 +6,9 @@ The kernel reads only the slots that `ops.pooling.kept_slots` keeps: slot
 slot order (a ballot over 32 slots at a time, each kept lane writing at the
 popcount of the kept lanes below it), walks the list in groups of 4 rows
 (a group past the list's end repeats its last row) and folds each into the
-running max (the forward: ``v > m or v != v``; the
-argmax form: strict ``>``, so the lowest slot holding the maximum wins).
+running max (the forward: ``v > m or v != v``; the argmax form, f32 and
+bf16: ``v > m or (v != v and m == m)``, so the lowest slot holding the
+maximum, or the first NaN, wins).
 The kernel runs only on the card; here the rule goes through the plain
 versions restricted to the kept slots, and a numpy emulation of the warp's
 passes, compaction and folds, and both are held against the unrestricted
@@ -120,7 +121,8 @@ def emulate(feature, index, argmax):
                             r = kept[min(g + q, len(kept) - 1)]
                             x = feature[b, r, cs]
                             with np.errstate(invalid="ignore"):
-                                up = x > m if argmax else (x > m) | (x != x)
+                                up = ((x > m) | ((x != x) & (m == m))
+                                      if argmax else (x > m) | (x != x))
                             m = np.where(up, x, m)
                             w = np.where(up, r, w)
                 out[b, s, cs], win[b, s, cs] = m, w
@@ -266,6 +268,13 @@ def test_kept_slots_keep_a_nan():
     got = restricted(pooling.gather_max_argmax_plain, f, i)
     eq(got[0], full_a[0])
     eq(got[1], full_a[1])
+    # the kernel's argmax fold takes the first NaN, as torch.argmax and
+    # jnp.argmax (the JAX package's XLA pool) do
+    em = emulate(feature, idx, True)
+    eq(em[0], full_a[0])
+    eq(em[1], full_a[1])
+    eq(full_a[1], jpool._xla_pooled_argmax(jnp.asarray(feature),
+                                           jnp.asarray(idx))[1])
 
 
 @pytest.mark.parametrize("C", [4, 7, 260, 520])

@@ -1138,12 +1138,36 @@ def test_train_cli_without_a_card_fails_and_rejects_unported_flags(
         with pytest.raises(RuntimeError, match="CUDA"):
             train_cli.main(["--mode", "train", "--tiny", "--data-path",
                             data_dir])
-    for flag in (["--eval-grasps"], ["--eval-every", "2"], ["--bf16"],
+    for flag in (["--eval-grasps"], ["--eval-every", "2"],
                  ["--native-loader"], ["--geom-aug", "1.0"],
                  ["--profile-dir", "x"], ["--remat"]):
         with pytest.raises(SystemExit):
             train_cli.main(cli_args(tmp_path, data_dir, "--mode", "train",
                                     *flag))
+
+
+@pytest.mark.parametrize("extra", [[], ["--slab-cell", "0.04",
+                                         "--fps-groups", "2"]])
+def test_train_cli_bf16_trains_on_the_cpu(tmp_path, data_dir, extra):
+    """``--bf16 --device cpu`` (once rejected with the unported flags)
+    trains: the train steps' network in bf16 with f32 parameters, the
+    validation forwards f32 at exact geometry on a model of their own."""
+    res = train_cli.main(cli_args(tmp_path, data_dir, "--mode", "train",
+                                  "--epoch", "1", "--bf16", *extra))
+    assert len(res["steps"]) == 2 and len(res["validation"]) == 2
+    assert all(np.isfinite(s["loss"]) for s in res["steps"])
+    assert all(np.isfinite(v["loss_total"]) for v in res["validation"])
+    assert res["cfg"].model.compute_dtype == "bfloat16"
+    assert res["eval_cfg"].model.compute_dtype == "float32"
+    assert res["eval_cfg"].region.slab_cell == 0.0
+    model = res["model"]
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(m.running_mean.dtype == torch.float32 for m in model.modules()
+               if isinstance(m, BatchNorm))
+    fresh = train_cli.build_model(res["cfg"], 1, "cpu").state_dict()
+    moved = {k.split(".")[0] for k, v in model.state_dict().items()
+             if not torch.equal(v, fresh[k])}
+    assert moved == {"score_net", "grn_head", "refine_head"}
 
 
 def test_metric_logger_copies_tensors_once(tmp_path):
