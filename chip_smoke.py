@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the nine CUDA sources (nineteen kernel entry points) of
+2. build: the nine CUDA sources (twenty kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -55,10 +55,18 @@ result unless every phase passed):
    says proven); the slab FP3 layer runs once with CUDA's sync debug mode
    set to raise.  And once, on a cloud scaled past the slab 3-NN's bound,
    the refused certificate and the FP layer's fallback to the full scan,
-   counted on the card (``--kernels-only`` stops here);
-4. the full-scan path: the port's infer CLI on 3 tabletop clouds with the
-   trained weights (``weights/r5_real_e100.npz``), the kernel launch
-   counters reset just before and read just after;
+   counted on the card.  (a) K8 flat (``three_nn_slab(flat=True)``) at
+   serving and at 12 training clouds, where its spans sum past G (the
+   bounded grid) and where the clamp cut spans (flat differs from
+   bounded), against its plain version bit for bit, timed beside the
+   bounded K8; then its entry point at both shapes with the counters reset
+   just before and read just after (``--kernels-only`` stops here);
+4. the full-scan path: the port's infer CLI, with its evaluation, on 3
+   tabletop clouds with the trained weights (``weights/r5_real_e100.npz``),
+   the kernel launch counters reset just before and read just after;
+   (d) every forward of every serving path draws the same seeds (C1), and
+   the first cloud's pickled sets are the CPU's `eval_test` of its raw
+   sets;
 6. the sorted-slab serving path: the CLI again with ``--slab-cell 0.04
    --fps-groups 8`` on the same clouds, counters reset and read as in 4
    (K3 launches in every forward: it returns at once on the card where the
@@ -90,6 +98,20 @@ result unless every phase passed):
     gradients of the score head's Dense, the proposal head's stem and
     SA1's first layer within `BF16_STEP_MULTIPLE` times the larger of the
     two sides' own drifts with f64 GEMM sums (`bf16_step_card_vs_cpu`);
+(e) suite v2 (24 scenes, fingerprints verified) through
+   ``cli/benchmark_eval.py`` with ``weights/r4_coherent_e100.npz``, at
+   ``--fast`` and f32 exact, written to ``chiprun_out/suite/``: stage-3
+   VGR within `SUITE_VGR_LIMIT` of the TPU's ``docs/evidence`` files;
+(c) the evaluator on the card against the CPU (in a helper process beside
+   the training phases), on suite scene clutter_00 and the 4,000 stage-2
+   grasps of a forward on it: view masks, funnel and scene check equal
+   grasp for grasp, antipodal scores within 1e-5, both methods' normals
+   of the 102,400-point scene cloud within 1 - 1e-5 of |cos| on 99.9 % of
+   every 10th point, and the card's times;
+(b) determinism (C2): the train CLI twice for 3 steps from one seed, full
+   scan f32 and bf16 slab, losses and parameters bit-equal; and the four
+   training configurations once with the CLI's deterministic block
+   replaced by a no-op, for its cost in step time;
 5., 7., 13., 14. one forward of each serving path (full scan, slab, bf16
    full scan, ``--fast``) on the card and on the CPU (plain versions, the
    CPU twin of the bf16 GEMM) with the same seeds and sort noise: f32
@@ -108,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pickle
 import statistics
 import subprocess
@@ -117,7 +140,11 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# the train CLI's steps run deterministic (cli/train.py): cuBLAS's fixed
+# workspace is chosen at the process's first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 N_POINTS, N_CENTERS = 25600, 4000
@@ -1356,10 +1383,11 @@ def slab_fp3_checks(dev, sx, sa1, centroids) -> None:
 
 
 def slab_kernels(dev, xyz, record, scan_calls) -> list:
-    """Phase 3 for K6-K10, on the cloud `xyz` [1, N, 3] in slab order (and
-    the launch count of K11's and K5's calls `scan_calls`, in K6/K7's
-    profiler session).  Returns the rows of the pools' backward at K9's
-    shapes, f32 and bf16."""
+    """Phase 3 for K6-K10 and K8 flat (phase (a)), on the cloud `xyz`
+    [1, N, 3] in slab order (and the launch count of K11's and K5's calls
+    `scan_calls`, in K6/K7's profiler session).  Returns the rows of the
+    pools' backward at K9's shapes, f32 and bf16, and the launch counts of
+    K8 flat's entry point."""
     from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
     from regnet_for_3d_grasping_torch.ops import fps, pooling, slab
 
@@ -1490,6 +1518,8 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
                 [fp3.row(prof["three_nn_slab: FP3 serving"][1]),
                  fp3_12.row(prof["three_nn_slab: FP3 training"][1], 1)])
     slab_fp3_checks(dev, sx, sa1, centroids)
+    flat_launches = k8_flat_kernels(record, sx, centroids, sc12.xyz,
+                                    x_sorted_rows(sa1_centers(sc12.xyz)))
 
     # K9: the region pool (4,000 x 256 slots x 256 channels, win 128, spw 4)
     # and the refine pool (4,000 x 64 slots, win 256, spw 1)
@@ -1604,13 +1634,18 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
             torch.ones_like(pooled), slab.gather_max_slab_argmax(
                 f, region_idx, *region_args)[1], N_POINTS)),
             f"K9's gradient is not the scatter of its winners ({f.dtype})")
-    return rows, rows_bf16
+    return rows, rows_bf16, flat_launches
 
 
-def serve(argv_extra, tmp, label):
-    """Drive the infer CLI on 3 tabletop clouds; returns (records, launch
-    counts, 3-NN fallbacks) with the counters reset just before."""
+def serve(argv_extra, tmp, label, check_eval=False):
+    """Drive the infer CLI, with its evaluation, on 3 tabletop clouds;
+    returns (records, launch counts, 3-NN fallbacks) with the counters
+    reset just before.  Every forward draws the same seeds (phase (d): the
+    CLI reseeds from ``--seed`` for each cloud).  `check_eval`: the first
+    cloud's pickled sets are what the CPU's `eval_test` keeps of its raw
+    sets (phase (d))."""
     from regnet_for_3d_grasping_torch.cli import infer
+    from regnet_for_3d_grasping_torch.models import regnet
     from regnet_for_3d_grasping_torch.ops import _cuda
     from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
     folder = Path(tmp) / f"{label}_data"
@@ -1620,13 +1655,25 @@ def serve(argv_extra, tmp, label):
         with open(folder / f"{i:04d}_view.p", "wb") as f:
             pickle.dump({"view_cloud": cxyz, "view_cloud_color": crgb}, f)
     argv = ["--folder-name", str(folder), "--checkpoint", str(WEIGHTS),
-            "--no-eval", "--seed", "1", *argv_extra]
+            "--seed", "1", *argv_extra]
+    draws, draw = [], regnet._draw
+
+    def spy(generator, n):
+        draws.append(draw(generator, n))
+        return draws[-1]
+
     _cuda.reset_launches()
-    records = infer.main(argv)
+    with replaced(regnet, "_draw", spy):
+        records = infer.main(argv)
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
     fallbacks = _cuda.fallbacks["fp3_slab"]
     check(len(records) == 3, f"the CLI did not serve 3 clouds ({label})")
+    per = len(draws) // 3
+    check(per > 0 and draws == draws[:per] * 3,
+          f"the 3 forwards drew other seeds ({label}): {draws}")
+    if check_eval:
+        eval_pickle(records[0], Path(tmp) / f"{label}_data_predict", label)
     check(all((Path(tmp) / f"{label}_data_predict" / Path(r["path"]).name)
               .exists() for r in records), "prediction pickle missing")
     print(f"launches on the {label} path (3 clouds): {launches}")
@@ -1759,9 +1806,15 @@ class SlabNNProbe:
             fails = d2[..., 2] > margin.clamp(min=0) ** 2           # [B, Nq]
             in_cut = cut[:, tile]
             bad = (~proven).nonzero().flatten().tolist()
+            flat = slab.three_nn_slab(q, k, bound, grid_span, flat=True)[2]
+            total = int((ss99[..., 1] - ss99[..., 0]).sum())
+            steps = slab.flat_steps(*ss99.shape[:2])
             print(f"slab 3-NN call {i} (batch {q.shape[0]}, bound {bound}, "
                   f"clamp {grid_span} blocks): {len(bad)} clouds unproven "
-                  f"{bad}; largest third-neighbour distance "
+                  f"{bad}; K8 flat proves {int(flat.sum())} of "
+                  f"{q.shape[0]} (unclamped spans sum {total} of G {steps}: "
+                  f"{'flat' if total <= steps else 'the bounded grid'}); "
+                  f"largest third-neighbour distance "
                   f"{float(third.max()):.5f} m over the batch; tiles cut by "
                   f"the clamp per cloud {cut.sum(-1).tolist()} of "
                   f"{cut.shape[1]}")
@@ -2136,6 +2189,27 @@ def cpu_rows_on_card(index: np.ndarray, card: dict, cpu: dict) -> np.ndarray:
     return np.take_along_axis(rank, src, 1).astype(index.dtype)
 
 
+def eval_pickle(record, pred_dir, label) -> None:
+    """Phase (d): the pickle of one served cloud holds, for every set, the
+    grasps that the CPU's `eval_test` keeps of the forward's raw set on the
+    cloud as loaded: the card's view filter equal grasp for grasp."""
+    from regnet_for_3d_grasping_torch.config import GripperConfig
+    from regnet_for_3d_grasping_torch.eval.evaluator import eval_test
+    from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
+    with open(pred_dir / Path(record["path"]).name, "rb") as f:
+        pred = pickle.load(f)
+    g = GripperConfig()
+    kept = {}
+    for k, raw in extract_grasp_sets(record["out"])[0].items():
+        want = eval_test(pred["points"], raw, None, g.table_height, g.depth,
+                         g.width, g, device="cpu")
+        check(np.array_equal(pred[k], want), f"{label}: the pickled {k} is "
+              f"not the CPU's view filter of the raw set")
+        kept[k] = f"{len(want)} of {len(raw)}"
+    print(f"{label}: the infer CLI's evaluated sets (card) equal the CPU's "
+          f"eval_test of the raw sets: kept {kept}")
+
+
 def training_phases(dev) -> dict:
     """Phases 8-10: training through the train CLI, 4 steps at batch 12 on
     each path, and one step on the card against the CPU.  Returns the
@@ -2215,7 +2289,8 @@ def serving_phases(slab_kernel_names, train_kernel_names,
                 ("bf16_full_scan", "bf16-full-scan", ["--bf16"],
                  bf16_full_want),
                 ("fast", "fast", ["--fast"], fast_want)):
-            _, launches, fallbacks = serve(flags, tmp, label)
+            _, launches, fallbacks = serve(flags, tmp, label,
+                                           check_eval=key == "full_scan")
             for k, n in want.items():
                 check(launches[k] == 3 * n, f"{k}: {launches[k]} launches "
                       f"in 3 {label} forwards, expected {3 * n}")
@@ -2271,6 +2346,312 @@ def compare_phases(pc, compared, cpu) -> dict:
         hold(agreement[run], run, 0.97)
     print(json.dumps({"card_vs_cpu": agreement}))
     return agreement
+
+
+# --- PR 11: K8 flat, determinism, the evaluator, the suite -----------------
+
+def k8_flat_case(label, q, k, bound=0.06, grid_span=3, reps=20,
+                 plain_reps=3) -> dict:
+    """Phase (a), K8 flat at one shape: the call (`three_nn_slab_call(...,
+    flat=True)`) against its plain version (`three_nn_spans(..., flat=True)`,
+    `three_nn_slab_plain`, `three_nn_certificate`), spans and bounds exact,
+    indices exact, distances bit-equal, `proven` and the flag equal; which
+    grid the card chose (the unclamped spans where they sum to at most G),
+    against the bounded K8 in the same run.  Returns the record row."""
+    from regnet_for_3d_grasping_torch.ops import slab
+
+    def call():
+        return slab.three_nn_slab_call(q, k, bound, grid_span, flat=True)
+
+    def bounded():
+        return slab.three_nn_slab_call(q, k, bound, grid_span)
+
+    def plain():
+        ss, lr = slab.three_nn_spans(q, k, bound, grid_span, flat=True)
+        idx, d2 = slab.three_nn_slab_plain(q, k, ss)
+        return slab.SlabNN(idx, d2, slab.three_nn_certificate(q, d2, lr),
+                           None, ss, lr)
+
+    nn, ref, bnn = call(), plain(), bounded()
+    check(torch.equal(nn.ss, ref.ss) and torch.equal(nn.lr, ref.lr),
+          f"K8 flat's spans differ from three_nn_spans(flat=True) ({label})")
+    check(torch.equal(nn.idx, ref.idx), f"K8 flat indices differ ({label})")
+    check(torch.equal(nn.d2, ref.d2), f"K8 flat distances are not "
+          f"bit-equal to the plain version's ({label})")
+    check(torch.equal(nn.proven, ref.proven)
+          and int(nn.fallback) == int(not bool(ref.proven.all())),
+          f"K8 flat's certificate differs from its plain version ({label})")
+    B, T = nn.ss.shape[:2]
+    unclamped = slab.three_nn_spans(q, k, bound, 99)[0]
+    spans = unclamped[..., 1] - unclamped[..., 0]
+    total, steps = int(spans.sum()), slab.flat_steps(B, T)
+    cut = int((spans > grid_span).sum())
+    taken = total <= steps
+    check(torch.equal(nn.ss, unclamped if taken else bnn.ss),
+          f"K8 flat scanned other spans than its grid rule's ({label})")
+    differs = not all_equal((nn.idx, nn.d2, nn.proven),
+                            (bnn.idx, bnn.d2, bnn.proven))
+    check(differs <= (taken and cut > 0), f"K8 flat differs from the "
+          f"bounded grid on the same spans ({label})")
+    pairs = scanned_pairs(nn.ss, q.shape[1], 256, 1024, k.shape[1])
+
+    def cdist_topk():
+        return torch.cdist(q, k).topk(3, dim=-1, largest=False)
+
+    dms = device_ms(call, reps)
+    row = {"shape": label, "max_abs_err": max_err((nn.idx, nn.d2),
+                                                  (ref.idx, ref.d2)),
+           "ms": cuda_ms(call, reps), "plain_ms": cuda_ms(plain, plain_reps),
+           "bytes": nbytes(q, k, nn.ss, nn.idx, nn.d2), "ops": pairs * 10,
+           "library_ms": cuda_ms(cdist_topk, 5), "device_ms": dms,
+           "bounded_device_ms": device_ms(bounded, reps),
+           "flat_taken": taken, "span_total": total, "G": steps,
+           "tiles_cut_by_clamp": cut, "pairs_scanned": pairs,
+           "differs_from_bounded": differs,
+           "proven": int(nn.proven.sum()), "bounded_proven":
+           int(bnn.proven.sum()), "clouds": B}
+    print(f"three_nn_slab_flat {label}: spans sum {total} of G {steps} "
+          f"(flat {'taken' if taken else 'not taken: the bounded grid'}), "
+          f"{cut} tiles cut by the clamp, proven {row['proven']} of {B} "
+          f"(bounded grid {row['bounded_proven']}), differs from the "
+          f"bounded grid: {differs}; device {dms:.4f} ms, bounded "
+          f"{row['bounded_device_ms']:.4f} ms, {pairs} pairs scanned")
+    return row
+
+
+def k8_flat_kernels(record, sx, centroids, q12, k12) -> dict:
+    """Phase (a): K8 flat at serving (FP3: the slab-sorted cloud against
+    its x-sorted SA1 centers) and at 12 training clouds, and where it falls
+    back (a bound of 0.3 m: the spans sum past G) or differs from the
+    bounded grid (a clamp of 1 block).  Then its entry point's path:
+    `three_nn_slab(flat=True)` at both shapes, counters reset just before
+    and read just after.  Returns those counts."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, slab
+    rows = [k8_flat_case("FP3 serving: 25600 slab-sorted queries x 5120 "
+                         "x-sorted keys", sx, centroids),
+            k8_flat_case("FP3 training: 12 slab-sorted clouds x 5120 "
+                         "x-sorted keys", q12, k12, reps=10, plain_reps=1)]
+    fb = k8_flat_case("serving, bound 0.3: the spans sum past G", sx,
+                      centroids, bound=0.3, reps=5, plain_reps=1)
+    check(not fb["flat_taken"] and not fb["differs_from_bounded"],
+          "K8 flat did not fall back to the bounded grid past G")
+    cut = k8_flat_case("serving, a clamp of 1 block", sx, centroids,
+                       grid_span=1, reps=5, plain_reps=1)
+    check(cut["flat_taken"] and cut["differs_from_bounded"],
+          "K8 flat did not scan past the clamp of 1 block")
+    record_rows(record, "three_nn_slab_flat", CSRC + "three_nn_slab.cu",
+                JAX_OPS + "slab.py:885", rows)
+    _cuda.reset_launches()
+    for q, k in ((sx, centroids), (q12, k12)):
+        slab.three_nn_slab(q, k, 0.06, 3, flat=True)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    check(launches["three_nn_slab_flat"] == 2
+          and launches["three_nn_slab"] == 0,
+          f"three_nn_slab(flat=True) did not launch K8 flat: {launches}")
+    return launches
+
+
+DET_STEPS = 3     # phase (b): steps a run
+
+
+def determinism_phase(tmp) -> dict:
+    """Phase (b): the train CLI twice from one seed, `DET_STEPS` steps at
+    batch 12, on the full scan in f32 and on the bf16 slab (the run of
+    record's configuration): losses and every parameter and buffer
+    bit-equal.  Then the same four training configurations with the CLI's
+    `deterministic` block replaced by a no-op, for the step time that the
+    determinism costs (phases 8, 9, 15 and 16 are the deterministic
+    ones).  Returns the step times by configuration."""
+    from regnet_for_3d_grasping_torch.cli import train as train_cli
+    from regnet_for_3d_grasping_torch.data import write_synthetic_dataset
+    data = Path(tmp) / "det_scenes"
+    # 80 % of 45 scenes train: 36, 3 steps at batch 12
+    write_synthetic_dataset(str(data), 45, num_view=N_POINTS)
+    slab_flags = ["--slab-cell", str(SLAB_CELL), "--fps-groups",
+                  str(FPS_GROUPS)]
+    configs = {"full scan f32": [], "slab f32": slab_flags,
+               "full scan bf16": ["--bf16"],
+               "slab bf16": ["--bf16", *slab_flags]}
+
+    def run(label, flags, tag):
+        res = train_cli.main(
+            ["--mode", "train", "--data-path", str(data), "--model-path",
+             str(Path(tmp) / "det_models"), "--log-path",
+             str(Path(tmp) / "det_log"), "--tag", tag, "--batch-size",
+             str(TRAIN_B), "--epoch", "1", "--seed", "1", *flags])
+        check(len(res["steps"]) == DET_STEPS, f"{label}: "
+              f"{len(res['steps'])} steps, expected {DET_STEPS}")
+        return res
+
+    out = {}
+    for label in ("full scan f32", "slab bf16"):
+        a = run(label, configs[label], "det_a")
+        b = run(label, configs[label], "det_b")
+        sa, sb = a["model"].state_dict(), b["model"].state_dict()
+        losses = [s["loss"] for s in a["steps"]]
+        check(losses == [s["loss"] for s in b["steps"]],
+              f"{label}: two runs' losses differ")
+        check(all(torch.equal(sa[n], sb[n]) for n in sa),
+              f"{label}: two runs' parameters differ after {DET_STEPS} "
+              f"steps")
+        print(f"determinism, {label}: two runs of {DET_STEPS} steps "
+              f"bit-equal (losses {losses})")
+        out[label] = {"deterministic_step_s": [s["seconds"] for s in
+                                               a["steps"] + b["steps"]]}
+    with replaced(train_cli, "deterministic", contextlib.nullcontext):
+        for label, flags in configs.items():
+            res = run(label, flags, "nondet")
+            out.setdefault(label, {})["nondeterministic_step_s"] = [
+                s["seconds"] for s in res["steps"]]
+    for label, times in out.items():
+        print(f"{label}: step s " + ", ".join(
+            f"{k} {[round(x, 4) for x in v]}" for k, v in times.items()))
+    return out
+
+
+def eval_scene_grasps(dev) -> tuple:
+    """Suite v2's clutter_00 and the 4,000 stage-2 grasps of one full-scan
+    forward on it (f32, `weights/r4_coherent_e100.npz`, seed 7012)."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+    from regnet_for_3d_grasping_torch.data import benchmark_suite as suite
+    from regnet_for_3d_grasping_torch.models.regnet import build_regnet
+    from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
+    spec = suite.suite_specs()[12]
+    scene = suite.generate_scene(spec)
+    model = build_regnet(infer_config(), str(SUITE_WEIGHTS), dev)
+    pc = np.c_[scene["view_cloud"], scene["view_cloud_color"]].astype(
+        np.float32)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(pc)[None].to(dev),
+                    generator=torch.Generator().manual_seed(7012))
+    return spec, scene, extract_grasp_sets(out)[0]["grasp_stage2"]
+
+
+NORMAL_ROWS = 10     # the CPU's normals: every 10th point of the cloud
+
+
+def eval_fields(spec_index: int, grasps: np.ndarray, device: str) -> dict:
+    """The evaluator's outputs on suite v2 scene `spec_index` for `grasps`
+    [G, 8] on `device`: view masks (validate path), the funnel, the scene
+    check and antipodal scores (committed normals), and both methods'
+    normals of the scene cloud (on the CPU every `NORMAL_ROWS`-th point;
+    the card's whole cloud), with the card's times."""
+    if device == "cpu":
+        torch.set_num_threads(CPU_THREADS)
+    from regnet_for_3d_grasping_torch.config import EvalConfig, GripperConfig
+    from regnet_for_3d_grasping_torch.data import benchmark_suite as suite
+    from regnet_for_3d_grasping_torch.eval import collision, evaluator
+    from regnet_for_3d_grasping_torch.eval.normals import estimate_normals
+    spec = suite.suite_specs()[spec_index]
+    scene = suite.generate_scene(spec)
+    dev = torch.device(device)
+    grip, cfg = GripperConfig(), EvalConfig()
+    vp = torch.from_numpy(scene["view_cloud"].astype(np.float32)).to(dev)
+    sp = torch.from_numpy(scene["scene_cloud"].astype(np.float32)).to(dev)
+    sn = torch.from_numpy(scene["scene_normal"].astype(np.float32)).to(dev)
+    g = torch.from_numpy(np.asarray(grasps, np.float32)).to(dev)
+    cam = torch.from_numpy(evaluator.CAMERA_POSE[spec["view_index"]]).to(dev)
+    rows = None if device != "cpu" else torch.arange(0, len(sp), NORMAL_ROWS)
+    calls = {
+        "view_ok": lambda: collision.check_grasps_view(
+            vp, g, grip.table_height, grip.depth, grip, cfg, True, -1.0),
+        "funnel": lambda: collision.view_check_funnel(
+            vp, g, grip.table_height, grip.depth, grip, cfg),
+        "scene": lambda: collision.check_grasps_scene(
+            sp, sn, g, grip.depth, grip, cfg),
+        "normals_moment": lambda: estimate_normals(
+            sp, cam, cfg.normal_radius, cfg.normal_max_nn, method="moment",
+            rows=rows),
+        "normals_knn": lambda: estimate_normals(
+            sp, cam, cfg.normal_radius, cfg.normal_max_nn, method="knn",
+            rows=rows)}
+    out, ms = {}, {}
+    for name, fn in calls.items():
+        if device == "cpu":
+            r = fn()
+        else:
+            ms[name] = cuda_ms(fn, 3 if name.startswith("normals") else 5)
+            r = fn()
+        if isinstance(r, dict):
+            out |= {f"funnel_{k}": v.cpu().numpy() for k, v in r.items()}
+        elif isinstance(r, tuple):
+            out["scene_ok"], out["antipodal"] = (v.cpu().numpy() for v in r)
+        else:
+            out[name] = r.cpu().numpy()
+    out["ms"] = ms
+    return out
+
+
+def evaluator_card_vs_cpu(card: dict, cpu: dict) -> dict:
+    """Phase (c): the card's evaluator against the CPU's on the same
+    grasps: masks equal grasp for grasp, antipodal scores within 1e-5
+    relative and 1e-6 absolute, both methods' normals |cos| >= 1 - 1e-5 on
+    at least 99.9 % of the CPU's points."""
+    res = {"grasps": int(len(card["view_ok"])), "ms": card["ms"]}
+    for k in card:
+        if k in ("ms", "antipodal") or k.startswith("normals"):
+            continue
+        check(np.array_equal(card[k], cpu[k]),
+              f"evaluator: {k} differs between the card and the CPU "
+              f"({int((card[k] != cpu[k]).sum())} grasps)")
+        res[f"{k}_true"] = int(card[k].sum())
+    err = np.abs(card["antipodal"].astype(np.float64) - cpu["antipodal"])
+    check((err <= 1e-6 + 1e-5 * np.abs(cpu["antipodal"])).all(),
+          f"evaluator: antipodal scores differ by up to {err.max():.3g}")
+    res["antipodal_max_abs_err"] = float(err.max())
+    for m in ("normals_moment", "normals_knn"):
+        got = card[m][::NORMAL_ROWS]
+        cos = np.abs((got * cpu[m]).sum(-1))
+        share = float((cos >= 1 - 1e-5).mean())
+        res[f"{m}_share"] = share
+        res[f"{m}_bit_equal_share"] = float((got == cpu[m]).all(-1).mean())
+        check(share >= 0.999, f"evaluator: {m} agree on {share:.5f} of the "
+              f"points")
+    print(json.dumps({"evaluator_card_vs_cpu": res}))
+    return res
+
+
+SUITE_WEIGHTS = ROOT / "weights" / "r4_coherent_e100.npz"
+SUITE_VGR_LIMIT = 0.03   # phase (e): stage-3 VGR against the TPU's files
+
+
+def suite_phase(out_dir: Path) -> dict:
+    """Phase (e): suite v2 through `cli/benchmark_eval.py` with the weights
+    of the TPU's suite files, at `--fast` and at f32 exact; all 24
+    fingerprints verified (the CLI verifies each scene it makes); the
+    metrics written to `out_dir`; per regime and stage vgr, antipodal and
+    n_grasps printed beside the TPU's.  Fails where a stage-3 or
+    stage-3-score VGR lies more than `SUITE_VGR_LIMIT` from the TPU's."""
+    from regnet_for_3d_grasping_torch.cli import benchmark_eval
+    out_dir.mkdir(parents=True, exist_ok=True)
+    readings = {}
+    for flags, tpu_file, ours in (
+            (["--fast"], "metrics_r04.json", "metrics_torch_r04.json"),
+            ([], "metrics_r04_exact.json", "metrics_torch_r04_exact.json")):
+        t0 = time.perf_counter()
+        res = benchmark_eval.main(["--checkpoint",
+                                   os.path.relpath(SUITE_WEIGHTS),
+                                   "--out", str(out_dir / ours), *flags])
+        seconds = time.perf_counter() - t0
+        check(len(res["per_scene"]) == 24, "the suite did not run 24 scenes")
+        tpu = json.loads((ROOT / "docs" / "evidence" / tpu_file).read_text())
+        label = "--fast" if flags else "f32 exact"
+        for regime, stages in res["summary"].items():
+            for stage, r in stages.items():
+                t = tpu["summary"][regime][stage]
+                print(f"suite v2 {label} {regime} {stage}: vgr {r['vgr']} "
+                      f"(TPU {t['vgr']}), antipodal {r['antipodal']} (TPU "
+                      f"{t['antipodal']}), n_grasps {r['n_grasps']} (TPU "
+                      f"{t['n_grasps']})")
+                if stage != "stage2":
+                    check(abs(r["vgr"] - t["vgr"]) <= SUITE_VGR_LIMIT,
+                          f"suite v2 {label} {regime} {stage}: VGR "
+                          f"{r['vgr']} against the TPU's {t['vgr']}")
+        print(f"suite v2 {label}: {seconds:.1f} s ({res['seconds']})")
+        readings[label] = {"summary": res["summary"], "seconds": seconds,
+                           "cli_seconds": res["seconds"]}
+    return readings
 
 
 def main() -> None:
@@ -2529,7 +2910,8 @@ def main() -> None:
             f"({f.dtype})")
 
     # K6-K10 on the same cloud in slab order
-    slab_rows, slab_rows_bf16 = slab_kernels(dev, xyz, record, scan_calls)
+    slab_rows, slab_rows_bf16, flat_launches = slab_kernels(dev, xyz, record,
+                                                            scan_calls)
     record_rows(record, "gather_max_backward", CSRC + "gather_max.cu",
                 JAX_OPS + "pooling.py:285 (the XLA scatter-add of the "
                 "custom VJPs, also slab.py:1090)", backward_rows + slab_rows)
@@ -2571,6 +2953,15 @@ def main() -> None:
                 "fast" + F64: (slab_over | bf16_over, slab_rand, "f64")}
     paths = serving_phases(slab_kernel_names, train_kernel_names,
                            bf16_kernel_names)
+    paths["k8_flat_entry"] = flat_launches
+    # (e) suite v2 through the metrics CLI, both configurations
+    suite = suite_phase(ROOT / "chiprun_out" / "suite")
+    # (c) the evaluator on the card; the CPU's side in a helper beside the
+    # training phases
+    spec, _, eval_grasps = eval_scene_grasps(dev)
+    check(len(eval_grasps) >= 1024, f"only {len(eval_grasps)} stage-2 "
+          f"grasps on {spec['name']}")
+    eval_card = eval_fields(12, eval_grasps, "cuda")
     # after the serving phases, whose host-bound latencies they would slow:
     # the CPU's forwards, and its bf16 training steps in a second helper
     import concurrent.futures
@@ -2583,7 +2974,13 @@ def main() -> None:
     cpu = CpuForwards(pc, compared)
     try:
         cpu_steps = step_pool.submit(cpu_bf16_steps, step_data.name)
+        cpu_eval = step_pool.submit(eval_fields, 12, eval_grasps, "cpu")
         paths |= training_phases(dev)
+        # (b) two training runs from one seed are bit-equal
+        with tempfile.TemporaryDirectory() as tmp:
+            det = determinism_phase(tmp)
+        evaluator = evaluator_card_vs_cpu(eval_card,
+                                          cpu_eval.result(timeout=900))
         # 17. one bf16 training step on the card against the CPU
         step = bf16_step_card_vs_cpu(step_data.name, cpu_steps)
         compare_phases(pc, compared, cpu)
@@ -2592,6 +2989,8 @@ def main() -> None:
         step_pool.shutdown(cancel_futures=True)
         step_data.cleanup()
     print(json.dumps({"bf16_train_step_card_vs_cpu": step}))
+    print(json.dumps({"determinism": det, "evaluator": evaluator,
+                      "suite_v2": suite}))
 
     main_path = {**dict.fromkeys(results, "full_scan"),
                  **dict.fromkeys(slab_kernel_names, "slab"),
@@ -2602,7 +3001,8 @@ def main() -> None:
                  "gather_max_slab_bf16": "fast",
                  "gather_max_argmax_bf16": "train_bf16_full_scan",
                  "gather_max_backward_bf16": "train_bf16_full_scan",
-                 "gather_max_slab_argmax_bf16": "train_bf16_slab"}
+                 "gather_max_slab_argmax_bf16": "train_bf16_slab",
+                 "three_nn_slab_flat": "k8_flat_entry"}
     for k in results:
         results[k]["launches"] = paths[main_path[k]][k]
         results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}

@@ -2,8 +2,11 @@
 
 Inference at the reference preset (`models.regnet.build_regnet`, the CLI
 ``python -m regnet_for_3d_grasping_torch.cli.infer``, full scan or sorted
-slab) and training at the reference training preset (``python -m
-regnet_for_3d_grasping_torch.cli.train``).  The kernels of those paths are
-CUDA sources under ``csrc/``, built with ``nvcc`` at first use (see
-``ops/_cuda.py``).
+slab, its grasp sets through the geometric evaluator of ``eval/``),
+training at the reference training preset (``python -m
+regnet_for_3d_grasping_torch.cli.train``) and quality on the frozen
+benchmark suite (``python -m
+regnet_for_3d_grasping_torch.cli.benchmark_eval``).  The kernels of those
+paths are CUDA sources under ``csrc/``, built with ``nvcc`` at first use
+(see ``ops/_cuda.py``).
 """

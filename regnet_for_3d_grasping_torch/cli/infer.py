@@ -1,10 +1,15 @@
 """Inference CLI of the PyTorch port (JAX ``cli/infer.py``).
 
 Runs the cascade on .p (virtual) or .pcd (real) clouds, one at a time, and
-writes the JAX CLI's prediction pickle under ``--no-eval``:
+writes the JAX CLI's prediction pickle:
   {points, colors, scores, grasp_stage2, grasp_stage3_stage2,
    grasp_stage3, grasp_stage3_score}
 next to the input, with ``_data`` replaced by ``_data_predict`` in the path.
+Each grasp set holds the grasps that survive the evaluator's view
+collision filter on the cloud as loaded (`eval.evaluator.eval_test`, on
+the model's device), as the JAX CLI writes them; ``--no-eval`` keeps every
+grasp.  Every cloud's forward draws its seeds from a generator seeded with
+``--seed`` anew, as the JAX CLI hands ``PRNGKey(seed)`` to each.
 
 ``scores`` holds the model's per-point scores in the model's row order
 (slab order with ``--slab-cell``), beside the input cloud as loaded: the
@@ -16,7 +21,7 @@ FPS (G = 8); ``--bf16`` alone is bf16 on the full scan.  ``--slab-cell``
 and ``--fps-groups`` override what ``--fast`` derives, as in the JAX CLI.
 
 Usage:
-  python -m regnet_for_3d_grasping_torch.cli.infer --no-eval \\
+  python -m regnet_for_3d_grasping_torch.cli.infer [--no-eval] \\
       --folder-name /path/to/virtual_data \\
       --checkpoint weights/r5_real_e100.npz [--fast | --bf16]
       [--slab-cell 0.04 --fps-groups 8]
@@ -47,12 +52,19 @@ def build_parser():
     p.add_argument("--all-points-num", type=int, default=25600)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--no-eval", action="store_true",
-                   help="skip the collision filter (raw grasp sets); "
-                        "required until the evaluator is ported")
+                   help="skip the view collision filter (raw grasp "
+                        "sets)")
     p.add_argument("--accept-margin", type=float, default=0.0)
     p.add_argument("--num-refine", type=int, default=1)
     p.add_argument("--refine-pose", default="full",
                    choices=["full", "center", "off"])
+    add_serving_flags(p)
+    return p
+
+
+def add_serving_flags(p) -> None:
+    """The flags that pick the serving configuration and the device (the
+    suite CLI's too)."""
     p.add_argument("--bf16", action="store_true",
                    help="bf16 network compute (geometry stays f32)")
     p.add_argument("--fast", action="store_true",
@@ -68,30 +80,33 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
-    return p
 
 
-def config_from_args(args):
-    """The inference configuration the flags ask for, derived as the JAX
-    CLI derives it (``cli/infer.py:148-167``)."""
-    from regnet_for_3d_grasping_torch.config import infer_config
-
+def serving_overrides(args) -> dict:
+    """The configuration overrides of `add_serving_flags`' flags, derived
+    as the JAX CLI derives them (``cli/infer.py:148-167``)."""
     slab_cell = args.slab_cell if args.slab_cell >= 0.0 else \
         (0.04 if args.fast else 0.0)
     fps_groups = args.fps_groups if args.fps_groups >= 1 else \
         (8 if args.fast else 1)
+    return {"region.slab_cell": slab_cell,
+            "region.center_fps_groups": fps_groups,
+            "model.fps_groups": fps_groups,
+            "model.compute_dtype": ("bfloat16" if args.bf16 or args.fast
+                                    else "float32")}
+
+
+def config_from_args(args):
+    """The inference configuration the flags ask for."""
+    from regnet_for_3d_grasping_torch.config import infer_config
     return infer_config(**{
         "region.center_num": args.center_num,
         "region.group_num_more": args.group_num_more,
         "region.num_points": args.all_points_num,
         "region.accept_margin": args.accept_margin,
         "region.refine_iters": args.num_refine,
-        "region.slab_cell": slab_cell,
-        "region.center_fps_groups": fps_groups,
-        "model.fps_groups": fps_groups,
         "region.refine_pose": args.refine_pose,
-        "model.compute_dtype": ("bfloat16" if args.bf16 or args.fast
-                                else "float32"),
+        **serving_overrides(args),
     })
 
 
@@ -123,13 +138,10 @@ def load_cloud(pc_path: str, all_points_num: int,
 
 def main(argv=None) -> list:
     """Returns one record per cloud: path, forward seconds (synchronized
-    on the device) and the model output."""
+    on the device), the model output and the grasp sets written."""
     args = build_parser().parse_args(argv)
-    if not args.no_eval:
-        raise NotImplementedError(
-            "the geometric evaluator is not ported yet (ROADMAP.md queue A "
-            "item 2); run with --no-eval")
 
+    from regnet_for_3d_grasping_torch.eval.evaluator import eval_test
     from regnet_for_3d_grasping_torch.models.regnet import build_regnet
     from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
 
@@ -149,12 +161,12 @@ def main(argv=None) -> list:
         raise SystemExit(f"no input clouds under {args.folder_name!r}")
 
     rng = np.random.RandomState(args.seed)
-    gen = torch.Generator().manual_seed(args.seed)
     records = []
     for pc_path in paths:
         pc, pc_back, color_back, real = load_cloud(
             pc_path, args.all_points_num, rng)
         x = torch.from_numpy(pc)[None].to(device)
+        gen = torch.Generator().manual_seed(args.seed)
         _sync(device)
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -165,6 +177,11 @@ def main(argv=None) -> list:
         print(f"{pc_path}: forward {dt:.4f}s, "
               f"{len(sets['grasp_stage2'])} stage2 / "
               f"{len(sets['grasp_stage3'])} stage3 grasps")
+        if not args.no_eval:
+            g = cfg.gripper
+            sets = {k: eval_test(pc_back, v, None, g.table_height, g.depth,
+                                 g.width, g, cfg.eval, device=device)
+                    for k, v in sets.items()}
         out_path = pc_path.replace("_data", "_data_predict")
         if real:
             out_path = out_path.replace(".pcd", ".p")

@@ -23,9 +23,10 @@ kernels).
 
 With ``--train``: the training preset (25,600 points, 64 centers, batch 12,
 all three losses, freshly initialised weights; with ``--bf16``, bf16
-training, the train CLI's ``--bf16``) on synthetic scenes made from a
-seed; two warm-up steps, two untraced steps, then one step whose forward
-(with the losses) and whose backward (with the update) are traced apart.
+training, the train CLI's ``--bf16``), deterministic as the train CLI runs
+it, on synthetic scenes made from a seed; two warm-up steps, two untraced
+steps, then one step whose forward (with the losses) and whose backward
+(with the update) are traced apart.
 It prints the step times, the peak device memory, and for each half the
 device busy time, the launches, the GEMMs' time and the five costliest
 kernels.
@@ -171,6 +172,13 @@ def own_kernels(rows: list) -> list:
 
 
 def profile_train(args) -> None:
+    """The training step as the train CLI runs it: deterministic."""
+    from regnet_for_3d_grasping_torch.cli.train import deterministic
+    with deterministic():
+        _profile_train(args)
+
+
+def _profile_train(args) -> None:
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile

@@ -18,14 +18,20 @@ parameters, the Adam state and BatchNorm's running statistics stay f32,
 and all geometry stays f32.
 
 Runs on the card unless ``--device cpu`` asks for the plain PyTorch
-versions of the kernels.  Not ported yet, so argparse rejects them (see
-ROADMAP.md queue A): --eval-grasps / --eval-every (the geometric evaluator),
---native-loader, --geom-aug, --profile-dir, --remat, data parallelism.
+versions of the kernels.  Every run is bit-reproducible, as the JAX
+package's is: the CLI runs under `torch.use_deterministic_algorithms`
+(`deterministic`), with cuBLAS's fixed workspace
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here unless the caller set it
+before the first cuBLAS call).  Not ported yet, so argparse rejects them
+(see ROADMAP.md queue A): --eval-grasps / --eval-every (the evaluator's
+use in training), --native-loader, --geom-aug, --profile-dir, --remat,
+data parallelism.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -129,6 +135,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Within the block, every PyTorch op takes its deterministic form
+    (autograd's scatter-adds among them: the backward of `torch.gather`
+    and of indexing sorts and sums in order instead of adding with float
+    atomics) and an op that has none raises; the port's own kernels are
+    deterministic.  Memory that `torch.empty` hands out is not filled: no
+    result reads it.  The previous settings come back on exit."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch.utils.deterministic as det
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = prev[2]
+
+
 def main(argv=None) -> dict:
     """Returns {"model", "cfg", "eval_cfg", "steps": [{"epoch", "loss",
     "seconds"}], "validation": [metrics of each validation forward]}; a
@@ -136,7 +164,11 @@ def main(argv=None) -> dict:
     are synchronized on the device and cover the batch upload, the forward,
     the backward and the update."""
     args = build_parser().parse_args(argv)
+    with deterministic():
+        return _run(args)
 
+
+def _run(args) -> dict:
     from regnet_for_3d_grasping_torch.config import tiny_config, train_config
     from regnet_for_3d_grasping_torch.data import (GraspDataset,
                                                    write_synthetic_dataset)

@@ -93,8 +93,8 @@ class RegionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """Constants of the geometric evaluator that the synthetic scene
-    generator's grasp labelling reads."""
+    """Constants of the geometric evaluator (``eval/``), which the
+    synthetic scene generator's grasp labelling also reads."""
 
     num_points_threshold: int = 16
     close_region_min_points: int = 16

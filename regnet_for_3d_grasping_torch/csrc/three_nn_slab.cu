@@ -1,11 +1,13 @@
 // K8 — three nearest neighbours over each query tile's key span (FP3 in
-// slab mode), with its span table and exactness certificate.
+// slab mode), with its span table and exactness certificate; and K8 flat,
+// the same search over the unclamped spans where they are few enough.
 //
 // Replaces: regnet_for_3d_grasping_tpu/ops/slab.py, three_nn_slab
 //   (_three_nn_slab_kernel on its bounded grid, slab.py:853; the span
-//   table, slab.py:805-835, and the certificate, slab.py:904-923).  The
-//   flat grid (slab.py:885) is the TPU's answer to a sequential grid's
-//   skipped steps; no model path calls it and it is not ported.
+//   table, slab.py:805-835, and the certificate, slab.py:904-923), and
+//   three_nn_slab(flat=True) (the flat grid, slab.py:885, `_flat_steps`
+//   :211-239, chosen by `lax.cond` where the unclamped spans sum to at
+//   most G = B*T*5/2 (tile, block) steps, :892-901).
 // Bound on the H100: arithmetic.  A query meets only the keys of its tile's
 //   span, about 2.3 of 5 blocks of 1,024 at the FP3 shape (25,600 queries,
 //   5,120 keys): some 60 M distances of 9 operations plus a compare each,
@@ -17,7 +19,9 @@
 //      32-way search of the warp (searchsorted left and right), the
 //      JAX clamp to `cap` blocks recentred, and the x of the nearest
 //      unscanned key on either side (+-1e38 past the ends).  It also
-//      resets the call's flags.
+//      resets the call's flags.  The flat form also writes the unclamped
+//      spans and their bounds, and adds each tile's unclamped span to the
+//      call's total of live (tile, block) pairs (an integer atomic).
 //   2. `slab_nn_split_kernel`: K3's scan (`three_nn::scan_keys`: keys
 //      staged as float4, 4-key batched insertion tests, strict `<` in
 //      ascending index), a block of 128 threads x Q queries of one tile
@@ -26,17 +30,22 @@
 //      from `ops/slab.three_nn_slab_grid`, which aims at 12 blocks a SM
 //      (a kernel of one block a tile ran 100 blocks on 132 SMs at FP3; a
 //      walk outward from the queries, which inserts less on x-sorted keys,
-//      ran slower: see PERF.md).
+//      ran slower: see PERF.md).  The flat form decides on the card: every
+//      block reads the total, and scans the unclamped spans where it is at
+//      most G, else the clamped ones (JAX's `lax.cond`); its grid has room
+//      for the longest span G allows (`gcap` blocks a tile).
 //   3. `slab_nn_merge_kernel`, one thread a query: the span's partial
 //      lists in block order with the same strict compares (the three
 //      smallest by (distance, index) over the span, as the TPU kernel's
-//      per-block top-3 and sorted merge give; an empty slot holds (1e38,
-//      0)), then the certificate: d2[2] <= margin^2 with margin the x-gap
-//      to the nearest unscanned key, clamped at 0.  A query that fails
-//      clears `proven[b]` and sets the call's fallback flag, which K3's
-//      launches read on the card (the whole call falls back, as JAX's
-//      `lax.cond` does), and the first to set it adds one to a device
-//      count.
+//      per-block top-3 and sorted merge give on either grid, both walking
+//      a span's blocks upward from its start; an empty slot holds (1e38,
+//      0)), then the certificate over the spans scanned: d2[2] <= margin^2
+//      with margin the x-gap to the nearest unscanned key, clamped at 0.
+//      A query that fails clears `proven[b]` and sets the call's fallback
+//      flag, which K3's launches read on the card (the whole call falls
+//      back, as JAX's `lax.cond` does), and the first to set it adds one
+//      to a device count.  The flat form's merge writes the spans and
+//      bounds it used into the call's span table.
 //   Distances are diff-squares with explicit round-to-nearest intrinsics
 //   in the JAX order.
 
@@ -84,12 +93,34 @@ __device__ __forceinline__ int warp_search(const float* __restrict__ x,
   return lo;
 }
 
+// A tile's span [start, stop) and the x of the nearest key outside it on
+// either side (+-1e38 past the ends), at entry `o` of ss / lr [B, T, 2].
+__device__ __forceinline__ void put_span(int32_t* ss, float* lr,
+                                         const float* __restrict__ key,
+                                         int nk, size_t o, int start,
+                                         int stop) {
+  ss[o] = start;
+  ss[o + 1] = stop;
+  const int left = start * kScan - 1, right = stop * kScan;
+  lr[o] = left >= 0 ? key[3 * (size_t)left] : -kBig;
+  lr[o + 1] = right < nk ? key[3 * (size_t)right] : kBig;
+}
+
+// The span table the scan and merge read: the unclamped one where the flat
+// form's total of live (tile, block) pairs is at most `steps`, else `ss`.
+__device__ __forceinline__ bool flat_taken(const int32_t* ssu,
+                                           const int32_t* total, int steps) {
+  return ssu != nullptr && *total <= steps;
+}
+
 __global__ void __launch_bounds__(kSpanWarps * 32)
 slab_nn_span_kernel(const float* __restrict__ query,
                     const float* __restrict__ key, int32_t* __restrict__ ss,
-                    float* __restrict__ lr, bool* __restrict__ proven,
-                    int32_t* __restrict__ fallback, int batch, int nq, int nk,
-                    int tiles, float bound, int cap) {
+                    float* __restrict__ lr, int32_t* __restrict__ ssu,
+                    float* __restrict__ lru, int32_t* __restrict__ total,
+                    bool* __restrict__ proven, int32_t* __restrict__ fallback,
+                    int batch, int nq, int nk, int tiles, float bound,
+                    int cap) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kSpanWarps + (threadIdx.x >> 5);
   if (w >= batch * tiles) return;
@@ -134,11 +165,11 @@ slab_nn_span_kernel(const float* __restrict__ query,
     stop = min(stop_u, start + cap);
   }
   const size_t o = ((size_t)b * tiles + t) * 2;
-  ss[o] = start;
-  ss[o + 1] = stop;
-  const int left = start * kScan - 1, right = stop * kScan;
-  lr[o] = left >= 0 ? key[3 * (size_t)left] : -kBig;
-  lr[o + 1] = right < nk ? key[3 * (size_t)right] : kBig;
+  put_span(ss, lr, key, nk, o, start, stop);
+  if (ssu) {  // the flat form: the unclamped span and its share of the total
+    put_span(ssu, lru, key, nk, o, start_u, stop_u);
+    atomicAdd(total, stop_u - start_u);
+  }
 }
 
 // Block x = ((tile * halves + half) * cap + j) * parts + h: queries
@@ -150,6 +181,8 @@ __global__ void __launch_bounds__(kThreads)
 slab_nn_split_kernel(const float* __restrict__ query,
                      const float* __restrict__ key,
                      const int32_t* __restrict__ ss,
+                     const int32_t* __restrict__ ssu,
+                     const int32_t* __restrict__ total, int steps,
                      int32_t* __restrict__ pidx, float* __restrict__ pdist,
                      int nq, int nk, int tiles, int cap, int parts) {
   constexpr int halves = kTile / (kThreads * Q);
@@ -160,7 +193,8 @@ slab_nn_split_kernel(const float* __restrict__ query,
   const int j = x % cap;
   x /= cap;
   const int half = x % halves, tile = x / halves;
-  const int32_t* s2 = ss + ((size_t)b * tiles + tile) * 2;
+  const int32_t* s2 = (flat_taken(ssu, total, steps) ? ssu : ss)
+                     + ((size_t)b * tiles + tile) * 2;
   const int kb = s2[0] + j;
   if (kb >= s2[1]) return;
   __shared__ float4 sk[three_nn::kChunk + 2 * three_nn::kStep];
@@ -200,8 +234,10 @@ slab_nn_split_kernel(const float* __restrict__ query,
 // result, and the certificate.
 __global__ void __launch_bounds__(kTile)
 slab_nn_merge_kernel(const float* __restrict__ query,
-                     const int32_t* __restrict__ ss,
-                     const float* __restrict__ lr,
+                     int32_t* __restrict__ ss, float* __restrict__ lr,
+                     const int32_t* __restrict__ ssu,
+                     const float* __restrict__ lru,
+                     const int32_t* __restrict__ total, int steps,
                      const int32_t* __restrict__ pidx,
                      const float* __restrict__ pdist,
                      int32_t* __restrict__ idx, float* __restrict__ dist,
@@ -211,10 +247,13 @@ slab_nn_merge_kernel(const float* __restrict__ query,
                      int tiles, int cap, int parts) {
   const int b = blockIdx.y, t = blockIdx.x;
   const int q = t * kTile + threadIdx.x;
+  const size_t o2 = ((size_t)b * tiles + t) * 2;
+  const bool flat = flat_taken(ssu, total, steps);
+  const int32_t* sp = flat ? ssu : ss;
+  const float* lp = flat ? lru : lr;
   bool ok = true;
   if (q < nq) {
-    const size_t o2 = ((size_t)b * tiles + t) * 2;
-    const int live = (ss[o2 + 1] - ss[o2]) * parts;
+    const int live = (sp[o2 + 1] - sp[o2]) * parts;
     const size_t mp = (size_t)tiles * kTile;
     Best3 r;
     r.init(kBig);
@@ -231,7 +270,7 @@ slab_nn_merge_kernel(const float* __restrict__ query,
     // span can leave a query outside its tile's window: margin 0.  NaN
     // propagates as in jnp.minimum / jnp.maximum (and then fails)
     const float qx = query[((size_t)b * nq + q) * 3];
-    const float a = __fsub_rn(qx, lr[o2]), c = __fsub_rn(lr[o2 + 1], qx);
+    const float a = __fsub_rn(qx, lp[o2]), c = __fsub_rn(lp[o2 + 1], qx);
     float margin = (a != a) ? a : (a < c ? a : c);
     margin = margin < 0.f ? 0.f : margin;
     ok = r.d2 <= __fmul_rn(margin, margin);
@@ -241,14 +280,65 @@ slab_nn_merge_kernel(const float* __restrict__ query,
     proven[b] = false;
     if (atomicExch(fallback, 1) == 0 && count) atomicAdd(count, 1ull);
   }
+  if (flat && threadIdx.x == 0) {  // the spans scanned, as the call's table
+    ss[o2] = ssu[o2];
+    ss[o2 + 1] = ssu[o2 + 1];
+    lr[o2] = lru[o2];
+    lr[o2 + 1] = lru[o2 + 1];
+  }
 }
 
 template <int Q>
 void split(dim3 grid, cudaStream_t stream, const float* query,
-           const float* key, const int32_t* ss, int32_t* pidx, float* pdist,
+           const float* key, const int32_t* ss, const int32_t* ssu,
+           const int32_t* total, int steps, int32_t* pidx, float* pdist,
            int nq, int nk, int tiles, int cap, int parts) {
   slab_nn_split_kernel<Q><<<grid, kThreads, 0, stream>>>(
-      query, key, ss, pidx, pdist, nq, nk, tiles, cap, parts);
+      query, key, ss, ssu, total, steps, pidx, pdist, nq, nk, tiles, cap,
+      parts);
+}
+
+// Both forms: `ssu`, `lru` and `total` null for the bounded one; `gcap`
+// the split grid's blocks a tile (`cap` for the bounded form).
+int three_nn_slab(const float* query, const float* key, int32_t* ss,
+                  float* lr, int32_t* ssu, float* lru, int32_t* total,
+                  int32_t* pidx, float* pdist, int32_t* idx, float* dist,
+                  bool* proven, int32_t* fallback, unsigned long long* count,
+                  int batch, int nq, int nk, float bound, int cap, int gcap,
+                  int per_thread, int parts, cudaStream_t stream) {
+  const int nkb = (nk + kScan - 1) / kScan;
+  if (batch < 1 || nq < 1 || nk < 1 || cap < 1 || cap > nkb ||
+      gcap < cap || gcap > nkb ||
+      (per_thread != 1 && per_thread != kMaxPerThread) ||
+      (parts != 1 && parts != 2 && parts != 4))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (nq + kTile - 1) / kTile;
+  const int warps = batch * tiles;
+  // JAX's G: the flat grid's steps (slab.py:899)
+  const int steps = warps * 5 / 2;
+  cudaError_t err = cudaSuccess;
+  if (total) err = cudaMemsetAsync(total, 0, sizeof(int32_t), stream);
+  if (err != cudaSuccess) return (int)err;
+  slab_nn_span_kernel<<<(warps + kSpanWarps - 1) / kSpanWarps,
+                        kSpanWarps * 32, 0, stream>>>(
+      query, key, ss, lr, ssu, lru, total, proven, fallback, batch, nq, nk,
+      tiles, bound, cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int halves = kTile / (kThreads * per_thread);
+  const dim3 grid(tiles * halves * gcap * parts, batch);
+  if (per_thread == 1)
+    split<1>(grid, stream, query, key, ss, ssu, total, steps, pidx, pdist,
+             nq, nk, tiles, gcap, parts);
+  else
+    split<kMaxPerThread>(grid, stream, query, key, ss, ssu, total, steps,
+                         pidx, pdist, nq, nk, tiles, gcap, parts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  slab_nn_merge_kernel<<<dim3(tiles, batch), kTile, 0, stream>>>(
+      query, ss, lr, ssu, lru, total, steps, pidx, pdist, idx, dist, proven,
+      fallback, count, nq, tiles, gcap, parts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -271,30 +361,26 @@ extern "C" int regnet_three_nn_slab(const float* query, const float* key,
                                     int nq, int nk, float bound, int cap,
                                     int per_thread, int parts,
                                     cudaStream_t stream) {
-  const int nkb = (nk + kScan - 1) / kScan;
-  if (batch < 1 || nq < 1 || nk < 1 || cap < 1 || cap > nkb ||
-      (per_thread != 1 && per_thread != kMaxPerThread) ||
-      (parts != 1 && parts != 2 && parts != 4))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (nq + kTile - 1) / kTile;
-  const int warps = batch * tiles;
-  slab_nn_span_kernel<<<(warps + kSpanWarps - 1) / kSpanWarps,
-                        kSpanWarps * 32, 0, stream>>>(
-      query, key, ss, lr, proven, fallback, batch, nq, nk, tiles, bound, cap);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int halves = kTile / (kThreads * per_thread);
-  const dim3 grid(tiles * halves * cap * parts, batch);
-  if (per_thread == 1)
-    split<1>(grid, stream, query, key, ss, pidx, pdist, nq, nk, tiles, cap,
-             parts);
-  else
-    split<kMaxPerThread>(grid, stream, query, key, ss, pidx, pdist, nq, nk,
-                         tiles, cap, parts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  slab_nn_merge_kernel<<<dim3(tiles, batch), kTile, 0, stream>>>(
-      query, ss, lr, pidx, pdist, idx, dist, proven, fallback, count, nq,
-      tiles, cap, parts);
-  return (int)cudaGetLastError();
+  return three_nn_slab(query, key, ss, lr, nullptr, nullptr, nullptr, pidx,
+                       pdist, idx, dist, proven, fallback, count, batch, nq,
+                       nk, bound, cap, cap, per_thread, parts, stream);
+}
+
+// K8 flat (`three_nn_slab(flat=True)` where cap < key blocks): as above,
+// with ssu / lru [B, T, 2] and total [1] int32 the unclamped span table,
+// its bounds and its total of live (tile, block) pairs (scratch); `gcap`
+// (cap .. key blocks) the split grid's blocks a tile, pidx / pdist
+// [B, gcap * parts, 3, T * 256].  ss / lr come back as the spans scanned:
+// the unclamped ones where their total is at most G = B*T*5/2, else the
+// clamped ones, chosen on the card.
+extern "C" int regnet_three_nn_slab_flat(
+    const float* query, const float* key, int32_t* ss, float* lr,
+    int32_t* ssu, float* lru, int32_t* total, int32_t* pidx, float* pdist,
+    int32_t* idx, float* dist, bool* proven, int32_t* fallback,
+    unsigned long long* count, int batch, int nq, int nk, float bound,
+    int cap, int gcap, int per_thread, int parts, cudaStream_t stream) {
+  if (!ssu || !lru || !total) return (int)cudaErrorInvalidValue;
+  return three_nn_slab(query, key, ss, lr, ssu, lru, total, pidx, pdist,
+                       idx, dist, proven, fallback, count, batch, nq, nk,
+                       bound, cap, gcap, per_thread, parts, stream);
 }

@@ -60,6 +60,9 @@ SIGNATURES = {
     "three_nn_slab": ("three_nn_slab", "regnet_three_nn_slab",
                       (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _F, _I, _I, _I, _P)),
+    "three_nn_slab_flat": ("three_nn_slab", "regnet_three_nn_slab_flat",
+                           (_P,) * 14 + (_I, _I, _I, _F, _I, _I, _I, _I,
+                                         _P)),
     "gather_max_slab": ("gather_max_slab", "regnet_gather_max_slab",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "group_regions": ("group", "regnet_group_regions",

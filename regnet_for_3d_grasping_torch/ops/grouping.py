@@ -7,10 +7,14 @@ import torch
 
 
 def gather_points(points: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """points [B, N, C], index [B, S] -> [B, S, C]."""
-    C = points.shape[-1]
-    return torch.gather(points, 1,
-                        index.long()[..., None].expand(-1, -1, C))
+    """points [B, N, C], index [B, S] -> [B, S, C].
+
+    Rows are picked by indexing, not by `torch.gather` on an index expanded
+    over the channels: in deterministic mode (the train CLI) the backward
+    then sorts B*S row indices and adds whole rows in order, where
+    `gather`'s would sort all B*S*C entries."""
+    batch = torch.arange(points.shape[0], device=points.device)[:, None]
+    return points[batch, index.long()]
 
 
 def group_points(points: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -13,13 +13,18 @@ Kernels (CUDA tensors) and their plain PyTorch versions (CPU tensors):
   K6 group_slab / ball_query_slab   csrc/slab_select.cu   group_slab_plain
   K7 crop_slab                      csrc/slab_select.cu   crop_slab_plain
   K8 three_nn_slab                  csrc/three_nn_slab.cu three_nn_slab_plain
+     (and flat=True, K8 flat)
   K9 gather_max_slab                csrc/gather_max_slab.cu
                                                      gather_max_slab_plain
 
-The JAX package runs K6-K8 over two grid layouts (a full grid with skipped
-steps and a flat grid of live steps) that scan the same blocks in the same
-order; here one kernel over every ``(tile, scan block)`` stands for both
-(K8 has the full grid only: the flat one has no caller).  A K6 or K7 call
+The JAX package runs K6 and K7 over two grid layouts (a full grid with
+skipped steps and a flat grid of live steps) that scan the same blocks in
+the same order; here one kernel over every ``(tile, scan block)`` stands
+for both.  K8's two grids differ: the bounded one clamps every span to
+`grid_span` blocks, the flat one (``flat=True``) scans the unclamped spans
+where they sum to at most ``G = B*T*5 // 2`` (tile, block) pairs and falls
+back to the bounded grid elsewhere, a choice that a CUDA call makes on
+the card (`three_nn_slab_call`).  A K6 or K7 call
 builds its span table, selects and fills its empty slots on the card in
 three launches (``csrc/slab_select.cu``); `slab_bounds` and
 `finish_select` are their plain versions.  So does a K8 call: span table,
@@ -436,15 +441,29 @@ class SlabNN(NamedTuple):
     lr: torch.Tensor
 
 
+def flat_steps(batch: int, tiles: int) -> int:
+    """G, the (tile, block) pairs of K8's flat grid (JAX ``slab.py:899``)."""
+    return batch * tiles * 5 // 2
+
+
+def flat_grid_span(batch: int, tiles: int, cap: int, nkb: int) -> int:
+    """The blocks a tile of K8 flat's scan grid: room for the longest span
+    the flat grid can take (every other tile keeps one block of G) and for
+    the clamped spans of its fallback."""
+    return max(cap, min(nkb, flat_steps(batch, tiles) - batch * tiles + 1))
+
+
 def three_nn_spans(query: torch.Tensor, key: torch.Tensor, bound: float,
-                   grid_span: int = 3):
+                   grid_span: int = 3, flat: bool = False):
     """Plain PyTorch version of K8's span table: the key-block span
     [start, stop) of every 256-query tile, the keys with x within the
     tile's x-range widened by `bound`, clamped to `grid_span` blocks and
     recentred on the slab (JAX ``slab.py:805-835``); and the x of the
     nearest unscanned key on either side, -1e38 / 1e38 past the ends (the
-    certificate's bounds, ``slab.py:904-915``).  Returns (ss [B, T, 2]
-    int32, lr [B, T, 2] f32)."""
+    certificate's bounds, ``slab.py:904-915``).  With `flat` (K8 flat),
+    the unclamped spans where their lengths sum to at most `flat_steps`
+    and the clamp leaves out a block (JAX ``slab.py:892-901``), else the
+    clamped ones.  Returns (ss [B, T, 2] int32, lr [B, T, 2] f32)."""
     B, Nq, _ = query.shape
     NK = key.shape[1]
     nkb = n_scan_blocks_k(NK)
@@ -458,7 +477,8 @@ def three_nn_spans(query: torch.Tensor, key: torch.Tensor, bound: float,
     stop = torch.clamp(torch.maximum(-(-erow // _SCAN_K), start + 1),
                        max=nkb)
     cap = min(grid_span, nkb)
-    if cap < nkb:
+    if cap < nkb and not (flat and int((stop - start).sum())
+                          <= flat_steps(B, T)):
         mid = (srow + erow) // (2 * _SCAN_K)
         s_ctr = torch.clamp(mid - cap // 2, 0, nkb - cap)
         start_c = torch.where(stop - start > cap, s_ctr, start)
@@ -518,9 +538,11 @@ def three_nn_slab_grid(batch: int, tiles: int, cap: int, sms: int,
 
 
 def three_nn_slab(query: torch.Tensor, key: torch.Tensor,
-                  bound: float = 0.06, grid_span: int = 3):
+                  bound: float = 0.06, grid_span: int = 3,
+                  flat: bool = False):
     """Kernel K8: the 3 nearest keys per query among the keys of its
-    tile's span (`three_nn_spans`).
+    tile's span (`three_nn_spans`); with `flat`, K8 flat: the unclamped
+    spans where they are few enough (JAX's flat grid).
 
     query [B, Nq, 3] (x-sorted for tile locality), key [B, NK, 3] x-ascending.
     Returns (index [B, Nq, 3] int32 into key rows, d2 [B, Nq, 3] ascending
@@ -529,17 +551,22 @@ def three_nn_slab(query: torch.Tensor, key: torch.Tensor,
     nearest key outside the scanned span.  Where it is False the caller
     runs the full scan (`models/backbone.py` does so on the card without
     reading it).  CPU tensors take the plain versions."""
-    r = three_nn_slab_call(query, key, bound, grid_span)
+    r = three_nn_slab_call(query, key, bound, grid_span, flat=flat)
     return r.idx, r.d2, r.proven
 
 
 def three_nn_slab_call(query: torch.Tensor, key: torch.Tensor,
                        bound: float = 0.06, grid_span: int = 3,
-                       count: torch.Tensor | None = None) -> SlabNN:
+                       count: torch.Tensor | None = None,
+                       flat: bool = False) -> SlabNN:
     """K8 with all its outputs (`SlabNN`).  On the card, three launches
     counted as one (span table; scan; merge and certificate) and no host
     sync; `count` (int64 [1] on the card) gains one where the call's
-    certificate fails.  CPU tensors take `three_nn_spans`,
+    certificate fails.  With `flat` and a clamp that leaves out a block,
+    K8 flat (its own count): the span launch also adds up the unclamped
+    spans, and the scan and merge read that total on the card and take
+    the unclamped spans where it is at most `flat_steps`; `ss` and `lr`
+    come back as the spans scanned.  CPU tensors take `three_nn_spans`,
     `three_nn_slab_plain` and `three_nn_certificate`."""
     query = query.float().contiguous()
     key = key.float().contiguous()
@@ -548,7 +575,7 @@ def three_nn_slab_call(query: torch.Tensor, key: torch.Tensor,
     if Nq == 0 or NK == 0:
         raise ValueError(f"three_nn_slab: empty input {Nq}, {NK}")
     if query.device.type == "cpu":
-        ss, lr = three_nn_spans(query, key, bound, grid_span)
+        ss, lr = three_nn_spans(query, key, bound, grid_span, flat)
         idx, d2 = three_nn_slab_plain(query, key, ss)
         return SlabNN(idx, d2, three_nn_certificate(query, d2, lr), None, ss,
                       lr)
@@ -556,22 +583,33 @@ def three_nn_slab_call(query: torch.Tensor, key: torch.Tensor,
     _cuda.check(key, "three_nn_slab key", torch.float32, (B, NK, 3))
     dev = query.device
     T = -(-Nq // _TM_K)
-    cap = min(grid_span, n_scan_blocks_k(NK))
-    q, parts = three_nn_slab_grid(B, T, cap, _cuda.sm_count(dev),
+    nkb = n_scan_blocks_k(NK)
+    cap = min(grid_span, nkb)
+    flat = flat and cap < nkb          # JAX: flat does nothing otherwise
+    gcap = flat_grid_span(B, T, cap, nkb) if flat else cap
+    q, parts = three_nn_slab_grid(B, T, gcap, _cuda.sm_count(dev),
                                   *knn.limits(dev))
     ss = torch.empty(B, T, 2, dtype=torch.int32, device=dev)
     lr = torch.empty(B, T, 2, dtype=torch.float32, device=dev)
-    pidx = torch.empty(B, cap * parts, 3, T * _TM_K, dtype=torch.int32,
+    pidx = torch.empty(B, gcap * parts, 3, T * _TM_K, dtype=torch.int32,
                        device=dev)
-    pd2 = torch.empty(B, cap * parts, 3, T * _TM_K, dtype=torch.float32,
+    pd2 = torch.empty(B, gcap * parts, 3, T * _TM_K, dtype=torch.float32,
                       device=dev)
     idx = torch.empty(B, Nq, 3, dtype=torch.int32, device=dev)
     d2 = torch.empty(B, Nq, 3, dtype=torch.float32, device=dev)
     proven = torch.empty(B, dtype=torch.bool, device=dev)
     fallback = torch.empty(1, dtype=torch.int32, device=dev)
-    _cuda.launch("three_nn_slab", dev, query, key, ss, lr, pidx, pd2, idx,
-                 d2, proven, fallback, count, B, Nq, NK, bound, cap, q,
-                 parts)
+    if flat:
+        ssu = torch.empty(B, T, 2, dtype=torch.int32, device=dev)
+        lru = torch.empty(B, T, 2, dtype=torch.float32, device=dev)
+        total = torch.empty(1, dtype=torch.int32, device=dev)
+        _cuda.launch("three_nn_slab_flat", dev, query, key, ss, lr, ssu, lru,
+                     total, pidx, pd2, idx, d2, proven, fallback, count, B,
+                     Nq, NK, bound, cap, gcap, q, parts)
+    else:
+        _cuda.launch("three_nn_slab", dev, query, key, ss, lr, pidx, pd2,
+                     idx, d2, proven, fallback, count, B, Nq, NK, bound, cap,
+                     q, parts)
     return SlabNN(idx, d2, proven, fallback, ss, lr)
 
 

@@ -1,11 +1,12 @@
-"""Masked model outputs to the reference's compact grasp sets (JAX
-``utils/export.py:18-58``)."""
+"""Masked model outputs to the reference's compact grasp sets, and a
+diverse short list of them (JAX ``utils/export.py``)."""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from regnet_for_3d_grasping_torch.models.regnet import REGNetOutput
 
@@ -14,17 +15,26 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def extract_grasp_sets(out: REGNetOutput) -> List[Dict[str, np.ndarray]]:
+def extract_grasp_sets(out: REGNetOutput,
+                       stage2_mask: np.ndarray | torch.Tensor | None = None
+                       ) -> List[Dict[str, np.ndarray]]:
     """Per batch element, the first 8 channels of:
 
-      grasp_stage2          all stage-2 proposals with a non-empty region
+      grasp_stage2          the stage-2 proposals in `stage2_mask` (all
+                            with a non-empty region by default, the
+                            reference's inference behaviour, grn:65)
       grasp_stage3          refined grasps the refine classifier accepts
       grasp_stage3_stage2   the stage-2 poses of those
       grasp_stage3_score    accepted grasps above the score threshold
-    """
+
+    `stage2_mask` [B, NC] (e.g. the GT-matched mask during validation) is
+    taken within the valid regions."""
     proposals = _np(out.proposals)[..., :8]
     final = _np(out.final_grasps)[..., :8]
     m2 = _np(out.region_valid)
+    if stage2_mask is not None:
+        m2 = m2 & (_np(stage2_mask) if isinstance(stage2_mask, torch.Tensor)
+                   else np.asarray(stage2_mask, bool))
     m3 = m2 & _np(out.refine_accept)
     m3s = m2 & _np(out.score_accept)
     return [{"grasp_stage2": proposals[b][m2[b]],
@@ -32,3 +42,24 @@ def extract_grasp_sets(out: REGNetOutput) -> List[Dict[str, np.ndarray]]:
              "grasp_stage3_stage2": proposals[b][m3[b]],
              "grasp_stage3_score": final[b][m3s[b]]}
             for b in range(proposals.shape[0])]
+
+
+def select_diverse_grasps(grasps: np.ndarray, k: int,
+                          min_center_dist: float = 0.03) -> np.ndarray:
+    """Score-ordered spatial NMS (JAX ``utils/export.py:61``): the `k` best
+    grasps (column 7) whose centers lie at least `min_center_dist` apart,
+    greedily, best first.  grasps [G, 8] -> [<= k, 8]."""
+    if len(grasps) == 0 or k <= 0:
+        return grasps[:0]
+    g = np.asarray(grasps)
+    order = np.argsort(-g[:, 7])
+    kept: list[int] = []
+    centers = g[order, :3]
+    for i in range(len(order)):
+        c = centers[i]
+        if all(np.dot(c - centers[j], c - centers[j])
+               >= min_center_dist * min_center_dist for j in kept):
+            kept.append(i)
+            if len(kept) == k:
+                break
+    return g[order[kept]]

@@ -280,8 +280,7 @@ def test_infer_cli_writes_the_prediction_pickle(tmp_path):
                      "view_cloud_color": pc[:, 3:]}, f)
     args = ["--folder-name", str(folder), "--center-num", "8",
             "--all-points-num", "512", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        infer.main(args)
+    evaluated = infer.main(args)[0]["sets"]
     recs = infer.main(args + ["--no-eval"])
     assert len(recs) == 1
     with open(tmp_path / "scene_data_predict" / "0000.p", "rb") as f:
@@ -291,3 +290,6 @@ def test_infer_cli_writes_the_prediction_pickle(tmp_path):
                          "grasp_stage3_score"}
     assert pred["scores"].shape == (512, 1)
     assert pred["grasp_stage2"].shape[1] == 8
+    # without --no-eval each set keeps the grasps that pass the view filter
+    for k, raw in recs[0]["sets"].items():
+        assert len(evaluated[k]) <= len(raw)
