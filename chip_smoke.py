@@ -112,9 +112,29 @@ result unless every phase passed):
    scan f32 and bf16 slab, losses and parameters bit-equal; and the four
    training configurations once with the CLI's deterministic block
    replaced by a no-op, for its cost in step time;
+(f) the serving knobs through the infer CLI on the 3 clouds, one
+   run each: ``--center-min-z 0.75 --pose-search 8``, ``--refine-guard``,
+   ``--center-select bucket``, ``--fast --pose-search 8 --refine-guard``
+   and ``--slab-cell 0.04 --fps-groups 8 --pose-search 8``, counters as in
+   4 (the funnels are PyTorch; the bucket selection replaces the center
+   FPS), the forward and the pose search and guard timed apart, every
+   center above the prior where a positive lies above it, and the guard's
+   invariant at subsample 1 (every stage-2 survivor of the funnel survives
+   at stage 3); each configuration also joins the card-CPU forwards below,
+   with the search and the guard on the card given the CPU's inputs equal
+   to the CPU's results bit for bit;
+(g) the train CLI's flags that no other phase drives, at batch 12 on
+   phase 8's scenes (after phases 8-17): ``--eval-grasps --eval-every 1``
+   (VGR records logged,
+   the evaluation's seconds), ``--geom-aug 1.0 --native-loader
+   --profile-dir`` (4 native batches, 4 augmented, a trace naming the
+   port's kernels) and ``--remat`` (after 4 steps bit-equal to phase 8's
+   run, its peak memory and step times beside phase 8's), each with phase
+   8's launch counts;
 5., 7., 13., 14. one forward of each serving path (full scan, slab, bf16
-   full scan, ``--fast``) on the card and on the CPU (plain versions, the
-   CPU twin of the bf16 GEMM) with the same seeds and sort noise: f32
+   full scan, ``--fast``; and phase (f)'s five) on the card and on the CPU
+   (plain versions, the CPU twin of the bf16 GEMM) with the same seeds and
+   sort noise: f32
    scores within 1e-4 and every selection 99 % equal; bf16 as
    `compare_phases` says (the scores against how far two GEMM recipes on
    the CPU drift apart, everything after the score with the CPU's
@@ -1696,12 +1716,14 @@ def serve(argv_extra, tmp, label, check_eval=False):
     return records, launches, fallbacks
 
 
-def train(argv_extra, tmp, label, n_val, want_step, want_val):
+def train(argv_extra, tmp, label, n_val, want_step, want_val, keep=None):
     """Drive the train CLI for one epoch of 4 steps at batch 12 (and its
     validation forwards, which run the exact full-scan configuration at
     batch 1); returns the launch counts, read just after a run that started
     with the counters at 0.  `want_step` / `want_val`: launches per training
-    step and per validation forward."""
+    step and per validation forward.  `keep` (a dict) receives the CLI's
+    result (``res``), the peak device memory (``peak``) and the step ms
+    (``ms``)."""
     from regnet_for_3d_grasping_torch.cli import train as train_cli
     from regnet_for_3d_grasping_torch.ops import _cuda
     argv = ["--mode", "train", "--data-path", str(Path(tmp) / "scenes"),
@@ -1763,6 +1785,8 @@ def train(argv_extra, tmp, label, n_val, want_step, want_val):
     check(res["eval_cfg"].model.compute_dtype == "float32"
           and res["eval_cfg"].region.slab_cell == 0.0,
           f"{label}: validation forwards not f32 at exact geometry")
+    if keep is not None:
+        keep.update(res=res, peak=peak, ms=ms)
     return launches
 
 
@@ -2092,6 +2116,10 @@ def forward_fields(overrides: dict, pc: np.ndarray, device: str,
             stack.enter_context(replaced(
                 regnet, "select_score_centers",
                 lambda cloud, *_: (gather_points(cloud, idx), idx)))
+        knobs = {}
+        for name in ("pose_search_thetas", "funnel_guard_refine"):
+            stack.enter_context(replaced(regnet, name, capturing(
+                getattr(regnet, name), knobs.setdefault(name, []))))
         stack.enter_context(torch.inference_mode())
         model = regnet.build_regnet(infer_config(**overrides), WEIGHTS,
                                     device)
@@ -2099,10 +2127,25 @@ def forward_fields(overrides: dict, pc: np.ndarray, device: str,
     fields = {k: getattr(out, k).float().cpu().numpy() if
               getattr(out, k).is_floating_point()
               else getattr(out, k).cpu().numpy() for k in FIELDS}
+    fields |= {k: v[0] for k, v in knobs.items() if v}
     if out.point_order is not None:
         fields["point_order"] = out.point_order.cpu().numpy()
     fields["seconds"] = time.perf_counter() - t0
     return fields
+
+
+def capturing(fn, calls: list):
+    """`fn`, which also appends each call's tensor arguments and result,
+    as numpy, to `calls`."""
+    def run(*args):
+        out = fn(*args)
+        calls.append({"args": [a.float().cpu().numpy() for a in args[:3]
+                               if isinstance(a, torch.Tensor)],
+                      "dtypes": [str(a.dtype) for a in args[:3]
+                                 if isinstance(a, torch.Tensor)],
+                      "out": out.float().cpu().numpy()})
+        return out
+    return run
 
 
 class CpuForwards:
@@ -2222,11 +2265,13 @@ def training_phases(dev) -> dict:
     n_val = 12
     val = {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
            "gather_max": 2}
+    full_step = {"fps": 4, "ball_query": 1, "three_nn": 1,
+                 "group_regions": 1, "gather_max_argmax": 2,
+                 "gather_max_backward": 2}
+    plain = {}
     with tempfile.TemporaryDirectory() as tmp:
-        train_full = train(
-            ["--synthetic-scenes", "60"], tmp, "full-scan", n_val,
-            {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
-             "gather_max_argmax": 2, "gather_max_backward": 2}, val)
+        train_full = train(["--synthetic-scenes", "60"], tmp, "full-scan",
+                           n_val, full_step, val, plain)
         with SlabNNProbe() as probe:
             train_slab = train(
                 ["--slab-cell", str(SLAB_CELL), "--fps-groups",
@@ -2254,15 +2299,19 @@ def training_phases(dev) -> dict:
                  "gather_max_slab_argmax_bf16": 2,
                  "gather_max_backward_bf16": 2}, val)
         probe.report()
+        # (g) the train CLI's flags that no other phase drives
+        t0 = time.perf_counter()
+        knobs = training_knob_phase(tmp, plain, n_val, full_step, val)
+        print(f"phase (g): {time.perf_counter() - t0:.1f} s")
     return {"train_full_scan": train_full, "train_slab": train_slab,
-            "train_bf16_full_scan": bf16_full, "train_bf16_slab": bf16_slab}
+            "train_bf16_full_scan": bf16_full, "train_bf16_slab": bf16_slab,
+            **knobs}
 
 
-def serving_phases(slab_kernel_names, train_kernel_names,
-                   bf16_kernel_names) -> dict:
-    """Phases 4, 6, 11 and 12: each serving path through the infer CLI on
-    3 clouds, launch counts reset before and read after.  Returns the
-    counts by path."""
+def serving_wants(slab_kernel_names, train_kernel_names,
+                  bf16_kernel_names) -> dict:
+    """The launches of one forward on each serving path (full scan, slab,
+    bf16 full scan, `--fast`), by kernel."""
     f32_zero = dict.fromkeys(train_kernel_names + bf16_kernel_names, 0)
     full_want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
                  "crop": 1, "group_regions": 1,
@@ -2274,21 +2323,29 @@ def serving_phases(slab_kernel_names, train_kernel_names,
                  "ball_query": 0, "gather_max": 0, "crop": 0,
                  "group_regions": 0, **f32_zero}
     # the bf16 paths launch the bf16 pools and no f32 pool
-    bf16_full_want = full_want | {"gather_max": 0, "gather_max_bf16": 2}
-    fast_want = slab_want | {"gather_max_slab": 0, "gather_max_slab_bf16": 2}
+    return {"full_scan": full_want, "slab": slab_want,
+            "bf16_full_scan": full_want | {"gather_max": 0,
+                                           "gather_max_bf16": 2},
+            "fast": slab_want | {"gather_max_slab": 0,
+                                 "gather_max_slab_bf16": 2}}
+
+
+def serving_phases(wants: dict) -> dict:
+    """Phases 4, 6, 11 and 12: each serving path through the infer CLI on
+    3 clouds, launch counts reset before and read after (`wants`: one
+    forward's, by path).  Returns the counts by path."""
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for key, label, flags, want in (
+        for key, label, flags in (
                 # 4. the full-scan path; 6. the sorted-slab serving path
-                ("full_scan", "full-scan", [], full_want),
+                ("full_scan", "full-scan", []),
                 ("slab", "slab", ["--slab-cell", str(SLAB_CELL),
-                                  "--fps-groups", str(FPS_GROUPS)],
-                 slab_want),
+                                  "--fps-groups", str(FPS_GROUPS)]),
                 # 11. bf16 on the full scan; 12. the JAX configuration of
                 # record, bf16 + slab + G = 8
-                ("bf16_full_scan", "bf16-full-scan", ["--bf16"],
-                 bf16_full_want),
-                ("fast", "fast", ["--fast"], fast_want)):
+                ("bf16_full_scan", "bf16-full-scan", ["--bf16"]),
+                ("fast", "fast", ["--fast"])):
+            want = wants[key]
             _, launches, fallbacks = serve(flags, tmp, label,
                                            check_eval=key == "full_scan")
             for k, n in want.items():
@@ -2326,6 +2383,8 @@ def compare_phases(pc, compared, cpu) -> dict:
         print(f"{label}: cpu forward {ref['seconds']:.1f}s")
         card = forward_fields(over, pc, "cuda", rand)
         agreement[label] = out = card_vs_cpu(card, ref, label)
+        if "pose_search_thetas" in ref or "funnel_guard_refine" in ref:
+            out |= knobs_on_cpu_inputs(over, card, ref, label)
         if "model.compute_dtype" not in over:
             hold(out, label, 0.99, 1e-4)
             continue
@@ -2346,6 +2405,320 @@ def compare_phases(pc, compared, cpu) -> dict:
         hold(agreement[run], run, 0.97)
     print(json.dumps({"card_vs_cpu": agreement}))
     return agreement
+
+
+def knobs_on_cpu_inputs(over, card, cpu, label) -> dict:
+    """Phase (f)'s card-CPU checks of the knobs: the pose search and the
+    guard on the card, given the CPU forward's inputs (its cloud in model
+    order, its stage-2 proposals, its refined grasps), equal the CPU's
+    results bit for bit; between the two forwards, the chosen thetas are
+    equal on every row whose stage-2 proposal is equal, and in f32 the
+    same variant is chosen on at least 99 % of the rows."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+    from regnet_for_3d_grasping_torch.models import regnet
+    cfg = infer_config(**over)
+    r, g = cfg.region, cfg.gripper
+    dt = {"torch.float32": torch.float32, "torch.bfloat16": torch.bfloat16}
+
+    def on_card(call):
+        return [torch.from_numpy(a).cuda().to(dt[d])
+                for a, d in zip(call["args"], call["dtypes"])]
+
+    out = {}
+    with torch.inference_mode():
+        if "pose_search_thetas" in cpu:
+            call = cpu["pose_search_thetas"]
+            got = regnet.pose_search_thetas(
+                *on_card(call), r.pose_search_k, r.pose_search_subsample,
+                r.pose_search_table, g).float().cpu().numpy()
+            check(np.array_equal(got, call["out"]), f"{label}: the pose "
+                  f"search on the card differs from the CPU's on its inputs")
+            before, after = call["args"][1], call["out"]
+            out["search_changed_thetas"] = int(
+                (before[..., 6] != after[..., 6]).sum())
+            mine = card["pose_search_thetas"]
+            same = (mine["args"][1] == before).all(-1)
+            check(np.array_equal(mine["out"][same][:, 6],
+                                 after[same][:, 6]),
+                  f"{label}: equal stage-2 proposals, other thetas")
+            out["search_rows_equal_inputs"] = int(same.sum())
+
+            def variant(call):
+                step = 2 * np.pi / r.pose_search_k
+                d = call["out"][..., 6] - call["args"][1][..., 6]
+                return np.rint(d / step).astype(np.int64) % r.pose_search_k
+
+            # the variant each side chose, on its own stage-2 proposals
+            out["search_variant_equal_share"] = float(
+                (variant(mine) == variant(call)).mean())
+            if "model.compute_dtype" not in over:
+                check(out["search_variant_equal_share"] >= 0.99,
+                      f"{label}: the two forwards chose other variants")
+        if "funnel_guard_refine" in cpu:
+            call = cpu["funnel_guard_refine"]
+            got = regnet.funnel_guard_refine(
+                *on_card(call), r.refine_guard_subsample,
+                r.pose_search_table, g).float().cpu().numpy()
+            check(np.array_equal(got, call["out"]), f"{label}: the guard "
+                  f"on the card differs from the CPU's on its inputs")
+            restored = (call["out"][..., :7] != call["args"][1][..., :7]
+                        ).any(-1)
+            mine = card["funnel_guard_refine"]
+            out["guard_restored"] = int(restored.sum())
+            out["guard_choice_equal_share"] = float((
+                (mine["out"][..., :7] != mine["args"][1][..., :7]).any(-1)
+                == restored).mean())
+    print(f"{label}: the knobs on the card given the CPU's inputs equal the "
+          f"CPU's: {out}")
+    return out
+
+
+# --- the serving knobs and the train CLI's other flags ----------------------
+
+def knob_runs() -> tuple:
+    """Phase (f)'s configurations: (key, infer CLI flags, configuration
+    overrides, the randomness of the card-CPU forward: "full" or
+    "slab")."""
+    slab = {"region.slab_cell": SLAB_CELL, "model.fps_groups": FPS_GROUPS,
+            "region.center_fps_groups": FPS_GROUPS}
+    search = {"region.pose_search_k": 8}
+    guard = {"region.refine_guard": True}
+    return (
+        # the JAX knob run of record (docs/evidence/real_data_r5_knobs.json:
+        # exact + min-z 0.75 + search 8), here on synthetic clouds
+        ("knob-minz-search", ["--center-min-z", "0.75", "--pose-search",
+                              "8"], {"region.center_min_z": 0.75, **search},
+         "full"),
+        ("knob-guard", ["--refine-guard"], guard, "full"),
+        ("knob-bucket", ["--center-select", "bucket"],
+         {"region.center_select": "bucket"}, "full"),
+        ("knob-fast-search-guard", ["--fast", "--pose-search", "8",
+                                    "--refine-guard"],
+         {**slab, "model.compute_dtype": "bfloat16", **search, **guard},
+         "slab"),
+        # the search's stride over the slab-sorted cloud
+        ("knob-slab-search", ["--slab-cell", str(SLAB_CELL), "--fps-groups",
+                              str(FPS_GROUPS), "--pose-search", "8"],
+         {**slab, **search}, "slab"))
+
+
+class KnobProbe:
+    """Within the block, every call of the pose search and of the guard is
+    timed on the card (CUDA events around it, read after the run) and kept
+    with its arguments and result, and every center selection keeps the
+    cloud's z, the scores, its arguments and the centers' z."""
+
+    def __init__(self):
+        self.calls = {"pose_search_thetas": [], "funnel_guard_refine": []}
+        self.select = []
+
+    def __enter__(self):
+        from regnet_for_3d_grasping_torch.models import regnet
+        self.stack = contextlib.ExitStack()
+        for name, calls in self.calls.items():
+            self.stack.enter_context(replaced(
+                regnet, name, self._timed(getattr(regnet, name), calls)))
+        select = regnet.select_score_centers
+
+        def spy(pc, score, *args):
+            out = select(pc, score, *args)
+            self.select.append((pc[..., 2], score, args, out[0][..., 2]))
+            return out
+
+        self.stack.enter_context(replaced(regnet, "select_score_centers",
+                                          spy))
+        return self
+
+    @staticmethod
+    def _timed(fn, calls):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            calls.append((start, end, args, out))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+    def ms(self, name) -> list:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e, *_ in self.calls[name]]
+
+
+def knob_serving_phase(wants: dict) -> tuple:
+    """Phase (f): the infer CLI with the serving knobs on the 3 tabletop
+    clouds at full width, one run per `knob_runs` configuration, the
+    launch counters reset before and read after (the funnels launch no
+    kernel of the port; the bucket selection replaces the center FPS);
+    the forward timed, and the pose search and the guard timed apart.
+    Checks: with `center_min_z`, every center lies above it where the
+    cloud has a positive above it; at `refine_guard_subsample` 1, every
+    stage-2 survivor of the funnel survives at stage 3 (on the card).
+    Returns (launches by run, readings by run)."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+    from regnet_for_3d_grasping_torch.eval.collision import view_check_funnel
+    paths, readings = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, flags, over, _ in knob_runs():
+            base = ("fast" if "model.compute_dtype" in over else "slab") \
+                if "region.slab_cell" in over else "full_scan"
+            want = dict(wants[base])
+            if over.get("region.center_select") == "bucket":
+                want["fps"] -= 1
+            with KnobProbe() as probe:
+                records, launches, _ = serve(flags, tmp, key)
+            for k, n in want.items():
+                check(launches[k] == 3 * n, f"{key}: {k} launched "
+                      f"{launches[k]} times in 3 forwards, expected {3 * n}")
+            cfg = infer_config(**over)
+            reading = {"forward_ms": [r["forward_s"] * 1e3 for r in records],
+                       "pose_search_ms": probe.ms("pose_search_thetas"),
+                       "guard_ms": probe.ms("funnel_guard_refine")}
+            check(len(reading["pose_search_ms"]) == 3 * bool(
+                cfg.region.pose_search_k) and len(reading["guard_ms"])
+                == 3 * cfg.region.refine_guard, f"{key}: knob calls")
+            min_z = cfg.region.center_min_z
+            if min_z is not None:
+                for z, score, args, cz in probe.select:
+                    has = ((score > args[1]) & (z > min_z)).any(-1)
+                    check(bool((cz[has] > min_z).all()), f"{key}: a center "
+                          f"below {min_z} where a positive lies above it")
+                reading["clouds_with_a_positive_above"] = sum(
+                    int(((s > a[1]) & (z > min_z)).any()) for z, s, a, _
+                    in probe.select)
+            search = probe.calls["pose_search_thetas"]
+            reading["search_changed_thetas"] = [
+                int((out[..., 6] != args[1][..., 6]).sum())
+                for *_, args, out in search]
+            guard = []
+            for *_, args, out in probe.calls["funnel_guard_refine"]:
+                pts, refined, s2, sub = args[:4]
+                f = [view_check_funnel(pts[0].float(), x[0, :, :8].float(),
+                                       cfg.region.pose_search_table,
+                                       cfg.gripper.depth, cfg.gripper,
+                                       cfg.eval)["survive"]
+                     for x in (s2, refined, out)]
+                if sub == 1:
+                    check(bool((f[2] | ~f[0]).all()), f"{key}: a stage-2 "
+                          f"survivor failed at stage 3 after the guard")
+                guard.append({"stage2_survivors": int(f[0].sum()),
+                              "refined_survivors": int(f[1].sum()),
+                              "served_survivors": int(f[2].sum()),
+                              "restored": int((out[0, :, :7] != refined[
+                                  0, :, :7]).any(-1).sum())})
+            reading["guard"] = guard
+            print(f"{key}: forward ms {reading['forward_ms']}, pose search "
+                  f"ms {reading['pose_search_ms']}, guard ms "
+                  f"{reading['guard_ms']}, "
+                  + json.dumps({k: v for k, v in reading.items()
+                                if not k.endswith("_ms")}))
+            paths[key], readings[key] = launches, reading
+    return paths, readings
+
+
+def training_knob_phase(tmp, plain: dict, n_val: int, step_want: dict,
+                        val_want: dict) -> dict:
+    """Phase (g): the train CLI at batch 12 and full width on phase 8's
+    scenes with each flag no other phase drives: `--eval-grasps
+    --eval-every 1` (the VGR records logged, the evaluation's seconds in
+    the epoch);
+    `--geom-aug 1.0 --native-loader --profile-dir` (every step's batch
+    from the native loader, augmented; a trace naming the port's kernels);
+    `--remat` against phase 8's run without it (`plain`): parameters and
+    statistics after the epoch's 4 steps bit-equal, losses equal, peak
+    memory and step times of both.  Each run's launches as phase 8's:
+    remat relaunches no kernel.  Returns the launches by run."""
+    import re
+    from regnet_for_3d_grasping_torch.data import augment, native_loader
+    from regnet_for_3d_grasping_torch.eval import evaluator
+    from regnet_for_3d_grasping_torch.ops._cuda import CSRC
+    paths = {}
+    spent = []
+    evaluate = evaluator.evaluate_scene_grasps
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        rec = evaluate(*args, **kw)
+        spent.append(time.perf_counter() - t0)
+        return rec
+
+    keep = {}
+    t0 = time.perf_counter()
+    with replaced(evaluator, "evaluate_scene_grasps", timed):
+        paths["train_eval_grasps"] = train(
+            ["--eval-grasps", "--eval-every", "1"], tmp, "eval-grasps",
+            n_val, step_want, val_want, keep)
+    seconds = time.perf_counter() - t0
+    recs = keep["res"]["grasp_records"]
+    check(len(recs) == 1 and recs[0]["records"]["stage2"].formal > 0,
+          "(g) no grasp records")
+    with open(Path(tmp) / "log" / "eval-grasps" / "metrics.jsonl") as f:
+        logged = {json.loads(line)["tag"] for line in f}
+    check("epoch_validate_stage2_vgr" in logged, "(g) VGR not logged")
+    print(f"(g) --eval-grasps: {len(spent)} evaluator calls, "
+          f"{sum(spent):.3f} s of evaluation in the epoch's validation "
+          f"({n_val} scenes; the run {seconds:.1f} s); records "
+          + json.dumps({k: {"vgr": v.vgr, "score": v.score, "formal":
+                            v.formal} for k, v in
+                        recs[0]["records"].items()})
+          + f"; logged {sorted(t for t in logged if t.startswith('epoch_'))}")
+
+    counts = {"augment": 0, "native": 0}
+    aug, nxt = augment.augment_batch, native_loader.NativeLoader.next_batch
+
+    def aug_spy(*args):
+        counts["augment"] += 1
+        return aug(*args)
+
+    def next_spy(self):
+        counts["native"] += 1
+        return nxt(self)
+
+    keep = {}
+    trace_dir = Path(tmp) / "trace"
+    with replaced(augment, "augment_batch", aug_spy), \
+            replaced(native_loader.NativeLoader, "next_batch", next_spy):
+        paths["train_aug_native"] = train(
+            ["--geom-aug", "1.0", "--native-loader", "--profile-dir",
+             str(trace_dir)], tmp, "aug-native", n_val, step_want, val_want,
+            keep)
+    check(counts == {"augment": 4, "native": 4}, f"(g) {counts}")
+    trace = keep["res"]["trace"]
+    check(trace is not None and Path(trace).exists(), "(g) no trace")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    texts = [src.read_text() for src in CSRC.glob("*.cu*")]
+    names = {m for t in texts
+             for m in re.findall(r"\b(\w+_kernel)\s*\(", t)}
+    found = {n for e in events if e.get("cat") == "kernel"
+             for n in names if n in e.get("name", "")}
+    check("fps_cluster_kernel" in found and len(found) >= 4,
+          f"(g) the trace names {sorted(found)}")
+    print(f"(g) --geom-aug 1.0 --native-loader: 4 native batches, 4 "
+          f"augmented; trace {Path(trace).name} "
+          f"({Path(trace).stat().st_size} bytes, {len(events)} events) "
+          f"names the port's kernels {sorted(found)}")
+
+    keep = {}
+    paths["train_remat"] = train(["--remat"], tmp, "remat", n_val,
+                                 step_want, val_want, keep)
+    a, b = plain["res"], keep["res"]
+    check([s["loss"] for s in a["steps"]] == [s["loss"] for s in b["steps"]],
+          "(g) --remat changed the losses")
+    sa, sb = a["model"].state_dict(), b["model"].state_dict()
+    check(all(torch.equal(sa[n], sb[n]) for n in sa),
+          "(g) --remat: parameters or statistics differ after 4 steps")
+    print(f"(g) --remat: losses, parameters and BatchNorm statistics "
+          f"bit-equal to phase 8's after 4 steps; peak "
+          f"{keep['peak'] / 2**30:.3f} GiB (without: "
+          f"{plain['peak'] / 2**30:.3f}), step ms "
+          f"{[round(x, 3) for x in keep['ms']]} (without: "
+          f"{[round(x, 3) for x in plain['ms']]})")
+    return paths
 
 
 # --- PR 11: K8 flat, determinism, the evaluator, the suite -----------------
@@ -2951,9 +3324,20 @@ def main() -> None:
                 "fast": (slab_over | bf16_over, slab_rand),
                 "bf16 full-scan" + F64: (bf16_over, full_rand, "f64"),
                 "fast" + F64: (slab_over | bf16_over, slab_rand, "f64")}
-    paths = serving_phases(slab_kernel_names, train_kernel_names,
-                           bf16_kernel_names)
+    wants = serving_wants(slab_kernel_names, train_kernel_names,
+                          bf16_kernel_names)
+    paths = serving_phases(wants)
     paths["k8_flat_entry"] = flat_launches
+    # (f) the serving knobs through the infer CLI, and one forward of each
+    # configuration against the CPU's (in `compared`, below)
+    t0 = time.perf_counter()
+    knob_paths, knob_serving = knob_serving_phase(wants)
+    paths |= knob_paths
+    print(f"phase (f): {time.perf_counter() - t0:.1f} s")
+    for key, _, over, rand in knob_runs():
+        compared[key] = (over, {"full": full_rand, "slab": slab_rand}[rand])
+        if "model.compute_dtype" in over:
+            compared[key + F64] = (over, compared[key][1], "f64")
     # (e) suite v2 through the metrics CLI, both configurations
     suite = suite_phase(ROOT / "chiprun_out" / "suite")
     # (c) the evaluator on the card; the CPU's side in a helper beside the
@@ -2990,7 +3374,7 @@ def main() -> None:
         step_data.cleanup()
     print(json.dumps({"bf16_train_step_card_vs_cpu": step}))
     print(json.dumps({"determinism": det, "evaluator": evaluator,
-                      "suite_v2": suite}))
+                      "suite_v2": suite, "knob_serving": knob_serving}))
 
     main_path = {**dict.fromkeys(results, "full_scan"),
                  **dict.fromkeys(slab_kernel_names, "slab"),

@@ -15,6 +15,11 @@ grasp.  Every cloud's forward draws its seeds from a generator seeded with
 (slab order with ``--slab-cell``), beside the input cloud as loaded: the
 JAX CLI writes the two the same way and pairs them nowhere.
 
+``--center-select``, ``--center-min-z``, ``--pose-search`` and
+``--refine-guard`` are the JAX CLI's serving knobs (its
+``cli/infer.py:67-89``); only ``--dp`` (data-parallel serving) is not
+ported.
+
 ``--fast`` is the JAX package's serving configuration of record: bf16
 network compute with f32 geometry, the sorted slab (cell 0.04) and grouped
 FPS (G = 8); ``--bf16`` alone is bf16 on the full scan.  ``--slab-cell``
@@ -24,7 +29,8 @@ Usage:
   python -m regnet_for_3d_grasping_torch.cli.infer [--no-eval] \\
       --folder-name /path/to/virtual_data \\
       --checkpoint weights/r5_real_e100.npz [--fast | --bf16]
-      [--slab-cell 0.04 --fps-groups 8]
+      [--slab-cell 0.04 --fps-groups 8] [--center-min-z 0.75] \\
+      [--pose-search 8] [--refine-guard] [--center-select bucket]
 """
 
 from __future__ import annotations
@@ -58,6 +64,23 @@ def build_parser():
     p.add_argument("--num-refine", type=int, default=1)
     p.add_argument("--refine-pose", default="full",
                    choices=["full", "center", "off"])
+    p.add_argument("--center-select", default="fps",
+                   choices=["fps", "bucket"],
+                   help="center selection (region.center_select): 'bucket' "
+                        "takes the best score in each index bucket, with no "
+                        "sequential FPS loop")
+    p.add_argument("--center-min-z", type=float, default=None,
+                   help="keep the centers above this z (region."
+                        "center_min_z), e.g. the evaluation protocol's table "
+                        "plane where the real table lies below it")
+    p.add_argument("--pose-search", type=int, default=0,
+                   help="try K theta variants per proposal and serve the "
+                        "one nearest the prediction that survives the view "
+                        "collision funnel (region.pose_search_k; 0 = off)")
+    p.add_argument("--refine-guard", action="store_true",
+                   help="serve the stage-2 pose where the refined pose fails "
+                        "the view collision funnel and the stage-2 pose "
+                        "survives it (region.refine_guard)")
     add_serving_flags(p)
     return p
 
@@ -106,6 +129,10 @@ def config_from_args(args):
         "region.accept_margin": args.accept_margin,
         "region.refine_iters": args.num_refine,
         "region.refine_pose": args.refine_pose,
+        "region.center_select": args.center_select,
+        "region.center_min_z": args.center_min_z,
+        "region.pose_search_k": args.pose_search,
+        "region.refine_guard": args.refine_guard,
         **serving_overrides(args),
     })
 

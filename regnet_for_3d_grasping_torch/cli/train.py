@@ -1,12 +1,20 @@
 """Training CLI of the PyTorch port (JAX ``cli/train.py``), one device.
 
 Modes: train (all three losses), pretrain_score, pretrain_region,
-validate[_score|_region], test[_score|_region] (loss metrics only).
+validate[_score|_region], test[_score|_region].  With ``--eval-grasps`` the
+validation forwards' grasp sets also go through the geometric evaluator
+(`eval.evaluator.evaluate_scene_grasps`, scene by scene on the model's
+device, as the JAX CLI does on one device): every ``--eval-every``-th
+epoch and the last in the train modes, always in the validate and test
+modes, never at stage ``score``; each stage's VGR, score and VGR before
+the view check are logged as ``epoch_{mode}_{stage}_vgr`` and so on.
 
 Usage:
   python -m regnet_for_3d_grasping_torch.cli.train --mode train \\
       --synthetic-scenes 24 --data-path /tmp/scenes --batch-size 12 \\
       --epoch 1 [--bf16] [--slab-cell 0.04 --fps-groups 8] [--device cpu]
+      [--eval-grasps --eval-every 5] [--geom-aug 1.0] [--native-loader]
+      [--remat] [--profile-dir /tmp/trace]
 
 ``--bf16 --slab-cell 0.04 --fps-groups 8`` is the configuration that
 trained the served weights ``weights/r5_real_e100.npz``.  The training
@@ -17,15 +25,22 @@ in the train steps (bf16 GEMMs, pools and losses' logits) while the
 parameters, the Adam state and BatchNorm's running statistics stay f32,
 and all geometry stays f32.
 
+The training leftovers of the JAX CLI: ``--geom-aug`` (`data/augment.py`:
+Kinect noise and a rigid jitter per scene, drawn per epoch from
+``RandomState(seed + 7919 + epoch)``), ``--native-loader`` (the C++ batch
+loader, `data/native_loader.py`; it raises where its library does not
+build, where JAX falls back to the Python loader), ``--remat`` (the
+backbone's activations recomputed in the backward, `models/backbone.py`)
+and ``--profile-dir`` (a ``torch.profiler`` trace of steps 3-7 of the
+first epoch, written as a Chrome trace into the directory).
+
 Runs on the card unless ``--device cpu`` asks for the plain PyTorch
 versions of the kernels.  Every run is bit-reproducible, as the JAX
 package's is: the CLI runs under `torch.use_deterministic_algorithms`
 (`deterministic`), with cuBLAS's fixed workspace
 (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here unless the caller set it
-before the first cuBLAS call).  Not ported yet, so argparse rejects them
-(see ROADMAP.md queue A): --eval-grasps / --eval-every (the evaluator's
-use in training), --native-loader, --geom-aug, --profile-dir, --remat,
-data parallelism.
+before the first cuBLAS call).  Data parallelism is not ported (ROADMAP.md
+queue A item 7).
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 MODE_STAGE = {
@@ -87,6 +103,12 @@ def build_parser():
     p.add_argument("--scene-layout", type=str, default="origin",
                    choices=["origin", "randomized"],
                    help="synthetic scene layout (data/synthetic.py)")
+    p.add_argument("--eval-grasps", action="store_true",
+                   help="run the geometric evaluator on the validation "
+                        "forwards' grasp sets (slower)")
+    p.add_argument("--eval-every", type=int, default=1,
+                   help="evaluate grasps only every K validation epochs "
+                        "(and the last); the loss metrics run every epoch")
     p.add_argument("--num-points", type=int, default=25600)
     p.add_argument("--tiny", action="store_true",
                    help="tiny model and shapes (smoke tests)")
@@ -101,6 +123,21 @@ def build_parser():
     p.add_argument("--fps-groups", type=int, default=1,
                    help="stratified FPS at SA1 in the TRAIN forward "
                         "(model.fps_groups; validation forwards stay exact)")
+    p.add_argument("--native-loader", action="store_true",
+                   help="the C++ threaded batch loader "
+                        "(data/native_loader.py)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the backbone's activations in the "
+                        "backward (less memory, one more backbone forward)")
+    p.add_argument("--geom-aug", type=float, default=0.0,
+                   help="geometric augmentation severity (data/augment.py): "
+                        "Kinect noise on the view cloud and a rigid jitter "
+                        "per scene; 0 = off, 1.0 = the published Kinect v1 "
+                        "magnitudes, 10%% dropout, full z rotation, "
+                        "cm-scale translation")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="write a torch.profiler trace of steps 3-7 of the "
+                        "first epoch into this directory")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -159,10 +196,11 @@ def deterministic():
 
 def main(argv=None) -> dict:
     """Returns {"model", "cfg", "eval_cfg", "steps": [{"epoch", "loss",
-    "seconds"}], "validation": [metrics of each validation forward]}; a
-    step's seconds
-    are synchronized on the device and cover the batch upload, the forward,
-    the backward and the update."""
+    "seconds"}], "validation": [metrics of each validation forward],
+    "grasp_records": [{"epoch", "mode", "records": {stage: EvalRecord}}]
+    (one per epoch that evaluated grasps), "trace": the profiler trace's
+    path or None}; a step's seconds are synchronized on the device and
+    cover the batch upload, the forward, the backward and the update."""
     args = build_parser().parse_args(argv)
     with deterministic():
         return _run(args)
@@ -190,6 +228,9 @@ def _run(args) -> dict:
         args.num_points = cfg.region.num_points
     else:
         cfg = train_config(**{"region.num_points": args.num_points, **over})
+    if args.remat:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat_backbone=True))
     # the training knobs apply to the TRAIN config only; validation
     # forwards keep the exact geometry and f32 compute of `exact_cfg`
     exact_cfg = cfg
@@ -257,19 +298,99 @@ def _run(args) -> dict:
     eval_model = (model if eval_cfg == cfg and not args.center_jitter
                   else build_model(eval_cfg, args.seed, device))
     result = {"model": model, "cfg": cfg, "eval_cfg": eval_cfg, "steps": [],
-              "validation": []}
+              "validation": [], "grasp_records": [], "trace": None}
 
-    def run_eval_epoch(logger, epoch, mode_name, ds):
+    def run_eval_epoch(logger, epoch, mode_name, ds, with_grasps=True):
+        from regnet_for_3d_grasping_torch.data import load_scene
+        from regnet_for_3d_grasping_torch.eval.evaluator import (
+            EvalRecord, evaluate_scene_grasps, view_num_from_path)
+        from regnet_for_3d_grasping_torch.utils.export import (
+            extract_grasp_sets)
         if eval_model is not model:
             eval_model.load_state_dict(model.state_dict())
+        grasps_on = args.eval_grasps and with_grasps and stage != "score"
+        records = dict.fromkeys(("stage2", "stage3_class", "stage3_score"),
+                                EvalRecord())
+        g = cfg.gripper
         for n, batch in enumerate(ds.batches(1, seed=epoch, shuffle=False,
                                              augment=False)):
             gen = torch.Generator().manual_seed(epoch * 10007 + n)
-            _, metrics = trainer.eval_step(
+            out, metrics = trainer.eval_step(
                 eval_model, trainer.device_batch(batch, device), stage,
                 generator=gen)
             logger.scalars(metrics, n + epoch * len(ds), mode_name, "batch")
             result["validation"].append(host_scalars(metrics))
+            if not grasps_on:
+                continue
+            sets = extract_grasp_sets(out)[0]
+            data = load_scene(batch.paths[0])
+            try:
+                view = view_num_from_path(batch.paths[0])
+            except ValueError:
+                view = 0
+            # scenes of a randomized layout carry their own table height
+            tz = float(data.get("table_height", g.table_height))
+            for name, key in (("stage2", "grasp_stage2"),
+                              ("stage3_class", "grasp_stage3"),
+                              ("stage3_score", "grasp_stage3_score")):
+                grasps = sets[key]
+                if len(grasps) == 0:
+                    continue
+                depths = np.full(len(grasps), g.depth, np.float32)
+                records[name] = records[name].add(evaluate_scene_grasps(
+                    data, grasps, view, tz, depths, float(batch.width[0]),
+                    g, cfg.eval, device=device))
+        if grasps_on:
+            result["grasp_records"].append(
+                {"epoch": epoch, "mode": mode_name, "records": records})
+        for name, rec in records.items():
+            if rec.formal > 0:
+                logger.scalar(f"epoch_{mode_name}_{name}_vgr", rec.vgr, epoch)
+                logger.scalar(f"epoch_{mode_name}_{name}_score", rec.score,
+                              epoch)
+                logger.scalar(f"epoch_{mode_name}_{name}_vgr_before",
+                              rec.vgr_before, epoch)
+                print(f"[{mode_name} {epoch}] {name}: vgr={rec.vgr:.3f} "
+                      f"score={rec.score:.3f}")
+
+    native = None
+    if args.native_loader and is_train:
+        from regnet_for_3d_grasping_torch.data.native_loader import (
+            NativeLoader, convert_dataset)
+        rsc = convert_dataset(train_ds.paths,
+                              os.path.join(args.data_path, "rsc_cache"))
+        native = NativeLoader(rsc, batch_size, args.num_points,
+                              cfg.region.max_gt_grasps, seed=args.seed)
+        print(f"native loader over {len(rsc)} cached scenes")
+
+    def epoch_batches(epoch):
+        from regnet_for_3d_grasping_torch.data import augment
+        from regnet_for_3d_grasping_torch.eval.evaluator import (
+            CAMERA_POSE, view_num_from_path)
+        # one augmentation stream an epoch: a resumed run replays the
+        # stream of an uninterrupted one
+        geom_rng = np.random.RandomState(args.seed + 7919 + epoch)
+        batches = ((native.next_batch() for _ in range(steps_per_epoch))
+                   if native is not None
+                   else train_ds.batches(batch_size, seed=epoch))
+        for b in batches:
+            if args.geom_aug:
+                cams = np.stack([CAMERA_POSE[view_num_from_path(p)]
+                                 for p in b.paths])
+                b = augment.augment_batch(b, geom_rng, args.geom_aug, cams)
+            yield b
+
+    prof = None
+
+    def profile_stop(epoch):
+        nonlocal prof
+        _sync(device)
+        prof.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, f"trace_epoch{epoch}.json")
+        prof.export_chrome_trace(path)
+        prof, result["trace"] = None, path
+        print(f"profiler trace written to {path}")
 
     with MetricLogger(args.log_path, args.tag) as logger:
         if not is_train:
@@ -282,7 +403,16 @@ def _run(args) -> dict:
             total, nb = 0.0, 0
             # read once an epoch: on the card the count syncs
             fallbacks = _cuda.fallbacks["fp3_slab"]
-            for batch in train_ds.batches(batch_size, seed=epoch):
+            for batch in epoch_batches(epoch):
+                if args.profile_dir and epoch == resume_epoch:
+                    if nb == 3 and prof is None:
+                        acts = [torch.profiler.ProfilerActivity.CPU]
+                        if device.type == "cuda":
+                            acts.append(torch.profiler.ProfilerActivity.CUDA)
+                        prof = torch.profiler.profile(activities=acts)
+                        prof.start()
+                    elif nb == 8 and prof is not None:
+                        profile_stop(epoch)
                 _sync(device)
                 t0 = time.perf_counter()
                 seed = epoch * 131071 + nb
@@ -305,6 +435,8 @@ def _run(args) -> dict:
                 nb += 1
                 print(f"train epoch {epoch} [{nb}/{steps_per_epoch}] "
                       f"loss {loss:.4f} ({dt:.3f}s)")
+            if prof is not None:
+                profile_stop(epoch)
             logger.scalar("epoch_train_loss", total / max(nb, 1), epoch)
             note = ""
             if args.slab_cell > 0.0:
@@ -314,7 +446,11 @@ def _run(args) -> dict:
             print(f"epoch {epoch}: mean loss {total / max(nb, 1):.4f} "
                   f"({time.time() - t_epoch:.1f}s{note})")
             ckpt.save_checkpoint(ckpt_dir, epoch, model, optimizer)
-            run_eval_epoch(logger, epoch, "validate", val_ds)
+            run_eval_epoch(logger, epoch, "validate", val_ds, with_grasps=(
+                epoch % max(args.eval_every, 1) == 0
+                or epoch == args.epoch - 1))
+    if native is not None:
+        native.close()
     return result
 
 

@@ -60,6 +60,9 @@ class ModelConfig:
     fp3_nn_bound: float = 0.06
     # "float32" or "bfloat16" (network compute; geometry stays f32)
     compute_dtype: str = "float32"
+    # recompute each SA/FP layer's activations in the backward
+    # (`models/backbone.py`); the train CLI's --remat
+    remat_backbone: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +81,14 @@ class RegionConfig:
     accept_margin: float = 0.0
     refine_iters: int = 1
     refine_pose: str = "full"    # "full" | "center" | "off"
-    # serving knobs that later slices port (see ROADMAP.md queue A)
+    # serving knobs (`geometry/region.select_score_centers`,
+    # `models/regnet.pose_search_thetas` and `funnel_guard_refine`)
     center_min_z: float | None = None
     pose_search_k: int = 0
+    pose_search_subsample: int = 4   # cloud stride of the search funnel
+    pose_search_table: float = 0.75  # table plane of the funnels' survival
     refine_guard: bool = False
+    refine_guard_subsample: int = 1  # 1: the funnel on the whole cloud
     center_fps_groups: int = 1
     center_select: str = "fps"
     slab_cell: float = 0.0

@@ -77,12 +77,29 @@ def _use_slab_crop(n: int, gripper_num: int) -> bool:
 
 def select_score_centers(pc: torch.Tensor, score: torch.Tensor,
                          center_num: int, score_thre: float,
-                         groups: int = 1):
-    """Masked FPS over the points scoring above `score_thre` (all points
-    when none does), stratified over `groups` slices -> (centers
-    [B, NC, C], index [B, NC] int32)."""
-    idx = farthest_point_sample(pc[..., :3], center_num,
-                                mask=score > score_thre, groups=groups)
+                         groups: int = 1, method: str = "fps",
+                         min_z: float | None = None):
+    """Centers among the points scoring above `score_thre` -> (centers
+    [B, NC, C], index [B, NC] int32), as JAX ``geometry/region.py:36-83``.
+
+    ``method="fps"``: masked FPS, stratified over `groups` slices (a row
+    without a positive samples all points).  ``method="bucket"``:
+    `bucket_choice`, the best score in each index bucket, over the
+    positives, or over all points in a row without one.  `min_z` keeps
+    the positives above that z; where a row has none, any point above
+    it; where no point lies above it, the positives as they were."""
+    positive = score > score_thre
+    if min_z is not None:
+        above = pc[..., 2] > min_z
+        cand = positive & above
+        cand = torch.where(cand.any(-1, keepdim=True), cand, above)
+        positive = torch.where(cand.any(-1, keepdim=True), cand, positive)
+    if method == "bucket":
+        mask = positive | ~positive.any(-1, keepdim=True)
+        idx, _, _ = bucket_choice(mask, center_num, score=score)
+    else:
+        idx = farthest_point_sample(pc[..., :3], center_num, mask=positive,
+                                    groups=groups)
     return gather_points(pc, idx), idx
 
 

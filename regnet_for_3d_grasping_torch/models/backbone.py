@@ -14,7 +14,15 @@ features, makes the MLP's f32 input, which its Dense rounds to bf16; the
 max over neighbours is taken in bf16; the 3-NN weights are f32, so the
 interpolated features and their concatenation with the bf16 skip are f32
 until the MLP rounds them; the score is the sigmoid of the f32 logit.
-All geometry stays f32."""
+All geometry stays f32.
+
+With ``cfg.remat_backbone`` (the train CLI's ``--remat``, flax's
+``nn.remat`` of SA and FP in JAX) each layer's grouping, MLP and max, or
+interpolation and MLP, are recomputed in the backward (`nn.layers.remat`);
+the sampling and neighbour indices (kernels K1-K3, K6, K8) are kept from
+the forward, since they carry no gradient and a recompute gives the same
+bits, and BatchNorm updates its running statistics once.  Gradients and
+statistics equal the run without it."""
 
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ from torch import nn
 
 from regnet_for_3d_grasping_torch.config import ModelConfig
 from regnet_for_3d_grasping_torch.nn.layers import (BatchNorm, Dense,
-                                                    SharedMLP, compute_dtype)
+                                                    SharedMLP, compute_dtype,
+                                                    remat)
 from regnet_for_3d_grasping_torch.ops import _cuda, slab
 from regnet_for_3d_grasping_torch.ops.ball_query import ball_query
 from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
@@ -41,12 +50,14 @@ class SetAbstraction(nn.Module):
 
     def __init__(self, in_channels: int, num_centroids: int, radius: float,
                  num_neighbours: int, mlp_channels: Sequence[int],
-                 fps_groups: int = 1, dtype: torch.dtype = torch.float32):
+                 fps_groups: int = 1, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.num_centroids = num_centroids
         self.radius = radius
         self.num_neighbours = num_neighbours
         self.fps_groups = fps_groups
+        self.remat = remat
         self.mlp = SharedMLP(in_channels + 3, mlp_channels, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None,
@@ -63,11 +74,16 @@ class SetAbstraction(nn.Module):
         else:
             nidx, _ = ball_query(xyz, new_xyz, self.radius,
                                  self.num_neighbours)
+        args = (xyz, feature, new_xyz, nidx)
+        return new_xyz, (remat(self._features, *args) if self.remat
+                         else self._features(*args))
+
+    def _features(self, xyz, feature, new_xyz, nidx):
         group_feat = group_points(xyz, nidx) - new_xyz[:, :, None, :]
         if feature is not None:
             group_feat = torch.cat([group_feat, group_points(feature, nidx)],
                                    -1)
-        return new_xyz, self.mlp(group_feat).amax(dim=2)
+        return self.mlp(group_feat).amax(dim=2)
 
     def _slab_ball_query(self, sc, new_xyz, slab_cell, seed):
         """x-sort the centroids for tile locality (stably: FPS repeats
@@ -87,10 +103,11 @@ class FeaturePropagation(nn.Module):
 
     def __init__(self, in_channels: int, mlp_channels: Sequence[int],
                  num_neighbours: int = 3, nn_bound: float = 0.06,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.num_neighbours = num_neighbours
         self.nn_bound = nn_bound
+        self.remat = remat
         self.mlp = SharedMLP(in_channels, mlp_channels, dtype=dtype)
 
     def forward(self, dense_xyz, sparse_xyz, dense_feature, sparse_feature,
@@ -102,6 +119,11 @@ class FeaturePropagation(nn.Module):
                 dense_xyz, sparse_xyz, sparse_feature)
         else:
             idx, d2 = three_nn(dense_xyz, sparse_xyz, self.num_neighbours)
+        args = (sparse_feature, idx, d2, dense_feature)
+        return (remat(self._features, *args) if self.remat
+                else self._features(*args))
+
+    def _features(self, sparse_feature, idx, d2, dense_feature):
         interp = three_interpolate(sparse_feature, idx,
                                    interpolation_weights(d2))
         if dense_feature is not None:
@@ -150,13 +172,15 @@ class PointNet2Seg(nn.Module):
             # SA1 holds nearly all of the FPS work; the deeper layers' inputs
             # are FPS-ordered, not random, and stay exact
             self.add_module(f"sa{i}", SetAbstraction(
-                c_in, s, r, k, ch, cfg.fps_groups if i == 0 else 1, dtype))
+                c_in, s, r, k, ch, cfg.fps_groups if i == 0 else 1, dtype,
+                cfg.remat_backbone))
             c_in = ch[-1]
             skip.append(c_in)
         for i, (ch, k) in enumerate(zip(cfg.fp_channels,
                                         cfg.num_fp_neighbours)):
             self.add_module(f"fp{i}", FeaturePropagation(
-                c_in + skip[-2 - i], ch, k, cfg.fp3_nn_bound, dtype))
+                c_in + skip[-2 - i], ch, k, cfg.fp3_nn_bound, dtype,
+                cfg.remat_backbone))
             c_in = ch[-1]
         self.seg_mlp = SharedMLP(c_in, cfg.seg_channels, cfg.dropout_prob,
                                  dtype)

@@ -24,6 +24,13 @@ test subtracts the bf16 logits, as in JAX.  In training mode (the train
 CLI's ``--bf16``) both pools take their bf16 argmax forms and the bf16
 backward; the parameters stay f32, each Dense rounding its kernel at use.
 
+The serving knobs of ``RegionConfig`` are JAX's: ``center_select`` and
+``center_min_z`` pick the centers (`geometry/region.select_score_centers`),
+``pose_search_k`` searches each proposal's theta (`pose_search_thetas`)
+and ``refine_guard`` keeps stage-2 poses the refine stage broke
+(`funnel_guard_refine`); both funnels are PyTorch on tensors, as JAX
+computes them in XLA.
+
 ``model.train()`` / ``.eval()`` is the JAX package's ``train`` flag (batch
 statistics and dropout).  The forward builds an autograd graph whenever
 gradients are enabled: the selections carry none, both pools carry the
@@ -39,7 +46,8 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
-from regnet_for_3d_grasping_torch.config import PipelineConfig
+from regnet_for_3d_grasping_torch.config import (EvalConfig, GripperConfig,
+                                                PipelineConfig)
 from regnet_for_3d_grasping_torch.geometry.codec import anchor_templates
 from regnet_for_3d_grasping_torch.geometry.region import (
     closing_region_crop_dense, crop_seed_count, group_regions,
@@ -103,20 +111,79 @@ def decode_proposals(reg: torch.Tensor, anchor_idx: torch.Tensor,
 
 
 def _check_supported(cfg: PipelineConfig) -> None:
-    r, m = cfg.region, cfg.model
-    compute_dtype(m.compute_dtype)
-    later = [
-        (r.center_select != "fps", 'center_select="bucket"', "A5"),
-        (r.pose_search_k > 0, "pose_search_k", "A5"),
-        (r.refine_guard, "refine_guard", "A5"),
-        (r.center_min_z is not None, "center_min_z", "A5"),
-    ]
-    for bad, what, item in later:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md queue A item {item}")
+    r = cfg.region
+    compute_dtype(cfg.model.compute_dtype)
     if r.refine_pose not in ("full", "center", "off"):
         raise ValueError(f"unknown refine_pose {r.refine_pose!r}")
+    if r.center_select not in ("fps", "bucket"):
+        raise ValueError(f"unknown center_select {r.center_select!r}")
+
+
+def pose_search_thetas(points: torch.Tensor, proposals: torch.Tensor,
+                       k: int, subsample: int, table_height: float,
+                       gripper: GripperConfig) -> torch.Tensor:
+    """The serving pose search (JAX ``models/regnet.py:90-134``): for each
+    stage-2 proposal, `k` theta variants ``theta + 2 pi i / k`` (variant 0
+    the prediction) go through the view-collision funnel
+    (`eval.collision.view_check_funnel`, the test path's settings) against
+    ``points[:, ::subsample]``, and the surviving variant nearest the
+    prediction on the circular grid is served (the first on a tie; the
+    prediction where none survives).  Only theta (channel 6) changes.
+
+    points [B, N, 3] in the order the model holds the cloud (slab order
+    in slab mode), proposals [B, NC, R].  As in JAX, the variants' thetas
+    are rounded to the proposals' dtype before the funnel sees them as
+    f32, the served theta is the f32 one rounded to that dtype, and the
+    funnel takes a fresh ``EvalConfig()`` (JAX ``:106``), not the
+    pipeline's."""
+    from regnet_for_3d_grasping_torch.eval.collision import view_check_funnel
+    nc, dev = proposals.shape[1], proposals.device
+    offs = torch.arange(k, dtype=torch.float32, device=dev) * torch.tensor(
+        2.0 * math.pi / k, dtype=torch.float32, device=dev)
+    steps = torch.arange(k, device=dev)
+    circ = torch.minimum(steps, k - steps)
+    out = []
+    for pts, props in zip(points, proposals):
+        theta = props[:, 6:7].float() + offs                     # [NC, k]
+        var = props.detach()[:, None, :8].repeat(1, k, 1)
+        var[..., 6] = theta.detach().to(var.dtype)
+        surv = view_check_funnel(
+            pts[::subsample].float(), var.reshape(nc * k, 8).float(),
+            table_height, gripper.depth, gripper, EvalConfig(),
+            table_sign=+1.0)["survive"].reshape(nc, k)
+        pick = surv.to(torch.int64) * (2 * k) - circ
+        kstar = torch.where(surv.any(-1), torch.argmax(pick, -1), 0)
+        th = torch.gather(theta, 1, kstar[:, None])
+        out.append(torch.cat([props[:, :6], th.to(props.dtype),
+                              props[:, 7:]], -1))
+    return torch.stack(out)
+
+
+def funnel_guard_refine(points: torch.Tensor, refined: torch.Tensor,
+                        stage2: torch.Tensor, subsample: int,
+                        table_height: float,
+                        gripper: GripperConfig) -> torch.Tensor:
+    """The survivor-preserving refinement guard (JAX
+    ``models/regnet.py:137-183``): the view-collision funnel on each
+    refined pose and its stage-2 input; the stage-2 pose (channels 0-6)
+    is served where the refined one fails and the stage-2 one survives,
+    the refined pose everywhere else.  Channels 7: always come from the
+    refined head.  With ``subsample == 1`` every stage-2 survivor is then a
+    stage-3 survivor.  points [B, N, 3] in the model's row order; the
+    funnel takes a fresh ``EvalConfig()`` (JAX ``:162``)."""
+    from regnet_for_3d_grasping_torch.eval.collision import view_check_funnel
+    nc = refined.shape[1]
+    out = []
+    for pts, ref, s2 in zip(points, refined, stage2):
+        both = torch.cat([ref[:, :8], s2[:, :8]]).detach().float()
+        surv = view_check_funnel(pts[::subsample].float(), both,
+                                 table_height, gripper.depth, gripper,
+                                 EvalConfig(), table_sign=+1.0)["survive"]
+        use_s2 = ~surv[:nc] & surv[nc:]
+        pose = torch.where(use_s2[:, None], s2[:, :7].to(ref.dtype),
+                           ref[:, :7])
+        out.append(torch.cat([pose, ref[:, 7:]], -1))
+    return torch.stack(out)
 
 
 def _draw(generator: torch.Generator | None, n: int) -> list:
@@ -214,7 +281,8 @@ class REGNet(nn.Module):
             score = torch.gather(score, 1, sc.order.long())
 
         centers, center_idx = select_score_centers(
-            pc, score, NC, region.score_thre, region.center_fps_groups)
+            pc, score, NC, region.score_thre, region.center_fps_groups,
+            region.center_select, region.center_min_z)
         if sc is not None:
             # x-sort the centers (stably: masked FPS repeats picks) so that
             # each tile of 128 spans a narrow slab
@@ -229,11 +297,24 @@ class REGNet(nn.Module):
         anchor_idx = torch.argmax(cls_logits, dim=-1)
         proposals = decode_proposals(reg, anchor_idx, centers[..., :3],
                                      cfg.gripper.depth)
+        # the serving knobs run wherever they are set, in training mode
+        # too, as in JAX (its `:289` reads no train flag), and stride over
+        # the cloud in the model's row order (slab order in slab mode)
+        if region.pose_search_k > 0:
+            proposals = pose_search_thetas(
+                pc[..., :3], proposals, region.pose_search_k,
+                region.pose_search_subsample, region.pose_search_table,
+                cfg.gripper)
 
         proposals_sg = proposals.detach()
         if with_refine:
             cur, crop_valid, refine_logits, refine_reg = self._refine(
                 pc, feature, pooled, proposals_sg, crop_seeds, sc)
+            if region.refine_guard:
+                cur = funnel_guard_refine(
+                    pc[..., :3], cur, proposals_sg,
+                    region.refine_guard_subsample, region.pose_search_table,
+                    cfg.gripper)
             refine_accept = ((refine_logits[..., 1] - refine_logits[..., 0]
                               > weak(region.accept_margin,
                                      refine_logits.dtype)) & crop_valid)

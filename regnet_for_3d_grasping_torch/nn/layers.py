@@ -14,6 +14,7 @@ the JAX package's ``train`` flag.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -59,6 +60,35 @@ class Dense(nn.Linear):
         return bf16_matmul(x, self.weight)
 
 
+# > 0 while `remat` recomputes a forward.  A count for the process, not a
+# thread-local: autograd runs the recompute on its own device thread while
+# the caller's thread waits in `backward`
+_recomputing = 0
+
+
+@contextlib.contextmanager
+def _recompute():
+    global _recomputing
+    _recomputing += 1
+    try:
+        yield
+    finally:
+        _recomputing -= 1
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept, where gradients are enabled (non-reentrant checkpoint; the RNG
+    state is restored for the recompute).  `fn` must not draw from an
+    explicit generator: none of the backbone's layers do."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recompute()))
+
+
 def batch_statistics(x: torch.Tensor):
     """Train-mode BatchNorm statistics of `x` over all but the trailing
     axis, in at least f32 (flax's ``_compute_stats`` with its fast
@@ -71,7 +101,9 @@ def batch_statistics(x: torch.Tensor):
 
 class BatchNorm(nn.Module):
     """Batch normalization over the trailing axis, flax semantics;
-    `momentum` in the torch convention (the weight of the new batch)."""
+    `momentum` in the torch convention (the weight of the new batch).
+    `frozen` (set by `nn.freezer.frozen_bn`) runs it on its running
+    statistics, unchanged, in training mode too."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -82,17 +114,20 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Normalises in at least f32 and returns `x`'s dtype (flax's
         ``force_float32_reductions``)."""
-        if self.training:
+        if self.training and not self.frozen:
             mean, var = batch_statistics(x)
-            with torch.no_grad():
-                # flax's factors: its momentum 1 - 0.1, and 1 - that
-                keep = 1.0 - self.momentum
-                self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
-                self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+            if not _recomputing:     # `remat`'s backward: updated once
+                with torch.no_grad():
+                    # flax's factors: its momentum 1 - 0.1, and 1 - that
+                    keep = 1.0 - self.momentum
+                    self.running_mean.mul_(keep).add_(mean,
+                                                      alpha=1.0 - keep)
+                    self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight

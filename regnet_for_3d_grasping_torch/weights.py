@@ -63,25 +63,32 @@ def jax_to_state_dict(arrays: dict) -> dict:
     return out
 
 
+def variable_path(key: str, ndim: int) -> tuple[str, str]:
+    """A state_dict entry's JAX variable: 'a.b.weight' -> ('params',
+    'a/b/kernel').  A ``weight`` is a dense kernel where it has two axes
+    and a BatchNorm scale where it has one."""
+    *path, name = key.split(".")
+    if name == "weight":
+        coll, leaf = "params", "kernel" if ndim == 2 else "scale"
+    elif name == "bias":
+        coll, leaf = "params", "bias"
+    elif name in ("running_mean", "running_var"):
+        coll, leaf = "batch_stats", name.removeprefix("running_")
+    else:
+        raise KeyError(f"unexpected state_dict entry {key!r}")
+    return coll, "/".join([*path, leaf])
+
+
 def state_dict_to_jax(state_dict: dict) -> dict:
     """{'a.b.weight': tensor, ...} -> {'params/a/b/kernel': array, ...}:
-    the inverse of `jax_to_state_dict`.  A ``weight`` is a dense kernel
-    (transposed back to [in, out]) when it has two axes and a BatchNorm
-    scale when it has one.  The arrays keep the tensors' dtype."""
+    the inverse of `jax_to_state_dict` (names by `variable_path`; kernels
+    transposed back to [in, out]).  The arrays keep the tensors' dtype."""
     out = {}
     for key, t in state_dict.items():
-        *path, name = key.split(".")
         a = t.detach().cpu().numpy()
-        if name == "weight":
-            coll, leaf = "params", "kernel" if a.ndim == 2 else "scale"
-            a = a.T if a.ndim == 2 else a
-        elif name == "bias":
-            coll, leaf = "params", "bias"
-        elif name in ("running_mean", "running_var"):
-            coll, leaf = "batch_stats", name.removeprefix("running_")
-        else:
-            raise KeyError(f"unexpected state_dict entry {key!r}")
-        out["/".join([coll, *path, leaf])] = np.ascontiguousarray(a)
+        coll, path = variable_path(key, a.ndim)
+        out[f"{coll}/{path}"] = np.ascontiguousarray(
+            a.T if a.ndim == 2 else a)
     return out
 
 

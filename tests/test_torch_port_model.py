@@ -142,13 +142,15 @@ def slice_run(tiny_variables):
     return run_full_slice(*tiny_variables)
 
 
-def run_full_slice(pc, variables, dtype=None):
-    """The whole slice at tiny_config (compute dtype `dtype`, JAX's), the
-    ball query and crop forced onto their kernel semantics on both sides
-    (Pallas in interpret mode on the JAX side, thresholds at 0 on the
-    port's), the JAX keys captured and handed to the port as seeds."""
+def run_full_slice(pc, variables, dtype=None, overrides=None):
+    """The whole slice at tiny_config (compute dtype `dtype`, JAX's; the
+    configuration `overrides` on both sides), the ball query and crop
+    forced onto their kernel semantics on both sides (Pallas in interpret
+    mode on the JAX side, thresholds at 0 on the port's), the JAX keys
+    captured and handed to the port as seeds."""
     mp = pytest.MonkeyPatch()
-    cfg = jtiny()
+    overrides = overrides or {}
+    cfg = jtiny(**overrides)
     jmodel = JREGNet(cfg, dtype=dtype)
 
     seeds = {"group": [], "crop": []}
@@ -186,8 +188,8 @@ def run_full_slice(pc, variables, dtype=None):
 
         mp.setattr(ball_query, "KERNEL_MIN_WORK", 0)
         mp.setattr(region, "CROP_KERNEL_MIN_WORK", 0)
-        model = REGNet(tiny_config(**{"model.compute_dtype": jnp.dtype(
-            dtype or jnp.float32).name}))
+        model = REGNet(tiny_config(**overrides, **{
+            "model.compute_dtype": jnp.dtype(dtype or jnp.float32).name}))
         weights.load_into(model, variables)
         model.eval()
         with torch.no_grad():
@@ -238,6 +240,49 @@ def test_slice_grasp_sets(slice_run):
             np.testing.assert_allclose(g[k], r[k], **TOL)
 
 
+# the serving knobs all at once: bucket centers above a z prior, a pose
+# search at stride 2 and the refinement guard (tests/test_torch_port_knobs.py
+# holds each against JAX on its own)
+KNOBS = {"region.center_select": "bucket", "region.center_min_z": 0.79,
+         "region.pose_search_k": 4, "region.pose_search_subsample": 2,
+         "region.refine_guard": True}
+
+
+@pytest.fixture(scope="module")
+def knob_slice_run(tiny_variables):
+    return run_full_slice(*tiny_variables, overrides=KNOBS)
+
+
+@pytest.mark.parametrize("field", ["center_index", "region_valid",
+                                   "anchor_index", "crop_valid",
+                                   "refine_accept", "score", "proposals",
+                                   "final_grasps"])
+def test_slice_with_every_knob_matches_jax(tiny_variables, knob_slice_run,
+                                           field):
+    """The whole slice with every serving knob on, against JAX's op by op:
+    selections exact, floats within TOL; every center above the prior."""
+    ref, out = knob_slice_run
+    got, want = getattr(out, field).numpy(), np.asarray(getattr(ref, field))
+    if got.dtype == np.float32:
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if field == "center_index":
+        z = np.take_along_axis(tiny_variables[0][..., 2],
+                               got.astype(np.int64), 1)
+        assert (z > KNOBS["region.center_min_z"]).all()
+
+
+def test_slice_knobs_change_the_thetas(knob_slice_run):
+    """The search moved some thetas off the regression, so the comparison
+    above held the knobs, not a pass-through."""
+    from regnet_for_3d_grasping_torch.models.regnet import decode_proposals
+    _, out = knob_slice_run
+    reg_theta = decode_proposals(out.reg, out.anchor_index,
+                                 out.centers[..., :3], 0.06)[..., 6]
+    assert (out.proposals[..., 6] != reg_theta).any()
+
+
 @pytest.mark.parametrize("override,item", [
     ({"region.center_select": "bucket"}, "A5"),
     ({"region.pose_search_k": 8}, "A5"),
@@ -245,8 +290,17 @@ def test_slice_grasp_sets(slice_run):
     ({"region.center_min_z": 0.75}, "A5"),
 ])
 def test_unported_knobs_raise(override, item):
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        REGNet(tiny_config(**override))
+    """The serving knobs of queue A item `item` raised NotImplementedError
+    until they were ported: each now builds, runs a forward and refuses
+    nothing (`tests/test_torch_port_knobs.py` holds them against JAX);
+    an unknown center selection raises."""
+    model = REGNet(tiny_config(**override)).eval()
+    with torch.no_grad():
+        out = model(torch.from_numpy(tiny_cloud(B=1)),
+                    generator=torch.Generator().manual_seed(4))
+    assert torch.isfinite(out.final_grasps).all(), item
+    with pytest.raises(ValueError, match="center_select"):
+        REGNet(tiny_config(**{**override, "region.center_select": "grid"}))
 
 
 @pytest.mark.parametrize("override", [

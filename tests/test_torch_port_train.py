@@ -1138,12 +1138,25 @@ def test_train_cli_without_a_card_fails_and_rejects_unported_flags(
         with pytest.raises(RuntimeError, match="CUDA"):
             train_cli.main(["--mode", "train", "--tiny", "--data-path",
                             data_dir])
+    # the flags once rejected as unported are all accepted now (their own
+    # tests: tests/test_torch_port_train_eval.py, _augment, _native_loader,
+    # _remat); the JAX CLI has no flag the parser refuses
+    import importlib
+    jparser = importlib.import_module(
+        "regnet_for_3d_grasping_tpu.cli.train").build_parser()
+    ours = {a for act in train_cli.build_parser()._actions
+            for a in act.option_strings}
+    assert {a for act in jparser._actions
+            for a in act.option_strings} <= ours
     for flag in (["--eval-grasps"], ["--eval-every", "2"],
                  ["--native-loader"], ["--geom-aug", "1.0"],
                  ["--profile-dir", "x"], ["--remat"]):
-        with pytest.raises(SystemExit):
-            train_cli.main(cli_args(tmp_path, data_dir, "--mode", "train",
-                                    *flag))
+        args = train_cli.build_parser().parse_args(
+            cli_args(tmp_path, data_dir, "--mode", "train", *flag))
+        assert args.mode == "train"
+    with pytest.raises(SystemExit):
+        train_cli.build_parser().parse_args(
+            cli_args(tmp_path, data_dir, "--mode", "train", "--dp"))
 
 
 @pytest.mark.parametrize("extra", [[], ["--slab-cell", "0.04",
