@@ -173,6 +173,12 @@ WEIGHTS = ROOT / "weights" / "r5_real_e100.npz"
 # H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 SLAB_CELL, FPS_GROUPS = 0.04, 8
+SLAB_KERNELS = ("fps_grouped", "group_slab", "crop_slab", "three_nn_slab",
+                "gather_max_slab")
+TRAIN_KERNELS = ("gather_max_argmax", "gather_max_backward",
+                 "gather_max_slab_argmax", "gather_max_argmax_bf16",
+                 "gather_max_backward_bf16", "gather_max_slab_argmax_bf16")
+BF16_KERNELS = ("gather_max_bf16", "gather_max_slab_bf16")
 CSRC = "regnet_for_3d_grasping_torch/csrc/"
 JAX_OPS = "regnet_for_3d_grasping_tpu/ops/"
 
@@ -1657,6 +1663,17 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     return rows, rows_bf16, flat_launches
 
 
+def write_clouds(folder: Path) -> Path:
+    """The 3 tabletop clouds the serving phases serve, as ``.p`` files."""
+    from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
+    folder.mkdir()
+    for i in range(3):
+        cxyz, crgb = tabletop_cloud(np.random.RandomState(100 + i))
+        with open(folder / f"{i:04d}_view.p", "wb") as f:
+            pickle.dump({"view_cloud": cxyz, "view_cloud_color": crgb}, f)
+    return folder
+
+
 def serve(argv_extra, tmp, label, check_eval=False):
     """Drive the infer CLI, with its evaluation, on 3 tabletop clouds;
     returns (records, launch counts, 3-NN fallbacks) with the counters
@@ -1667,13 +1684,7 @@ def serve(argv_extra, tmp, label, check_eval=False):
     from regnet_for_3d_grasping_torch.cli import infer
     from regnet_for_3d_grasping_torch.models import regnet
     from regnet_for_3d_grasping_torch.ops import _cuda
-    from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
-    folder = Path(tmp) / f"{label}_data"
-    folder.mkdir()
-    for i in range(3):
-        cxyz, crgb = tabletop_cloud(np.random.RandomState(100 + i))
-        with open(folder / f"{i:04d}_view.p", "wb") as f:
-            pickle.dump({"view_cloud": cxyz, "view_cloud_color": crgb}, f)
+    folder = write_clouds(Path(tmp) / f"{label}_data")
     argv = ["--folder-name", str(folder), "--checkpoint", str(WEIGHTS),
             "--seed", "1", *argv_extra]
     draws, draw = [], regnet._draw
@@ -2308,14 +2319,13 @@ def training_phases(dev) -> dict:
             **knobs}
 
 
-def serving_wants(slab_kernel_names, train_kernel_names,
-                  bf16_kernel_names) -> dict:
+def serving_wants() -> dict:
     """The launches of one forward on each serving path (full scan, slab,
     bf16 full scan, `--fast`), by kernel."""
-    f32_zero = dict.fromkeys(train_kernel_names + bf16_kernel_names, 0)
+    f32_zero = dict.fromkeys(TRAIN_KERNELS + BF16_KERNELS, 0)
     full_want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
                  "crop": 1, "group_regions": 1,
-                 **dict.fromkeys(slab_kernel_names, 0), **f32_zero}
+                 **dict.fromkeys(SLAB_KERNELS, 0), **f32_zero}
     # K3 launches in every slab forward: its launches read K8's flag on
     # the card and return at once where the slab 3-NN is proven
     slab_want = {"fps_grouped": 2, "fps": 2, "group_slab": 2, "crop_slab": 1,
@@ -2333,8 +2343,9 @@ def serving_wants(slab_kernel_names, train_kernel_names,
 def serving_phases(wants: dict) -> dict:
     """Phases 4, 6, 11 and 12: each serving path through the infer CLI on
     3 clouds, launch counts reset before and read after (`wants`: one
-    forward's, by path).  Returns the counts by path."""
-    paths = {}
+    forward's, by path).  Returns the counts and the median forward
+    seconds, by path."""
+    paths, medians = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for key, label, flags in (
                 # 4. the full-scan path; 6. the sorted-slab serving path
@@ -2346,8 +2357,9 @@ def serving_phases(wants: dict) -> dict:
                 ("bf16_full_scan", "bf16-full-scan", ["--bf16"]),
                 ("fast", "fast", ["--fast"])):
             want = wants[key]
-            _, launches, fallbacks = serve(flags, tmp, label,
-                                           check_eval=key == "full_scan")
+            records, launches, fallbacks = serve(
+                flags, tmp, label, check_eval=key == "full_scan")
+            medians[key] = statistics.median(r["forward_s"] for r in records)
             for k, n in want.items():
                 check(launches[k] == 3 * n, f"{k}: {launches[k]} launches "
                       f"in 3 {label} forwards, expected {3 * n}")
@@ -2355,7 +2367,7 @@ def serving_phases(wants: dict) -> dict:
                 print(f"{label} path: {fallbacks} of 3 forwards fell back to "
                       f"the full-scan 3-NN")
             paths[key] = launches
-    return paths
+    return paths, medians
 
 
 def compare_phases(pc, compared, cpu) -> dict:
@@ -3027,6 +3039,422 @@ def suite_phase(out_dir: Path) -> dict:
     return readings
 
 
+# --- data parallelism ------------------------------------------------------
+
+# the outputs phase (h) holds bit for bit against the solo forward
+DP_FIELDS = ("score", "proposals", "final_grasps", "center_index",
+             "region_valid", "anchor_index", "crop_valid", "refine_accept",
+             "score_accept")
+DP_STEPS = 3            # phase (i) on W >= 2 cards: steps a run
+# phase (i), W >= 2: the train CLI against its emulation on card 0.  At
+# W = 2 the mean of two is order-free: bit-equal.  Over more cards NCCL
+# sums in an order of its own, and Adam's first updates carry an ulp of a
+# gradient near 0 to 2 lr in a parameter, so the runs are held at their
+# first step: the CLI's first loss within DP_FIRST_RTOL, and the first
+# step's averaged gradients and running statistics (`dp_first_step`),
+# entry by entry, within DP_SUM_ULPS * (W - 1) roundings of the mean of
+# the W shards' magnitudes: two sums of the same W terms in two orders
+# are at most 2 (W - 1) such roundings apart, the division one more
+DP_FIRST_RTOL, DP_SUM_ULPS = 1e-6, 4
+
+
+def dp_serving_phase(wants: dict, solo_s: dict | None) -> tuple:
+    """Phase (h): ``--dp`` through the infer CLI on phase 4's 3 clouds, full
+    scan f32 and ``--fast``, over every visible card (W; where W does not
+    divide 3 the last chunk is padded).  Each forward launches the path's
+    kernels (the workers' counts, reset in effect just before each forward
+    and read just after), and each cloud's scores, selections, stage-2 and
+    stage-3 grasps and view-filtered sets are bit for bit those of the solo
+    forward on card 0 with the seed folded by its place in its chunk.
+    Returns the launch counts and the throughput by path."""
+    from regnet_for_3d_grasping_torch.cli import infer
+    from regnet_for_3d_grasping_torch.eval.evaluator import eval_test
+    from regnet_for_3d_grasping_torch.models.regnet import build_regnet
+    from regnet_for_3d_grasping_torch.parallel.mesh import (fold_seed,
+                                                            visible_devices)
+    from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
+    W = len(visible_devices("cuda"))
+    paths, rates = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = write_clouds(Path(tmp) / "dp_data")
+        for key, solo_key, flags in (("dp_full_scan", "full_scan", []),
+                                     ("dp_fast", "fast", ["--fast"])):
+            argv = ["--folder-name", str(folder), "--checkpoint",
+                    str(WEIGHTS), "--seed", "1", "--dp", *flags]
+            t0 = time.perf_counter()
+            records = infer.main(argv)
+            cli_s = time.perf_counter() - t0
+            check(len(records) == 3, f"{key}: {len(records)} clouds served")
+            launches = {k: sum(r["launches"][k] for r in records)
+                        for k in records[0]["launches"]}
+            for k, n in wants[solo_key].items():
+                check(launches[k] == 3 * n, f"{key}: {k} launched "
+                      f"{launches[k]} times in 3 forwards, expected {3 * n}")
+            cfg = infer.config_from_args(infer.build_parser().parse_args(argv))
+            model = build_regnet(cfg, str(WEIGHTS), "cuda")
+            g = cfg.gripper
+            rng = np.random.RandomState(1)
+            for j, r in enumerate(records):
+                pc, back, _, _ = infer.load_cloud(r["path"], N_POINTS, rng)
+                gen = torch.Generator().manual_seed(fold_seed(1, j % W))
+                with torch.inference_mode():
+                    out = model(torch.from_numpy(pc)[None].cuda(),
+                                generator=gen)
+                for f in DP_FIELDS:
+                    check(torch.equal(getattr(out, f).cpu(),
+                                      getattr(r["out"], f)),
+                          f"{key}: cloud {j}'s {f} is not the solo forward's "
+                          "with its folded seed")
+                for name, raw in extract_grasp_sets(out)[0].items():
+                    want = eval_test(back, raw, None, g.table_height, g.depth,
+                                     g.width, g, cfg.eval, device="cuda")
+                    check(np.array_equal(want, r["sets"][name]),
+                          f"{key}: cloud {j}'s {name} set differs")
+            del model
+            chunks = [r["forward_s"] for r in records[::W]]
+            fwd_ms = [r["device_forward_s"] * 1e3 for r in records]
+            rates[key] = {"devices": W, "chunk_s": chunks,
+                          "clouds_per_s": 3 / sum(chunks),
+                          "worker_forward_ms": fwd_ms, "cli_s": cli_s}
+            solo = ("" if solo_s is None else
+                    f"; phase {4 if solo_key == 'full_scan' else 12}'s solo "
+                    f"forward {1.0 / solo_s[solo_key]:.2f} clouds/s")
+            print(f"phase (h) {key} over {W} card(s): chunk walls "
+                  f"{[round(c, 4) for c in chunks]} s (forward, view filter "
+                  f"and transfer), {rates[key]['clouds_per_s']:.2f} clouds/s; "
+                  f"the workers' forwards {[round(x, 3) for x in fwd_ms]} ms"
+                  f"{solo}; the CLI {cli_s:.1f} s with its workers' start")
+            paths[key] = launches
+    return paths, rates
+
+
+def dp_step_one_card(data_dir: str) -> dict:
+    """Phase (i) on one card: the library's data-parallel step at world 1,
+    in an NCCL group of one, against the solo step with the folded seed:
+    2 refine steps at batch 1 of phase 17's scenes, deterministic;
+    parameters, running statistics, Adam's moments and losses bit-equal."""
+    from regnet_for_3d_grasping_torch.cli.train import (build_model,
+                                                        deterministic)
+    from regnet_for_3d_grasping_torch.config import train_config
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.parallel import launch
+    from regnet_for_3d_grasping_torch.parallel.mesh import (fold_seed,
+                                                            make_mesh)
+    from regnet_for_3d_grasping_torch.train import trainer
+    cfg = train_config(**{"train.batch_size": 1})
+    ds = GraspDataset(data_dir, "train", N_POINTS, cfg.region.max_gt_grasps,
+                      1)
+    batches = list(ds.batches(1, seed=0))[:2]
+    check(len(batches) == 2, "phase (i): fewer than 2 training scenes")
+    dev = torch.device("cuda", 0)
+
+    def run(mesh):
+        model = build_model(cfg, 1, dev)
+        opt = trainer.make_optimizer(model, cfg, 2)
+        drop = torch.Generator(device=dev)
+        losses = []
+        if mesh is not None:
+            mesh.events = []        # each step's averaging, CUDA events
+        for nb, b in enumerate(batches):
+            seed = fold_seed(nb, 0)
+            drop.manual_seed(seed)
+            m = trainer.train_step(
+                model, opt, trainer.device_batch(b, dev), "refine", mesh,
+                generator=torch.Generator().manual_seed(seed),
+                dropout_generator=drop)
+            losses.append(float(m["loss_total"]))
+        return model, opt, losses, mesh and mesh.collective_ms()
+
+    t0 = time.perf_counter()
+    with deterministic():
+        with launch.process_group(dev, 1, 0, launch.free_port()):
+            dp = run(make_mesh())
+        solo = run(None)
+    check(len(dp[3]) == 2, f"phase (i): {len(dp[3])} timed averagings, "
+          "expected 2")
+    check(dp[2] == solo[2], f"phase (i): world-1 losses {dp[2]} differ from "
+          f"the solo step's {solo[2]}")
+    sa, sb = dp[0].state_dict(), solo[0].state_dict()
+    check(all(torch.equal(sa[k], sb[k]) for k in sa),
+          "phase (i): world-1 parameters or statistics differ")
+    pa = dict(dp[0].named_parameters())
+    for n, p in solo[0].named_parameters():
+        for m in ("exp_avg", "exp_avg_sq"):
+            check(torch.equal(dp[1].adam.state[pa[n]][m],
+                              solo[1].adam.state[p][m]),
+                  f"phase (i): world-1 Adam {m} of {n} differs")
+    print(f"phase (i), one card: the data-parallel step at world 1 (NCCL) "
+          f"bit-equal to the solo step with the folded seed over 2 steps "
+          f"(losses {dp[2]}; averaging {[round(x, 3) for x in dp[3]]} ms a "
+          f"step), {time.perf_counter() - t0:.1f} s")
+    return {"world1_losses": dp[2], "averaging_ms": dp[3]}
+
+
+def sharded_eval_check(data_dir: str) -> dict:
+    """The sharded evaluation over every visible card against
+    `evaluate_scene_grasps` on card 0, scene by scene, on W + 1 scenes
+    (a padded last shard) and grasps at their GT frames: counts equal,
+    antipodal sums within 1e-6."""
+    from regnet_for_3d_grasping_torch.config import GripperConfig
+    from regnet_for_3d_grasping_torch.data import GraspDataset, load_scene
+    from regnet_for_3d_grasping_torch.eval.evaluator import (
+        evaluate_scene_grasps)
+    from regnet_for_3d_grasping_torch.eval.parallel_eval import (
+        evaluate_scenes_sharded)
+    from regnet_for_3d_grasping_torch.parallel.mesh import visible_devices
+    devices = visible_devices("cuda")
+    g = GripperConfig()
+    ds = GraspDataset(data_dir, "train", N_POINTS, 1, 1)
+    scenes = [load_scene(p) for p in ds.paths[:len(devices) + 1]]
+    grasps, depths = [], []
+    for s in scenes:
+        f = np.asarray(s["select_frame"], np.float32)[:256]
+        gr = np.zeros((len(f), 8), np.float32)
+        gr[:, :3], gr[:, 3:6], gr[:, 7] = f[:, :, 3], f[:, :, 1], 0.5
+        grasps.append(gr)
+        depths.append(np.full(len(gr), g.depth, np.float32))
+    views = [i % 4 for i in range(len(scenes))]
+    t0 = time.perf_counter()
+    got = evaluate_scenes_sharded(devices, scenes, grasps, views,
+                                  g.table_height, depths, g.width, g)
+    t1 = time.perf_counter()
+    want = [evaluate_scene_grasps(s, gr, v, g.table_height, d, g.width, g,
+                                  device="cuda")
+            for s, gr, v, d in zip(scenes, grasps, views, depths)]
+    t2 = time.perf_counter()
+    for a, b in zip(got, want):
+        check((a.vgr_count, a.nocoll_view, a.formal)
+              == (b.vgr_count, b.nocoll_view, b.formal)
+              and abs(a.score_sum - b.score_sum)
+              <= 1e-6 * max(abs(b.score_sum), 1.0),
+              f"sharded evaluation {a} differs from one card's {b}")
+    print(f"sharded evaluation over {len(devices)} card(s), {len(scenes)} "
+          f"scenes: records equal one card's ({[tuple(r) for r in got]}); "
+          f"{t1 - t0:.3f} s sharded, {t2 - t1:.3f} s scene by scene")
+    return {"devices": len(devices), "sharded_s": t1 - t0,
+            "one_card_s": t2 - t1}
+
+
+def flat_buffers(model) -> torch.Tensor:
+    return torch.cat([b.detach().reshape(-1) for b in model.buffers()])
+
+
+def dp_emulation(data: Path, argv: list, W: int) -> tuple:
+    """The train CLI's `DP_STEPS` data-parallel steps over W shards on
+    card 0, one after another (`trainer.train_step_emulated`), with the
+    CLI's batches and folded seeds -> (losses, state_dict, first): `first`
+    holds the first step's averaged flat gradient and running statistics
+    and, for each, the mean over the shards of its entries' magnitudes."""
+    from regnet_for_3d_grasping_torch.cli import train as train_cli
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.parallel.mesh import (fold_seed,
+                                                            shard_batch)
+    from regnet_for_3d_grasping_torch.train import trainer
+    dev = torch.device("cuda", 0)
+    cfg, _ = train_cli._configs(train_cli.build_parser().parse_args(argv))
+    ds = GraspDataset(str(data), "train", N_POINTS, cfg.region.max_gt_grasps,
+                      1)
+    terms = {"grad": [], "stats": []}
+    flat_grads = trainer._flat_grads
+
+    def spy(model):
+        # after each shard's backward: its gradient and running statistics
+        params, flat = flat_grads(model)
+        terms["grad"].append(flat.abs())
+        terms["stats"].append(flat_buffers(model).abs())
+        return params, flat
+
+    losses, first = [], {}
+    with train_cli.deterministic():
+        model = train_cli.build_model(cfg, 1, dev)
+        opt = trainer.make_optimizer(model, cfg, len(ds) // TRAIN_B)
+        for nb, batch in enumerate(ds.batches(TRAIN_B, seed=0)):
+            shards, kws = [], []
+            for i in range(W):
+                seed = fold_seed(nb, i)
+                drop = torch.Generator(device=dev)
+                drop.manual_seed(seed)
+                shards.append(trainer.device_batch(shard_batch(batch, W, i),
+                                                   dev))
+                kws.append({"generator": torch.Generator().manual_seed(seed),
+                            "dropout_generator": drop})
+            with replaced(trainer, "_flat_grads",
+                          spy if nb == 0 else flat_grads):
+                losses.append(float(trainer.train_step_emulated(
+                    model, opt, shards, kws)["loss_total"]))
+            if nb == 0:
+                first = {"grad": flat_grads(model)[1].cpu(),
+                         "stats": flat_buffers(model).cpu()}
+                for kind, xs in terms.items():
+                    first[f"{kind}_scale"] = (sum(xs) / W).cpu()
+                terms = None
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    return losses, state, first
+
+
+def dp_first_step(rank: int, device: torch.device, data: str,
+                  argv: list) -> dict:
+    """Rank `rank` of the train CLI's first data-parallel step, through
+    `trainer.train_step` over a mesh of every rank: the CLI's first batch,
+    this rank's shard and folded seed, deterministic -> the averaged flat
+    gradient and running statistics and the loss, on the host."""
+    from regnet_for_3d_grasping_torch.cli import train as train_cli
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.parallel.mesh import (fold_seed,
+                                                            make_mesh,
+                                                            shard_batch)
+    from regnet_for_3d_grasping_torch.train import trainer
+    cfg, _ = train_cli._configs(train_cli.build_parser().parse_args(argv))
+    ds = GraspDataset(data, "train", N_POINTS, cfg.region.max_gt_grasps, 1)
+    mesh = make_mesh()
+    batch = shard_batch(next(iter(ds.batches(TRAIN_B, seed=0))), mesh.size,
+                        mesh.shard_index)
+    seed = fold_seed(0, mesh.shard_index)
+    drop = torch.Generator(device=device)
+    drop.manual_seed(seed)
+    with train_cli.deterministic():
+        model = train_cli.build_model(cfg, 1, device)
+        opt = trainer.make_optimizer(model, cfg, len(ds) // TRAIN_B)
+        m = trainer.train_step(
+            model, opt, trainer.device_batch(batch, device), "refine", mesh,
+            generator=torch.Generator().manual_seed(seed),
+            dropout_generator=drop)
+    return {"grad": trainer._flat_grads(model)[1].cpu(),
+            "stats": flat_buffers(model).cpu(),
+            "loss": float(m["loss_total"])}
+
+
+def dp_first_step_check(data: Path, argv: list, devices: list,
+                        first: dict, le0: float, label: str) -> dict:
+    """Phase (i) over W > 2 cards: `dp_first_step` on every card against
+    the emulation's first step (`first`, `le0` its loss): every rank's
+    averages equal, each entry within `DP_SUM_ULPS` (W - 1) roundings of
+    its shards' mean magnitude, the loss within `DP_FIRST_RTOL`.  Returns
+    how far apart they are, and the largest share of its limit an entry
+    used."""
+    from regnet_for_3d_grasping_torch.parallel import launch
+    W = len(devices)
+    ranks = launch.run_ranks(dp_first_step, devices, str(data), argv)
+    for r, got in enumerate(ranks):
+        check(torch.equal(got["grad"], ranks[0]["grad"])
+              and torch.equal(got["stats"], ranks[0]["stats"]),
+              f"{label}: rank {r}'s averages differ from rank 0's")
+        check(abs(got["loss"] - le0) <= DP_FIRST_RTOL * abs(le0),
+              f"{label}: rank {r}'s first loss {got['loss']} is not the "
+              f"emulation's {le0}")
+    apart = {}
+    for kind in ("grad", "stats"):
+        got, want = ranks[0][kind].double(), first[kind].double()
+        check(got.shape == want.shape,
+              f"{label}: {kind} of {tuple(got.shape)}, not "
+              f"{tuple(want.shape)}")
+        limit = (DP_SUM_ULPS * (W - 1) * torch.finfo(first[kind].dtype).eps
+                 / 2 * first[f"{kind}_scale"].double())
+        diff = (got - want).abs()
+        check(bool((diff <= limit).all()),
+              f"{label}: the first step's averaged {kind} is "
+              f"{float(diff.max()):.3e} from the emulation's, past "
+              f"{DP_SUM_ULPS} (W - 1) roundings of its shards' magnitudes")
+        apart[kind] = {"max_abs": float(diff.max()),
+                       "max_value": float(want.abs().max()),
+                       "entries_apart": int((diff > 0).sum()),
+                       "entries": diff.numel(),
+                       "limit_share": float((diff / limit.clamp_min(1e-300))
+                                            .max())}
+    print(f"phase (i) {label} over {W} cards: the first step's averages "
+          f"against the emulation's: {apart}")
+    return apart
+
+
+def dp_training_phase(tmp) -> dict:
+    """Phase (i) on W >= 2 cards: the train CLI, data-parallel over every
+    card, `DP_STEPS` steps at batch 12 on the full scan in f32 and the bf16
+    slab, twice each (bit-equal), against its emulation on card 0
+    (`dp_emulation`): bit-equal at W = 2 (also run where there are more
+    cards); over more, the first loss within `DP_FIRST_RTOL` and the first
+    step's averages as `dp_first_step_check` holds them; step times and
+    each card's peak memory."""
+    from regnet_for_3d_grasping_torch.cli import train as train_cli
+    from regnet_for_3d_grasping_torch.data import write_synthetic_dataset
+    from regnet_for_3d_grasping_torch.parallel.mesh import visible_devices
+    devices = visible_devices("cuda")
+    W = len(devices)
+    data = Path(tmp) / "dp_scenes"
+    # 80 % of 45 scenes train: 36, 3 steps at batch 12
+    write_synthetic_dataset(str(data), 45, num_view=N_POINTS)
+    slab = ["--slab-cell", str(SLAB_CELL), "--fps-groups", str(FPS_GROUPS)]
+    out = {}
+    for label, flags in (("full scan f32", []), ("slab bf16", ["--bf16",
+                                                               *slab])):
+        argv = ["--mode", "train", "--data-path", str(data), "--model-path",
+                str(Path(tmp) / "dp_models"), "--log-path",
+                str(Path(tmp) / "dp_log"), "--batch-size", str(TRAIN_B),
+                "--epoch", "1", "--seed", "1", *flags]
+        a, b = (train_cli.main(argv + ["--tag", t]) for t in ("a", "b"))
+        check(len(a["ranks"]) == W and len(a["steps"]) == DP_STEPS,
+              f"{label}: {len(a.get('ranks', []))} ranks, "
+              f"{len(a['steps'])} steps")
+        la = [s["loss"] for s in a["steps"]]
+        sa, sb = a["model"].state_dict(), b["model"].state_dict()
+        check(la == [s["loss"] for s in b["steps"]]
+              and all(torch.equal(sa[k], sb[k]) for k in sa),
+              f"{label}: two data-parallel runs differ")
+        le, se, emulated_first = dp_emulation(data, argv, W)
+        diff = max(float((sa[k] - se[k]).abs().max()) for k in sa)
+        first = abs(la[0] - le[0]) / abs(le[0])
+        print(f"phase (i) {label} over {W} cards: two runs bit-equal; "
+              f"losses {la}, emulated {le}; first step relative difference "
+              f"{first:.3e}, parameters' largest difference after "
+              f"{DP_STEPS} steps {diff:.3e}")
+        found = {}
+        if W == 2:
+            check(la == le and diff == 0.0,
+                  f"{label}: 2 cards differ from their emulation")
+        else:
+            check(first <= DP_FIRST_RTOL,
+                  f"{label}: {W} cards' first loss is not the emulation's")
+            found["first_step"] = dp_first_step_check(
+                data, argv, devices, emulated_first, le[0], label)
+            two = train_cli.main(argv + ["--tag", "two"],
+                                 devices=devices[:2])
+            l2, s2, _ = dp_emulation(data, argv, 2)
+            st = two["model"].state_dict()
+            check([s["loss"] for s in two["steps"]] == l2
+                  and all(torch.equal(st[k], s2[k]) for k in st),
+                  f"{label}: 2 of the cards differ from their emulation")
+            print(f"phase (i) {label} over 2 of the cards: bit-equal to the "
+                  f"emulation (losses {l2})")
+        ms = [[round(x * 1e3, 3) for x in r["seconds"]] for r in a["ranks"]]
+        peaks = [round(r["peak_bytes"] / 2**30, 3) for r in a["ranks"]]
+        avg = [[round(x, 3) for x in r["collective_ms"]] for r in a["ranks"]]
+        print(f"phase (i) {label}: step ms by card {ms}; peak GiB by card "
+              f"{peaks}; averaging ms a step by card {avg}")
+        out[label] = {"step_ms": ms, "peak_gib": peaks, "first_rel": first,
+                      "param_max": diff, **found}
+    return out
+
+
+def dp_phases(wants: dict, solo_s: dict | None) -> tuple:
+    """Phases (h) and (i): the launch counts of the data-parallel serving
+    paths, and what they measured."""
+    from regnet_for_3d_grasping_torch.data import write_synthetic_dataset
+    t0 = time.perf_counter()
+    paths, serving = dp_serving_phase(wants, solo_s)
+    print(f"phase (h): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 8 scenes: 6 train (2 steps at batch 1, and W + 1 scenes for
+        # the sharded evaluation up to W = 5)
+        write_synthetic_dataset(tmp, 8, num_view=N_POINTS)
+        found = {"serving": serving, "one_card": dp_step_one_card(tmp),
+                 "sharded_eval": sharded_eval_check(tmp)}
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            found["training"] = dp_training_phase(tmp)
+    print(f"phase (i): {time.perf_counter() - t0:.1f} s")
+    return paths, found
+
+
 def main() -> None:
     # --- 1. environment ---------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device")
@@ -3056,6 +3484,17 @@ def main() -> None:
             check(_cuda.raw_stream(torch.cuda.current_device())
                   == s.cuda_stream,
                   "the raw stream is not torch's current stream")
+
+    if "--dp-only" in sys.argv[1:]:
+        # phases (h) and (i) alone, on every visible card
+        wants = serving_wants()
+        _, found = dp_phases(wants, None)
+        print(json.dumps({"data_parallel": found}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     # --- 3. each kernel against its plain version --------------------------
     from regnet_for_3d_grasping_torch.geometry import region
@@ -3302,13 +3741,6 @@ def main() -> None:
     slab_over = {"region.slab_cell": SLAB_CELL, "model.fps_groups": FPS_GROUPS,
                  "region.center_fps_groups": FPS_GROUPS}
     bf16_over = {"model.compute_dtype": "bfloat16"}
-    slab_kernel_names = ("fps_grouped", "group_slab", "crop_slab",
-                         "three_nn_slab", "gather_max_slab")
-    train_kernel_names = ("gather_max_argmax", "gather_max_backward",
-                          "gather_max_slab_argmax", "gather_max_argmax_bf16",
-                          "gather_max_backward_bf16",
-                          "gather_max_slab_argmax_bf16")
-    bf16_kernel_names = ("gather_max_bf16", "gather_max_slab_bf16")
     cxyz, crgb = tabletop_cloud(np.random.RandomState(100))
     sel = np.random.RandomState(1).choice(len(cxyz), N_POINTS, False)
     pc = np.c_[cxyz, crgb][sel].astype(np.float32)
@@ -3324,9 +3756,8 @@ def main() -> None:
                 "fast": (slab_over | bf16_over, slab_rand),
                 "bf16 full-scan" + F64: (bf16_over, full_rand, "f64"),
                 "fast" + F64: (slab_over | bf16_over, slab_rand, "f64")}
-    wants = serving_wants(slab_kernel_names, train_kernel_names,
-                          bf16_kernel_names)
-    paths = serving_phases(wants)
+    wants = serving_wants()
+    paths, solo_s = serving_phases(wants)
     paths["k8_flat_entry"] = flat_launches
     # (f) the serving knobs through the infer CLI, and one forward of each
     # configuration against the CPU's (in `compared`, below)
@@ -3334,6 +3765,9 @@ def main() -> None:
     knob_paths, knob_serving = knob_serving_phase(wants)
     paths |= knob_paths
     print(f"phase (f): {time.perf_counter() - t0:.1f} s")
+    # (h) and (i): data parallelism over every visible card
+    dp_paths, data_parallel = dp_phases(wants, solo_s)
+    paths |= dp_paths
     for key, _, over, rand in knob_runs():
         compared[key] = (over, {"full": full_rand, "slab": slab_rand}[rand])
         if "model.compute_dtype" in over:
@@ -3374,10 +3808,11 @@ def main() -> None:
         step_data.cleanup()
     print(json.dumps({"bf16_train_step_card_vs_cpu": step}))
     print(json.dumps({"determinism": det, "evaluator": evaluator,
-                      "suite_v2": suite, "knob_serving": knob_serving}))
+                      "suite_v2": suite, "knob_serving": knob_serving,
+                      "data_parallel": data_parallel}))
 
     main_path = {**dict.fromkeys(results, "full_scan"),
-                 **dict.fromkeys(slab_kernel_names, "slab"),
+                 **dict.fromkeys(SLAB_KERNELS, "slab"),
                  "gather_max_argmax": "train_full_scan",
                  "gather_max_backward": "train_full_scan",
                  "gather_max_slab_argmax": "train_slab",

@@ -17,8 +17,17 @@ JAX CLI writes the two the same way and pairs them nowhere.
 
 ``--center-select``, ``--center-min-z``, ``--pose-search`` and
 ``--refine-guard`` are the JAX CLI's serving knobs (its
-``cli/infer.py:67-89``); only ``--dp`` (data-parallel serving) is not
-ported.
+``cli/infer.py:67-89``).
+
+``--dp`` serves one cloud per device over every visible card (JAX
+``cli/infer.py:179-236``): a worker process per card holds the model
+(`parallel.infer.make_dp_inference`), the clouds go in chunks of W, cloud
+i of a chunk to card i with the seed ``fold_seed(seed, i)``, a partial
+last chunk padded with its first cloud (the padded outputs dropped), and
+each worker runs its cloud's view filter on its card.  Each cloud's line
+carries the chunk's wall time and ``({n} clouds)``.  A worker that fails
+ends the run with an error; ``--dp`` never continues on fewer cards or on
+the CPU (``--device cpu --dp`` asks for one CPU worker).
 
 ``--fast`` is the JAX package's serving configuration of record: bf16
 network compute with f32 geometry, the sorted slab (cell 0.04) and grouped
@@ -30,7 +39,7 @@ Usage:
       --folder-name /path/to/virtual_data \\
       --checkpoint weights/r5_real_e100.npz [--fast | --bf16]
       [--slab-cell 0.04 --fps-groups 8] [--center-min-z 0.75] \\
-      [--pose-search 8] [--refine-guard] [--center-select bucket]
+      [--pose-search 8] [--refine-guard] [--center-select bucket] [--dp]
 """
 
 from __future__ import annotations
@@ -60,6 +69,9 @@ def build_parser():
     p.add_argument("--no-eval", action="store_true",
                    help="skip the view collision filter (raw grasp "
                         "sets)")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel serving: one cloud per visible card, "
+                        "a worker process each (parallel/infer.py)")
     p.add_argument("--accept-margin", type=float, default=0.0)
     p.add_argument("--num-refine", type=int, default=1)
     p.add_argument("--refine-pose", default="full",
@@ -163,9 +175,12 @@ def load_cloud(pc_path: str, all_points_num: int,
     return pc[sel].astype(np.float32), pc_back, color_back, real
 
 
-def main(argv=None) -> list:
+def main(argv=None, devices=None) -> list:
     """Returns one record per cloud: path, forward seconds (synchronized
-    on the device), the model output and the grasp sets written."""
+    on the device; with ``--dp`` the chunk's wall time, ``chunk`` its
+    clouds), the model output and the grasp sets written.  `devices`:
+    the devices ``--dp`` spreads over (default: every visible card of
+    ``--device``, `parallel.mesh.visible_devices`)."""
     args = build_parser().parse_args(argv)
 
     from regnet_for_3d_grasping_torch.eval.evaluator import eval_test
@@ -173,12 +188,6 @@ def main(argv=None) -> list:
     from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets
 
     cfg = config_from_args(args)
-    torch.manual_seed(args.seed)          # random init without weights
-    model = build_regnet(cfg, args.checkpoint or None, args.device)
-    device = next(model.parameters()).device
-    if args.checkpoint:
-        print(f"loaded weights from {args.checkpoint}")
-
     if args.file_name:
         paths = [os.path.join(args.folder_name, args.file_name)]
     else:
@@ -186,6 +195,14 @@ def main(argv=None) -> list:
                        + glob.glob(os.path.join(args.folder_name, "*.pcd")))
     if not paths:
         raise SystemExit(f"no input clouds under {args.folder_name!r}")
+    if args.dp:
+        return _serve_dp(args, cfg, paths, devices)
+
+    torch.manual_seed(args.seed)          # random init without weights
+    model = build_regnet(cfg, args.checkpoint or None, args.device)
+    device = next(model.parameters()).device
+    if args.checkpoint:
+        print(f"loaded weights from {args.checkpoint}")
 
     rng = np.random.RandomState(args.seed)
     records = []
@@ -209,22 +226,72 @@ def main(argv=None) -> list:
             sets = {k: eval_test(pc_back, v, None, g.table_height, g.depth,
                                  g.width, g, cfg.eval, device=device)
                     for k, v in sets.items()}
-        out_path = pc_path.replace("_data", "_data_predict")
-        if real:
-            out_path = out_path.replace(".pcd", ".p")
-        if out_path == pc_path:     # never overwrite the input
-            out_path = os.path.splitext(pc_path)[0] + "_predict.p"
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
-                    exist_ok=True)
-        with open(out_path, "wb") as f:
-            pickle.dump({"points": pc_back, "colors": color_back,
-                         "scores": out.score[0].cpu().numpy().reshape(-1, 1),
-                         **{k: np.asarray(v, np.float32)
-                            for k, v in sets.items()}}, f)
-        print(f"  -> {out_path}")
+        _write_prediction(pc_path, real, pc_back, color_back,
+                          out.score[0], sets)
         records.append({"path": pc_path, "forward_s": dt, "out": out,
                         "sets": sets})
     return records
+
+
+def _serve_dp(args, cfg, paths, devices) -> list:
+    """``--dp``: the clouds in chunks of W over W worker processes."""
+    from regnet_for_3d_grasping_torch.parallel.infer import make_dp_inference
+    from regnet_for_3d_grasping_torch.parallel.mesh import visible_devices
+
+    devices = list(devices) if devices is not None else \
+        visible_devices(args.device)
+    group = len(devices)
+    print(f"data-parallel serving over {group} device(s)")
+    rng = np.random.RandomState(args.seed)
+    records = []
+    with make_dp_inference(cfg, args.checkpoint or None, devices,
+                           init_seed=args.seed) as fwd:
+        if args.checkpoint:
+            print(f"loaded weights from {args.checkpoint}")
+        for start in range(0, len(paths), group):
+            chunk = paths[start:start + group]
+            loaded = [load_cloud(p, args.all_points_num, rng) for p in chunk]
+            x = np.stack([l[0] for l in loaded])
+            backs = [None if args.no_eval else l[1] for l in loaded]
+            if len(chunk) < group:     # pad the final partial chunk
+                pad = group - len(chunk)
+                x = np.concatenate([x, np.repeat(x[:1], pad, 0)])
+                backs += [None] * pad
+            t0 = time.perf_counter()
+            shards = fwd(x, args.seed, eval_clouds=backs)
+            dt = time.perf_counter() - t0
+            for (pc_path, (_, pc_back, color_back, real)), shard in zip(
+                    zip(chunk, loaded), shards):
+                out = shard["out"]
+                sets = shard["sets"][0]
+                print(f"{pc_path}: forward {dt:.4f}s ({len(chunk)} clouds), "
+                      f"{len(sets['grasp_stage2'])} stage2 / "
+                      f"{len(sets['grasp_stage3'])} stage3 grasps")
+                _write_prediction(pc_path, real, pc_back, color_back,
+                                  out.score[0], sets)
+                records.append({"path": pc_path, "forward_s": dt,
+                                "chunk": len(chunk), "out": out,
+                                "sets": sets,
+                                "device_forward_s": shard["forward_s"],
+                                "launches": shard["launches"]})
+    return records
+
+
+def _write_prediction(pc_path, real, pc_back, color_back, score, sets):
+    """The prediction pickle beside the input (``_data`` ->
+    ``_data_predict``)."""
+    out_path = pc_path.replace("_data", "_data_predict")
+    if real:
+        out_path = out_path.replace(".pcd", ".p")
+    if out_path == pc_path:     # never overwrite the input
+        out_path = os.path.splitext(pc_path)[0] + "_predict.p"
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "wb") as f:
+        pickle.dump({"points": pc_back, "colors": color_back,
+                     "scores": score.cpu().numpy().reshape(-1, 1),
+                     **{k: np.asarray(v, np.float32)
+                        for k, v in sets.items()}}, f)
+    print(f"  -> {out_path}")
 
 
 def _sync(device: torch.device) -> None:

@@ -1,13 +1,31 @@
-"""Training CLI of the PyTorch port (JAX ``cli/train.py``), one device.
+"""Training CLI of the PyTorch port (JAX ``cli/train.py``).
 
 Modes: train (all three losses), pretrain_score, pretrain_region,
 validate[_score|_region], test[_score|_region].  With ``--eval-grasps`` the
-validation forwards' grasp sets also go through the geometric evaluator
-(`eval.evaluator.evaluate_scene_grasps`, scene by scene on the model's
-device, as the JAX CLI does on one device): every ``--eval-every``-th
-epoch and the last in the train modes, always in the validate and test
-modes, never at stage ``score``; each stage's VGR, score and VGR before
-the view check are logged as ``epoch_{mode}_{stage}_vgr`` and so on.
+validation forwards' grasp sets also go through the geometric evaluator:
+every ``--eval-every``-th epoch and the last in the train modes, always in
+the validate and test modes, never at stage ``score``; each stage's VGR,
+score and VGR before the view check are logged as
+``epoch_{mode}_{stage}_vgr`` and so on.  With one visible device it
+evaluates scene by scene (`eval.evaluator.evaluate_scene_grasps`); with
+more, one scene per device (`eval.parallel_eval.evaluate_scenes_sharded`),
+W pending scenes of a stage at a time, grouped by gripper width, as the
+JAX CLI does on a mesh.
+
+Data parallelism (JAX ``cli/train.py:250-255``): a training mode with more
+than one visible card and a batch that the card count W divides trains on
+every card, with no wrapper: the CLI spawns one process per card, joined
+by NCCL (`parallel.launch.run_ranks`).  Each rank loads the same batches,
+keeps its contiguous shard of B / W scenes and runs the data-parallel step
+of `train.trainer` (its seed folded by its shard index; gradients,
+BatchNorm statistics and metrics averaged).  Rank 0 logs the averaged
+metrics, writes the checkpoints and runs the validation forwards, which
+JAX does not shard either, and the grasp evaluation over every card; the
+other ranks only train, and wait on the host (a gloo barrier, no
+collective kernel on their cards) until rank 0 has validated.  Every flag
+works as on one card.  Otherwise, or with ``--device cpu``, the CLI runs
+on one device.  A rank that fails ends the run with an error; it never goes on
+with fewer cards or on the CPU.
 
 Usage:
   python -m regnet_for_3d_grasping_torch.cli.train --mode train \\
@@ -39,8 +57,7 @@ versions of the kernels.  Every run is bit-reproducible, as the JAX
 package's is: the CLI runs under `torch.use_deterministic_algorithms`
 (`deterministic`), with cuBLAS's fixed workspace
 (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here unless the caller set it
-before the first cuBLAS call).  Data parallelism is not ported (ROADMAP.md
-queue A item 7).
+before the first cuBLAS call), on every rank.
 """
 
 from __future__ import annotations
@@ -194,30 +211,36 @@ def deterministic():
         det.fill_uninitialized_memory = prev[2]
 
 
-def main(argv=None) -> dict:
+def main(argv=None, devices=None) -> dict:
     """Returns {"model", "cfg", "eval_cfg", "steps": [{"epoch", "loss",
-    "seconds"}], "validation": [metrics of each validation forward],
+    "seconds"}], "epochs": [{"epoch", "seconds" (training, checkpoint and
+    validation), "validate_seconds"}] (train modes),
+    "validation": [metrics of each validation forward],
     "grasp_records": [{"epoch", "mode", "records": {stage: EvalRecord}}]
     (one per epoch that evaluated grasps), "trace": the profiler trace's
     path or None}; a step's seconds are synchronized on the device and
-    cover the batch upload, the forward, the backward and the update."""
+    cover the batch upload, the forward, the backward and the update.
+    Data-parallel runs return rank 0's, its model on the CPU, and "ranks":
+    each rank's device, step seconds, peak device memory and the
+    milliseconds of each step's averaging collectives.  `devices`:
+    the visible devices (default: `parallel.mesh.visible_devices` of
+    ``--device``)."""
+    from regnet_for_3d_grasping_torch.parallel.mesh import visible_devices
     args = build_parser().parse_args(argv)
+    devices = list(devices) if devices is not None else \
+        visible_devices(args.device)
+    _prepare(args)
+    if (args.mode in TRAIN_MODES and len(devices) > 1
+            and args.batch_size % len(devices) == 0):
+        return _run_data_parallel(args, devices)
     with deterministic():
-        return _run(args)
+        return _run(args, devices)
 
 
-def _run(args) -> dict:
+def _configs(args):
+    """(train configuration, exact configuration) from the flags; sets
+    ``args.num_points`` from the tiny configuration under ``--tiny``."""
     from regnet_for_3d_grasping_torch.config import tiny_config, train_config
-    from regnet_for_3d_grasping_torch.data import (GraspDataset,
-                                                   write_synthetic_dataset)
-    from regnet_for_3d_grasping_torch.ops import _cuda
-    from regnet_for_3d_grasping_torch.runtime import resolve_device
-    from regnet_for_3d_grasping_torch.train import trainer
-    from regnet_for_3d_grasping_torch.utils import checkpoint as ckpt
-    from regnet_for_3d_grasping_torch.utils.logging import (MetricLogger,
-                                                            host_scalars)
-
-    device = resolve_device(args.device)
     over = {"train.batch_size": args.batch_size,
             "train.lr_score": args.lr_score,
             "train.lr_region": args.lr_region,
@@ -243,12 +266,105 @@ def _run(args) -> dict:
     if args.bf16:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, compute_dtype="bfloat16"))
+    return cfg, exact_cfg
 
+
+def _prepare(args) -> None:
+    """What a run writes to disk before it trains, once for all ranks:
+    the synthetic scenes, and the native loader's scene cache and
+    library."""
+    from regnet_for_3d_grasping_torch.data import (GraspDataset,
+                                                   write_synthetic_dataset)
+    cfg, _ = _configs(args)
     if args.synthetic_scenes:
         write_synthetic_dataset(args.data_path, args.synthetic_scenes,
                                 num_view=args.num_points,
                                 layout=args.scene_layout,
                                 gt_robust=args.gt_robust)
+    if args.native_loader and args.mode in TRAIN_MODES:
+        from regnet_for_3d_grasping_torch.data.native_loader import (
+            build_library, convert_dataset)
+        convert_dataset(GraspDataset(args.data_path, "train", args.num_points,
+                                     cfg.region.max_gt_grasps,
+                                     args.seed).paths,
+                        os.path.join(args.data_path, "rsc_cache"))
+        build_library()
+
+
+def _run_data_parallel(args, devices) -> dict:
+    """One rank per device (`_rank`), rank 0's result back."""
+    from regnet_for_3d_grasping_torch.parallel.launch import run_ranks
+    print(f"data-parallel over {len(devices)} devices")
+    if any(torch.device(d).type == "cuda" for d in devices):
+        from regnet_for_3d_grasping_torch.ops import _cuda
+        _cuda.build()           # once, before the ranks load the kernels
+    ranks = run_ranks(_rank, devices, args, [str(d) for d in devices])
+    result = ranks[0]
+    model = build_model(result["cfg"], args.seed, "cpu")
+    model.load_state_dict(result.pop("state_dict"))
+    result["model"] = model
+    result["ranks"] = [r["rank"] for r in ranks]
+    return result
+
+
+def _rank(rank: int, device: torch.device, args, devices) -> dict:
+    from regnet_for_3d_grasping_torch.parallel.mesh import make_mesh
+    mesh = make_mesh()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        mesh.events = []
+    with deterministic():
+        result = _run(args, devices, mesh, device)
+    cuda = device.type == "cuda"
+    info = {"device": str(device),
+            "seconds": [s["seconds"] for s in result["steps"]],
+            "peak_bytes": torch.cuda.max_memory_allocated(device)
+            if cuda else None,
+            # each step's averaging, on the card's clock
+            "collective_ms": mesh.collective_ms() if cuda else None}
+    if rank != 0:
+        return {"rank": info}
+    model = result.pop("model")
+    result["state_dict"] = {k: v.cpu() for k, v in
+                            model.state_dict().items()}
+    result["rank"] = info
+    return result
+
+
+class _Silent:
+    """The metric logger of a rank other than 0."""
+
+    def scalar(self, *a) -> None:
+        pass
+
+    def scalars(self, *a) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+def _run(args, devices, mesh=None, device=None) -> dict:
+    """One run on `device` (default ``--device``); with a `mesh`, this
+    rank's part of a data-parallel run.  `devices`: the visible devices,
+    over which the grasp evaluation spreads."""
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    from regnet_for_3d_grasping_torch.parallel.mesh import (fold_seed,
+                                                            shard_batch)
+    from regnet_for_3d_grasping_torch.runtime import resolve_device
+    from regnet_for_3d_grasping_torch.train import trainer
+    from regnet_for_3d_grasping_torch.utils import checkpoint as ckpt
+    from regnet_for_3d_grasping_torch.utils.logging import (MetricLogger,
+                                                            host_scalars)
+
+    device = resolve_device(args.device if device is None else device)
+    main_rank = mesh is None or mesh.is_main
+    say = print if main_rank else (lambda *a, **k: None)
+    cfg, exact_cfg = _configs(args)
     stage = MODE_STAGE[args.mode]
     is_train = args.mode in TRAIN_MODES
 
@@ -267,7 +383,7 @@ def _run(args) -> dict:
         saved = ckpt.load_checkpoint(ckpt_dir)
         model.load_state_dict(saved["model"])
         resume_epoch = saved["epoch"] + 1
-        print(f"resumed from epoch {saved['epoch']}")
+        say(f"resumed from epoch {saved['epoch']}")
     optimizer = trainer.make_optimizer(model, cfg, steps_per_epoch,
                                        resume_epoch)
     if saved is not None and "adam" in saved:
@@ -286,11 +402,11 @@ def _run(args) -> dict:
     if args.center_jitter:
         jitter = [int(v) for v in args.center_jitter.split(",") if v]
         train_cfgs = [with_center_num(cfg, v) for v in jitter]
-        print(f"center_num jitter over {jitter}")
+        say(f"center_num jitter over {jitter}")
     eval_cfg = exact_cfg
     if args.eval_center_num:
         eval_cfg = with_center_num(exact_cfg, args.eval_center_num)
-        print(f"validation forwards at center_num={args.eval_center_num}")
+        say(f"validation forwards at center_num={args.eval_center_num}")
 
     # validation forwards run a model of their own, built for `eval_cfg`
     # (SA1 keeps its FPS grouping from the configuration it was built
@@ -298,20 +414,42 @@ def _run(args) -> dict:
     eval_model = (model if eval_cfg == cfg and not args.center_jitter
                   else build_model(eval_cfg, args.seed, device))
     result = {"model": model, "cfg": cfg, "eval_cfg": eval_cfg, "steps": [],
-              "validation": [], "grasp_records": [], "trace": None}
+              "epochs": [], "validation": [], "grasp_records": [],
+              "trace": None}
+
+    # the grasp evaluation spreads one scene per device where there are
+    # several (JAX `cli/train.py:311`); rank 0 runs it over every card
+    eval_devices = list(devices) if len(devices) > 1 else None
 
     def run_eval_epoch(logger, epoch, mode_name, ds, with_grasps=True):
         from regnet_for_3d_grasping_torch.data import load_scene
         from regnet_for_3d_grasping_torch.eval.evaluator import (
             EvalRecord, evaluate_scene_grasps, view_num_from_path)
+        from regnet_for_3d_grasping_torch.eval.parallel_eval import (
+            evaluate_scenes_sharded)
         from regnet_for_3d_grasping_torch.utils.export import (
             extract_grasp_sets)
         if eval_model is not model:
             eval_model.load_state_dict(model.state_dict())
         grasps_on = args.eval_grasps and with_grasps and stage != "score"
-        records = dict.fromkeys(("stage2", "stage3_class", "stage3_score"),
-                                EvalRecord())
+        names = ("stage2", "stage3_class", "stage3_score")
+        records = dict.fromkeys(names, EvalRecord())
+        pending = {name: [] for name in names}
         g = cfg.gripper
+
+        def flush(name):
+            """The pending scenes of a stage, one per device, a call for
+            each gripper width."""
+            items, pending[name] = pending[name], []
+            for w in sorted({it[4] for it in items}):
+                sel = [it for it in items if it[4] == w]
+                for rec in evaluate_scenes_sharded(
+                        eval_devices, [it[0] for it in sel],
+                        [it[1] for it in sel], [it[2] for it in sel],
+                        [it[5] for it in sel], [it[3] for it in sel], w, g,
+                        cfg.eval):
+                    records[name] = records[name].add(rec)
+
         for n, batch in enumerate(ds.batches(1, seed=epoch, shuffle=False,
                                              augment=False)):
             gen = torch.Generator().manual_seed(epoch * 10007 + n)
@@ -330,16 +468,24 @@ def _run(args) -> dict:
                 view = 0
             # scenes of a randomized layout carry their own table height
             tz = float(data.get("table_height", g.table_height))
-            for name, key in (("stage2", "grasp_stage2"),
-                              ("stage3_class", "grasp_stage3"),
-                              ("stage3_score", "grasp_stage3_score")):
+            for name, key in zip(names, ("grasp_stage2", "grasp_stage3",
+                                         "grasp_stage3_score")):
                 grasps = sets[key]
                 if len(grasps) == 0:
                     continue
                 depths = np.full(len(grasps), g.depth, np.float32)
-                records[name] = records[name].add(evaluate_scene_grasps(
-                    data, grasps, view, tz, depths, float(batch.width[0]),
-                    g, cfg.eval, device=device))
+                width = float(batch.width[0])
+                if eval_devices is None:
+                    records[name] = records[name].add(evaluate_scene_grasps(
+                        data, grasps, view, tz, depths, width, g, cfg.eval,
+                        device=device))
+                    continue
+                pending[name].append((data, grasps, view, depths, width, tz))
+                if len(pending[name]) >= len(eval_devices):
+                    flush(name)
+        if eval_devices is not None:
+            for name in names:
+                flush(name)
         if grasps_on:
             result["grasp_records"].append(
                 {"epoch": epoch, "mode": mode_name, "records": records})
@@ -361,7 +507,7 @@ def _run(args) -> dict:
                               os.path.join(args.data_path, "rsc_cache"))
         native = NativeLoader(rsc, batch_size, args.num_points,
                               cfg.region.max_gt_grasps, seed=args.seed)
-        print(f"native loader over {len(rsc)} cached scenes")
+        say(f"native loader over {len(rsc)} cached scenes")
 
     def epoch_batches(epoch):
         from regnet_for_3d_grasping_torch.data import augment
@@ -392,7 +538,8 @@ def _run(args) -> dict:
         prof, result["trace"] = None, path
         print(f"profiler trace written to {path}")
 
-    with MetricLogger(args.log_path, args.tag) as logger:
+    with (MetricLogger(args.log_path, args.tag) if main_rank
+          else _Silent()) as logger:
         if not is_train:
             run_eval_epoch(logger, resume_epoch, args.mode, val_ds)
             return result
@@ -404,7 +551,7 @@ def _run(args) -> dict:
             # read once an epoch: on the card the count syncs
             fallbacks = _cuda.fallbacks["fp3_slab"]
             for batch in epoch_batches(epoch):
-                if args.profile_dir and epoch == resume_epoch:
+                if args.profile_dir and epoch == resume_epoch and main_rank:
                     if nb == 3 and prof is None:
                         acts = [torch.profiler.ProfilerActivity.CPU]
                         if device.type == "cuda":
@@ -416,6 +563,11 @@ def _run(args) -> dict:
                 _sync(device)
                 t0 = time.perf_counter()
                 seed = epoch * 131071 + nb
+                if mesh is not None:
+                    # this rank's contiguous shard, its seed folded by its
+                    # shard index (JAX `trainer.py:109-116`)
+                    batch = shard_batch(batch, mesh.size, mesh.shard_index)
+                    seed = fold_seed(seed, mesh.shard_index)
                 gen = torch.Generator().manual_seed(seed)
                 drop_gen.manual_seed(seed)
                 step = epoch * steps_per_epoch + nb
@@ -424,7 +576,7 @@ def _run(args) -> dict:
                 model.cfg = train_cfgs[step % len(train_cfgs)]
                 metrics = trainer.train_step(
                     model, optimizer, trainer.device_batch(batch, device),
-                    stage, generator=gen, dropout_generator=drop_gen)
+                    stage, mesh, generator=gen, dropout_generator=drop_gen)
                 logger.scalars(metrics, step, "train", "batch")
                 loss = float(metrics["loss_total"])
                 _sync(device)
@@ -433,8 +585,8 @@ def _run(args) -> dict:
                                         "seconds": dt})
                 total += loss
                 nb += 1
-                print(f"train epoch {epoch} [{nb}/{steps_per_epoch}] "
-                      f"loss {loss:.4f} ({dt:.3f}s)")
+                say(f"train epoch {epoch} [{nb}/{steps_per_epoch}] "
+                    f"loss {loss:.4f} ({dt:.3f}s)")
             if prof is not None:
                 profile_stop(epoch)
             logger.scalar("epoch_train_loss", total / max(nb, 1), epoch)
@@ -443,12 +595,21 @@ def _run(args) -> dict:
                 fallbacks = _cuda.fallbacks["fp3_slab"] - fallbacks
                 logger.scalar("epoch_fp3_slab_fallbacks", fallbacks, epoch)
                 note = f", {fallbacks} steps' slab 3-NN fell back"
-            print(f"epoch {epoch}: mean loss {total / max(nb, 1):.4f} "
-                  f"({time.time() - t_epoch:.1f}s{note})")
-            ckpt.save_checkpoint(ckpt_dir, epoch, model, optimizer)
-            run_eval_epoch(logger, epoch, "validate", val_ds, with_grasps=(
-                epoch % max(args.eval_every, 1) == 0
-                or epoch == args.epoch - 1))
+            say(f"epoch {epoch}: mean loss {total / max(nb, 1):.4f} "
+                f"({time.time() - t_epoch:.1f}s{note})")
+            if main_rank:
+                ckpt.save_checkpoint(ckpt_dir, epoch, model, optimizer)
+                t_val = time.perf_counter()
+                run_eval_epoch(logger, epoch, "validate", val_ds,
+                               with_grasps=(epoch % max(args.eval_every, 1)
+                                            == 0 or epoch == args.epoch - 1))
+                result["epochs"].append({
+                    "epoch": epoch, "seconds": time.time() - t_epoch,
+                    "validate_seconds": time.perf_counter() - t_val})
+            if mesh is not None:
+                # the other ranks wait on the host while rank 0 validates:
+                # its grasp evaluation runs on their cards too
+                mesh.host_barrier()
     if native is not None:
         native.close()
     return result

@@ -1,6 +1,8 @@
-"""Many scenes' grasp sets in one call (JAX ``eval/parallel_eval.py``), on
-one device: the scenes are padded to common shapes as JAX pads them for its
-mesh, then evaluated one after another.  More cards: ROADMAP.md A7.
+"""Many scenes' grasp sets in one call, spread over devices (JAX
+``eval/parallel_eval.py``): the scenes are padded to common shapes and
+their count to a multiple of the W devices, by repeating the last, as JAX
+pads them for its mesh; device i evaluates scenes ``[i*S/W, (i+1)*S/W)``
+one after another, each device from a host thread of its own.
 
 Padding (each a no-op for the metrics, and kept exactly, since the padded
 cloud is what the normals see):
@@ -13,6 +15,7 @@ cloud is what the normals see):
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -82,19 +85,20 @@ def make_scene_eval_body(gripper: GripperConfig, cfg: EvalConfig,
 
 
 def evaluate_scenes_sharded(
-        device, scenes: Sequence[dict], grasps_list: Sequence[np.ndarray],
+        devices: Sequence, scenes: Sequence[dict],
+        grasps_list: Sequence[np.ndarray],
         view_nums: Sequence[int], table_height,
         depths_list: Sequence[np.ndarray], width: float,
         gripper: Optional[GripperConfig] = None,
         cfg: Optional[EvalConfig] = None,
         grasp_pad: int = 256) -> List[EvalRecord]:
-    """One EvalRecord per scene (JAX ``parallel_eval.py:115``, with a torch
-    `device` where JAX takes a mesh): as `evaluate_scene_grasps` per scene,
-    with one `width` for all and `table_height` a scalar or one per
-    scene."""
+    """One EvalRecord per scene (JAX ``parallel_eval.py:115``, with a list
+    of torch `devices` where JAX takes a mesh): as `evaluate_scene_grasps`
+    per scene, with one `width` for all and `table_height` a scalar or one
+    per scene."""
     gripper = _with_width(gripper, width)
     cfg = cfg or EvalConfig()
-    dev = resolve_device(device)
+    devs = [resolve_device(d) for d in devices]
     S = len(scenes)
     assert S == len(grasps_list) == len(view_nums) == len(depths_list)
     formals = [float(len(g)) for g in grasps_list]
@@ -122,11 +126,25 @@ def evaluate_scenes_sharded(
         gp, dpp = _pad_grasps(g[:, :8], np.asarray(dp, np.float32), G)
         gs.append(gp)
         dps.append(dpp)
-    ths = np.broadcast_to(np.asarray(table_height, np.float32), (S,))
-    stack = [torch.as_tensor(np.stack(a), device=dev)
-             for a in (vps, sps, sns, cams, gs, dps, ths)]
+    ths = list(np.broadcast_to(np.asarray(table_height, np.float32), (S,)))
+    Sp = _round_up(S, len(devs))
+    for arr in (vps, sps, sns, cams, gs, dps, ths):
+        arr.extend([arr[-1]] * (Sp - S))
+    stack = [np.stack(a) for a in (vps, sps, sns, cams, gs, dps, ths)]
     body = make_scene_eval_body(gripper, cfg, with_normals)
-    vgr_count, score_sum, nocoll_view = (r.cpu().numpy()
-                                         for r in body(*stack))
+    per = Sp // len(devs)
+
+    def shard(i):
+        dev = devs[i]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)      # this thread's card
+        part = [torch.as_tensor(a[i * per:(i + 1) * per], device=dev)
+                for a in stack]
+        return [r.cpu().numpy() for r in body(*part)]
+
+    with ThreadPoolExecutor(len(devs)) as pool:
+        parts = list(pool.map(shard, range(len(devs))))
+    vgr_count, score_sum, nocoll_view = (np.concatenate(r)
+                                         for r in zip(*parts))
     return [EvalRecord(float(vgr_count[i]), float(score_sum[i]),
                        float(nocoll_view[i]), formals[i]) for i in range(S)]

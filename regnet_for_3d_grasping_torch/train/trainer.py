@@ -1,12 +1,23 @@
-"""Optimizer, train step and eval step (JAX ``train/trainer.py``, its
-single-device half; the mesh / ``shard_map`` half is not ported yet).
+"""Optimizer, train step and eval step (JAX ``train/trainer.py``).
 
   * `make_optimizer`: one Adam with two parameter groups (``score_net.*``
     at ``lr_score``, the heads at ``lr_region``) and the epoch-granular
     decay ``lr * gamma ** (epoch // lr_step_epochs)``;
   * `train_step` / `eval_step`: forward, on-device GT matching
     (``geometry/gt.py``), the losses of the stage, and for training the
-    backward and the update.
+    backward and the update;
+  * data parallelism (JAX's ``make_train_step(mesh=...)``, ``shard_map``
+    over the batch): `train_step` with a `parallel.mesh.Mesh` runs on one
+    rank's shard, its forward on train-mode BatchNorm statistics of that
+    shard alone (unsynced, as JAX and the reference's ``nn.DataParallel``),
+    then averages over the ranks, as JAX's three ``pmean``s do, the
+    gradients, the new BatchNorm running statistics (each rank's
+    ``0.9 * running + 0.1 * shard statistics``) and the metrics, and
+    applies the same Adam update as every other rank
+    (`average_over_mesh`).  `train_step_emulated` is the same step on one
+    device, shard after shard.  Each rank's seed is the step's seed folded
+    by its shard index (`parallel.mesh.fold_seed`), which seeds both its
+    sampling and its dropout generator.
 
 Stages mirror the CLI modes: ``"score"`` (stage-1 loss only), ``"region"``
 (stages 1 and 2, refine stage skipped), ``"refine"`` (all three).
@@ -14,7 +25,7 @@ Stages mirror the CLI modes: ``"score"`` (stage-1 loss only), ``"region"``
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -124,17 +135,110 @@ def forward_losses(model: REGNet, batch: DeviceBatch, stage: str,
 
 
 def train_step(model: REGNet, optimizer: Optimizer, batch: DeviceBatch,
-               stage: str = "refine", **forward_kw) -> Dict[str, torch.Tensor]:
+               stage: str = "refine", mesh=None,
+               **forward_kw) -> Dict[str, torch.Tensor]:
     """One update in training mode; returns the (detached) metrics.
     `forward_kw` goes to `REGNet.forward`: the generators, or explicit
-    seeds."""
+    seeds.  With a `mesh`, `batch` is this rank's shard and the update
+    averages over the mesh (`average_over_mesh`)."""
     _check_stage(model.cfg, stage)
     model.train()
     optimizer.zero_grad()
     _, total, metrics = forward_losses(model, batch, stage, **forward_kw)
     total.backward()
+    if mesh is not None:
+        metrics = average_over_mesh(model, metrics, mesh)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def _flat_grads(model: REGNet) -> Tuple[List[torch.nn.Parameter],
+                                        torch.Tensor]:
+    """Every parameter and its gradient in one flat tensor; a parameter
+    the stage left out of the loss counts a zero gradient, as
+    `Optimizer.step` gives it."""
+    params = list(model.parameters())
+    return params, torch.cat([
+        (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+        for p in params])
+
+
+def _set_flat(tensors, flat: torch.Tensor, grads: bool) -> None:
+    for x, v in zip(tensors, flat.split([x.numel() for x in tensors])):
+        if grads:
+            x.grad = v.view_as(x)
+        else:
+            x.copy_(v.view_as(x))
+
+
+def _mean_metrics(metrics: Dict[str, torch.Tensor], mean_) -> Dict:
+    """Each metric through `mean_` (in place, on a stack of the metrics of
+    one dtype)."""
+    out = {}
+    # in one order on every rank (a set of dtypes iterates by hash)
+    for dtype in sorted({v.dtype for v in metrics.values()}, key=str):
+        keys = [k for k, v in metrics.items() if v.dtype == dtype]
+        stack = torch.stack([metrics[k].detach() for k in keys])
+        out.update(zip(keys, mean_(stack).unbind()))
+    return out
+
+
+def average_over_mesh(model: REGNet, metrics: Dict[str, torch.Tensor],
+                      mesh) -> Dict[str, torch.Tensor]:
+    """After this rank's backward: the gradients, the BatchNorm running
+    statistics and the metrics averaged over `mesh` (JAX ``pmean`` of
+    ``grads``, ``new_stats`` and ``metrics``, ``trainer.py:135-138``), one
+    collective for each (one `Mesh.timed` block)."""
+    with mesh.timed():
+        params, flat = _flat_grads(model)
+        _set_flat(params, mesh.all_mean_(flat), grads=True)
+        buffers = list(model.buffers())
+        with torch.no_grad():
+            flat = torch.cat([b.reshape(-1) for b in buffers])
+            _set_flat(buffers, mesh.all_mean_(flat), grads=False)
+        return _mean_metrics(metrics, mesh.all_mean_)
+
+
+def train_step_emulated(model: REGNet, optimizer: Optimizer,
+                        shards: Sequence[DeviceBatch],
+                        forward_kws: Sequence[dict],
+                        stage: str = "refine") -> Dict[str, torch.Tensor]:
+    """The data-parallel step of ``len(shards)`` ranks on one device: each
+    shard's forward and backward from the same weights and running
+    statistics (`forward_kws[i]` its seeds), then the gradients, the new
+    running statistics and the metrics averaged (summed in shard order)
+    and one update."""
+    _check_stage(model.cfg, stage)
+    model.train()
+    start = [b.detach().clone() for b in model.buffers()]
+    grads, stats, metrics = [], [], []
+    for shard, kw in zip(shards, forward_kws):
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), start):
+                b.copy_(s)
+        optimizer.zero_grad()
+        _, total, m = forward_losses(model, shard, stage, **kw)
+        total.backward()
+        params, flat = _flat_grads(model)
+        grads.append(flat)
+        stats.append(torch.cat([b.detach().reshape(-1).clone()
+                                for b in model.buffers()]))
+        metrics.append({k: v.detach() for k, v in m.items()})
+    n = len(shards)
+
+    def mean(xs):
+        total = xs[0].clone()
+        for x in xs[1:]:
+            total += x
+        return total.div_(n)
+
+    _set_flat(params, mean(grads), grads=True)
+    with torch.no_grad():
+        _set_flat(list(model.buffers()), mean(stats), grads=False)
+    keys = metrics[0].keys()
+    averaged = {k: mean([m[k] for m in metrics]) for k in keys}
+    optimizer.step()
+    return averaged
 
 
 @torch.no_grad()

@@ -323,9 +323,9 @@ def test_evaluate_scenes_sharded_one_device(with_normals):
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
     want = jpar.evaluate_scenes_sharded(mesh, scenes, grasps, views, heights,
                                         depths, GRIP.width, JGRIP, JECFG)
-    got = parallel_eval.evaluate_scenes_sharded("cpu", scenes, grasps, views,
-                                                heights, depths, GRIP.width,
-                                                GRIP, ECFG)
+    got = parallel_eval.evaluate_scenes_sharded(
+        ["cpu"], scenes, grasps, views, heights, depths, GRIP.width, GRIP,
+        ECFG)
     assert sum(w.vgr_count for w in want) > 5
     for a, b in zip(got, want):
         assert a.vgr_count == b.vgr_count and a.nocoll_view == b.nocoll_view
