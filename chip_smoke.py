@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the nine CUDA sources (twenty kernel entry points) of
+2. build: the nine CUDA sources (twenty-one kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -15,8 +15,11 @@ result unless every phase passed):
    training paths launch, and at their edge cases, with the cluster size
    chosen for each, and every cluster size timed apart at the main
    shapes), K6 and K7, the SA1 ball query K2 (also at a training batch of
-   12 clouds), the grouping kernel K11 and the crop K5 (also at a
-   validation forward's 64 centers; the three at small edge shapes, some
+   12 clouds), the served grouping K12 (the JAX package's chunked path:
+   4 chunks of 1,024 centers and 4 seeds at serving, buckets of 100
+   columns staged as 128), the fused grouping K11 (on no model path) and
+   the crop K5 (also at a
+   validation forward's 64 centers; the four at small edge shapes, some
    with buckets wider than 1,024 columns or than a block stages, with
    the grid `ops/bucket_scan.scan_grid` picks, pairs per ns and the
    bound's share printed, and each call's device activities counted: scan
@@ -36,9 +39,9 @@ result unless every phase passed):
    C = 7, the bf16 backward against its plain version's ordered sum), of
    the training paths (12 clouds, 64 centers), with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
-   their span tables scan and the pairs that pass; for K11, K5, K2 and K3
-   from the operations an exact test needs on the run's pairs and the
-   pairs that pass), and a library call where one computes the same
+   their span tables scan and the pairs that pass; for K12, K11, K5, K2
+   and K3 from the operations an exact test needs on the run's pairs and
+   the pairs that pass), and a library call where one computes the same
    function (the bf16 backward: ``index_add_``, torch has no bf16
    ``embedding_bag`` backward); a pool that needs a gradient launches the
    argmax form and the backward of its dtype once each and nothing else,
@@ -60,10 +63,12 @@ result unless every phase passed):
    bounded grid) and where the clamp cut spans (flat differs from
    bounded), against its plain version bit for bit, timed beside the
    bounded K8; then its entry point at both shapes with the counters reset
-   just before and read just after (``--kernels-only`` stops here);
+   just before and read just after; K11's entry point likewise at its
+   three shapes, its "path" (``--kernels-only`` stops here);
 4. the full-scan path: the port's infer CLI, with its evaluation, on 3
    tabletop clouds with the trained weights (``weights/r5_real_e100.npz``),
-   the kernel launch counters reset just before and read just after;
+   the kernel launch counters reset just before and read just after (the
+   full-scan paths, serving and training, launch K12 and no K11);
    (d) every forward of every serving path draws the same seeds (C1), and
    the first cloud's pickled sets are the CPU's `eval_test` of its raw
    sets;
@@ -84,10 +89,12 @@ result unless every phase passed):
    third-neighbour distance against the bound, the tiles the clamp cut and
    the queries that failed inside and outside them;
 10. one training step at batch 2 on the card and on the CPU with the same
-    weights and seeds and dropout off: selections equal, loss within 1e-4,
-    the gradients of the score and proposal heads within 2 % of their largest
-    entry and
-    that of SA1's first layer within 15 %;
+    weights and seeds and dropout off, with the native GEMMs and BatchNorm
+    statistics and again with both summed in f64 on both sides:
+    selections equal, loss within 1e-4, the gradients' cosines at least
+    0.99, and, without the summation orders, the gradients of the score
+    and proposal heads within 2 % of their largest entry and that of SA1's
+    first layer within 15 % (`train_step_card_vs_cpu`);
 15. bf16 training (``--bf16``), full scan, and 16. the run of record,
     ``--bf16 --slab-cell 0.04 --fps-groups 8``: as 8 and 9, with each step
     launching the bf16 argmax forms and the bf16 backward and no f32 pool,
@@ -102,6 +109,20 @@ result unless every phase passed):
    ``cli/benchmark_eval.py`` with ``weights/r4_coherent_e100.npz``, at
    ``--fast`` and f32 exact, written to ``chiprun_out/suite/``: stage-3
    VGR within `SUITE_VGR_LIMIT` of the TPU's ``docs/evidence`` files;
+(j) the library functions no entry point reaches, at full width on the
+   serving cloud, each on the card and in the CPU helper with the same
+   weights and seeds (indices equal, f32 features within `LIBRARY_RTOL`
+   of the largest entry; the median forward of `LIBRARY_REPS` and the
+   launches a forward, counters reset before and read after, as
+   `LIBRARY_LAUNCHES`): `SetAbstractionMSG` at SA1 (25,600 -> 5,120,
+   scales (0.02, 64) and (0.04, 64), MLP (128, 128, 256) each: K1 once,
+   K2 twice), `SetAbstractionAvg` and `EdgeSetAbstraction` at SA1 on xyz
+   + rgb (K1, K2), the edge SA again with the exact ball query (plain
+   PyTorch), `EdgeFeaturePropagation` at FP3 (25,600 points with the rgb
+   skip, 5,120 with 512 channels, MLP (256, 256, 256): K3), and
+   `group_regions_two_scales` at ``infer_config()`` (4,000 centers, 256
+   at `group_radius`, 2,048 at `group_radius_more`) with
+   `closing_region_crop` from its wide regions (plain PyTorch);
 (c) the evaluator on the card against the CPU (in a helper process beside
    the training phases), on suite scene clutter_00 and the 4,000 stage-2
    grasps of a forward on it: view masks, funnel and scene check equal
@@ -757,6 +778,17 @@ def radius_test_ops(x, c, r2: float, strict: bool = False,
     return pairs * 3 + slab * 7, slab, inside
 
 
+def expansion_test_ops(x, c) -> int:
+    """The float operations K12's exact test needs on this run's pairs: the
+    expansion-form distance rounds unlike the difference form, so no slab
+    rules a pair out, and every pair costs the cross term (a product and
+    two fused multiply-adds), -2 cross + |c|^2, + |p|^2 and the compare
+    (6); |p|^2 and |c|^2 (5 each) once a point and once a center."""
+    B, M = c.shape[:2]
+    N = x.shape[1]
+    return B * M * N * 6 + B * (M + N) * 5
+
+
 def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
     """The float operations an exact box test (K5's, crop_plain's products)
     needs on this run's pairs, and the pairs inside the z slab and inside
@@ -786,14 +818,15 @@ def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
 
 
 def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
-                     k, bucket) -> dict:
+                     k, bucket, staged=None) -> dict:
     """Phase 3 for one K11, K5 or K2 shape: the call against its plain
     version (indices and counts equal to the bit); its time with and
     without the host, and the plain version's; the grid that
     ``ops/bucket_scan.scan_grid`` picks with `kernel`'s constants; pairs
     per ns and the bound's share of the device time.  The bound counts
     `ops`: an exact test on this run's pairs (`radius_test_ops`,
-    `box_test_ops`) and the pick's work on the `passing` pairs."""
+    `box_test_ops`, `expansion_test_ops`) and the pick's work on the
+    `passing` pairs.  `staged`: the slots a bucket is staged in (K12)."""
     from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
     got, ref = call(), plain()
     check(all_equal(got, ref),
@@ -802,7 +835,7 @@ def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
     dev = got[0].device
     grid = bucket_scan.scan_grid(batch, m, n, k, bucket,
                                  _cuda.sm_count(dev),
-                                 *bucket_scan.limits(kernel, dev))
+                                 *bucket_scan.limits(kernel, dev), staged)
     pairs = batch * m * n
     row = {"shape": label, "max_abs_err": max_err(got, ref),
            "ms": cuda_ms(call, 20), "plain_ms": cuda_ms(plain, 3),
@@ -820,7 +853,10 @@ def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
 
 
 def bucket_scan_edges(dev) -> None:
-    """K11, K5 and K2 against their plain versions at small shapes: M not
+    """K11, K12, K5 and K2 against their plain versions at small shapes
+    (K12 with buckets of ceil(N / K) columns, 69 to 4,500, staged in
+    multiples of 32, and centers in chunks of 50, the last padded, and at
+    M = 130 in 65 chunks of 2, two launches of at most 64 seeds): M not
     a multiple of any tile, M = 1, B = 3, N not a multiple of L, K*L > N,
     L = 512 (the serving width of K5 and K2), L = 1,280 (two 1,024-column
     segments a bucket), L = 4,608 (wider than a block stages: windows of
@@ -872,6 +908,16 @@ def bucket_scan_edges(dev) -> None:
         ref = group.group_regions_fused_plain(x, c, 9, 0.0625, K, L)
         check(all_equal(got, ref), f"K11 differs at edge shape B={B} N={N} "
               f"M={M} K={K} L={L}")
+        # chunks of 50 centers; at M = 130 also chunks of 2: 65 seeds, more
+        # than one launch takes (two launches)
+        for ch in {min(50, M), 2 if M == 130 else min(50, M)}:
+            seeds = [9 + 1000 * i for i in range(-(-M // ch))]
+            g12 = group.group_regions_chunked(x, c, seeds, 0.0625, K, ch)
+            r12 = group.group_regions_chunked_plain(x, c, seeds, 0.0625, K,
+                                                    ch)
+            check(all_equal(g12, r12), f"K12 differs at edge shape B={B} "
+                  f"N={N} M={M} K={K} L={sampling.bucket_stride(N, K)}, "
+                  f"chunks of {ch}")
         gc = crop.closing_region_crop(x, frames, bases, 9, box, K, L)
         rc = crop.crop_plain(x, frames, bases, 9, box, K, L)
         check(all_equal(gc, rc), f"K5 differs at edge shape B={B} N={N} "
@@ -881,7 +927,8 @@ def bucket_scan_edges(dev) -> None:
         check(all_equal(gb, rb), f"K2 differs at edge shape B={B} N={N} "
               f"M={M} K={K} L={L}")
         print(f"edge B={B} N={N} M={M} K={K} L={L}: K11 {int(got[1].sum())}"
-              f" in radius, K5 {int(gc[1].sum())} inside, K2 "
+              f" in radius, K12 {int(g12[1].sum())}, K5 "
+              f"{int(gc[1].sum())} inside, K2 "
               f"{int((gb[1] == K).sum())} of {B * M} counts capped at K; all "
               f"equal")
     x = torch.rand(1, 25600, 3, generator=g).to(dev) * 0.25
@@ -897,6 +944,51 @@ def bucket_scan_edges(dev) -> None:
         check(all_equal(got, ref), f"K2 differs at N=25600 K={K} L={L}")
         print(f"edge K2 through ball_query N=25600 M=1400 K={K} L={L}: "
               f"{int((got[1] == K).sum())} of 1400 counts capped; equal")
+
+
+# the serving forward's group seeds in phase 3: 4,000 centers, 4 chunks
+SERVING_GROUP_SEEDS = [21, 22, 23, 24]
+
+
+def group_chunked_kernels(xyz, c4000, tx, c12, c64, record,
+                          scan_calls) -> tuple:
+    """Phase 3 for K12, the served grouping, at serving (4,000 centers in 4
+    chunks of 1,024, one seed each), at a training batch (12 x 64) and at
+    a validation forward (1 x 64): indices and counts bit-equal to the
+    plain chunked path (`bucket_scan_case`).  Returns the serving call's
+    output."""
+    from regnet_for_3d_grasping_torch.geometry import region
+    from regnet_for_3d_grasping_torch.ops import bucket_scan, group, sampling
+    L = sampling.bucket_stride(N_POINTS, 256)
+    rows = []
+    for label, x, c, seeds in (
+            ("serving: 4000 centers x 25600 points, 4 chunks", xyz, c4000,
+             SERVING_GROUP_SEEDS),
+            ("training: 12 clouds x 64 centers x 25600 points", tx, c12,
+             [22]),
+            ("validation: 1 cloud x 64 centers", xyz, c64, [21])):
+        chunk = min(region.GROUP_CENTER_CHUNK, c.shape[1])
+
+        def kernel(x=x, c=c, seeds=seeds, chunk=chunk):
+            return group.group_regions_chunked(x, c, seeds, 0.008, 256,
+                                               chunk)
+
+        def plain(x=x, c=c, seeds=seeds, chunk=chunk):
+            return group.group_regions_chunked_plain(x, c, seeds, 0.008,
+                                                     256, chunk)
+
+        inside = int(plain()[1].sum())
+        rows.append(bucket_scan_case(
+            "group_regions_chunked", label, kernel, plain, (x, c),
+            expansion_test_ops(x, c) + inside * 13, inside,
+            "group_regions_chunked", 256, L, bucket_scan.staged_width(L)))
+        scan_calls[f"group_regions_chunked {label}"] = (
+            kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
+    record_rows(record, "group_regions_chunked", CSRC + "group.cu",
+                "regnet_for_3d_grasping_tpu/geometry/region.py:160-185 "
+                "(the XLA path of group_regions)", rows)
+    return group.group_regions_chunked(xyz, c4000, SERVING_GROUP_SEEDS,
+                                       0.008, 256, region.GROUP_CENTER_CHUNK)
 
 
 def ball_query_kernels(xyz, centers, tx, c12, record, scan_calls) -> None:
@@ -1865,13 +1957,43 @@ class SlabNNProbe:
                       f"keys {float(kx.amax() - kx.amin()):.4f} m")
 
 
+def f64_dense(self, x: torch.Tensor) -> torch.Tensor:
+    """An f32 `Dense` summed in f64 and rounded once to f32: the same bits
+    on the card and the CPU but in rare cases (phase 10's second recipe)."""
+    return torch.nn.functional.linear(x.double(), self.weight.double()
+                                      ).float()
+
+
+def f64_batch_statistics(x: torch.Tensor):
+    """`nn/layers.batch_statistics` summed in f64 and rounded once to f32
+    (the formula unchanged: mean, max(0, E[x^2] - mean^2))."""
+    axes = tuple(range(x.dim() - 1))
+    xd = x.double()
+    mean = xd.mean(axes)
+    var = ((xd * xd).mean(axes) - mean * mean).clamp(min=0.0)
+    dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    return mean.to(dtype), var.to(dtype)
+
+
 def train_step_card_vs_cpu(tmp, dev) -> None:
     """One refine-stage training step at batch 2 on the card and on the CPU
-    (plain versions), same initial weights, batch and seeds, dropout off."""
+    (plain versions), same initial weights, batch and seeds, dropout off;
+    twice: with the native GEMMs and BatchNorm statistics, and with both
+    summed in f64 on both sides (`f64_dense`, `f64_batch_statistics`),
+    which takes the summation orders out, as the CPU tests of the bf16
+    step do.  A unit whose pre-activation lies within the native sums'
+    rounding of 0 sits on one side of a ReLU on the card and on the other
+    on the CPU, and such a flip moves a head's gradient by several % of
+    its largest entry (the CPU's own f32 step lies 0.02-10 % from its f64
+    step in grn_head.stem at batch 2, with K11's grouping and with the
+    served one: PERF.md §6).  The native step is held to its loss and
+    its gradients' directions; the gradients' tolerances apply to the
+    step without the summation orders."""
     from regnet_for_3d_grasping_torch.cli.train import build_model
     from regnet_for_3d_grasping_torch.config import train_config
     from regnet_for_3d_grasping_torch.data import GraspDataset
     from regnet_for_3d_grasping_torch.geometry import region
+    from regnet_for_3d_grasping_torch.nn import layers
     from regnet_for_3d_grasping_torch.train import trainer
     cfg = train_config(**{"model.dropout_prob": 0.0})
     R = cfg.region
@@ -1884,56 +2006,69 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
         crop_seeds=[list(range(50, 50 + region.crop_seed_count(
             R.center_num, R.num_points, R.gripper_num)))])
     runs = {}
-    for name in ("cuda", "cpu"):
-        model = build_model(cfg, 5, name).train()
-        t0 = time.perf_counter()
-        out, total, metrics = trainer.forward_losses(
-            model, trainer.device_batch(batch, name), "refine", **kw)
-        total.backward()
-        runs[name] = (out, float(total.detach()), model)
-        print(f"training step on {name}: {time.perf_counter() - t0:.1f}s, "
-              f"loss {float(total.detach()):.6f}")
-    (out_g, loss_g, m_g), (out_c, loss_c, m_c) = runs["cuda"], runs["cpu"]
+    for recipe in ("native", "f64 sums"):
+        for name in ("cuda", "cpu"):
+            with contextlib.ExitStack() as stack:
+                if recipe != "native":
+                    stack.enter_context(replaced(layers.Dense, "forward",
+                                                 f64_dense))
+                    stack.enter_context(replaced(
+                        layers, "batch_statistics", f64_batch_statistics))
+                model = build_model(cfg, 5, name).train()
+                t0 = time.perf_counter()
+                out, total, metrics = trainer.forward_losses(
+                    model, trainer.device_batch(batch, name), "refine", **kw)
+                total.backward()
+            runs[recipe, name] = (out, float(total.detach()), model)
+            print(f"training step on {name} ({recipe}): "
+                  f"{time.perf_counter() - t0:.1f}s, loss "
+                  f"{float(total.detach()):.6f}")
     # a score that lies within rounding of score_thre on one device and not
     # on the other changes the FPS mask, and with it some centers: so the
     # selections must agree on 97 % of their entries, and loss and gradients
     # are compared only when they agree on all
-    exact = True
-    for field in ("center_index", "region_valid", "anchor_index",
-                  "crop_valid"):
-        same = float((getattr(out_g, field).cpu() == getattr(out_c, field))
-                     .float().mean())
-        print(f"training step: {field} equal share {same:.5f}")
-        check(same >= 0.97, f"training step: {field} differs between card "
-              f"and CPU (equal share {same:.5f})")
-        exact = exact and same == 1.0
-    check(np.isfinite(loss_g) and np.isfinite(loss_c),
-          "training step: non-finite loss")
-    if not exact:
-        print("training step: selections differ, loss and gradients not "
-              "compared")
-        return
-    check(abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c)),
-          f"training step: loss {loss_g} on the card, {loss_c} on the CPU")
-    # f32 gradients carry the rounding of every train-mode BatchNorm above
-    # them, each of which magnifies it: within 2 % of the array's largest
-    # entry at the heads, 15 % at SA1's first layer, 21 normalisations below
-    # the loss (3.2 % measured); a wrong stride or a cut graph is off by
-    # its whole size
-    for name, tol in (("score_net.backbone.score_dense.weight", 2e-2),
-                      ("grn_head.stem.dense.weight", 2e-2),
-                      ("score_net.backbone.sa0.mlp.layer0.dense.weight",
-                       0.15)):
-        g_g = m_g.get_parameter(name).grad.cpu()
-        g_c = m_c.get_parameter(name).grad
-        err = float((g_g - g_c).abs().max() / g_c.abs().max())
-        cos = float(torch.nn.functional.cosine_similarity(
-            g_g.flatten(), g_c.flatten(), dim=0))
-        print(f"training step: gradient of {name} card vs cpu, max abs err "
-              f"over max abs {err:.3e} (max abs {float(g_c.abs().max()):.3e}"
-              f", cosine {cos:.6f})")
-        check(float(g_c.abs().max()) > 0 and err <= tol and cos >= 0.99,
-              f"training step: gradient of {name} differs")
+    for recipe in ("native", "f64 sums"):
+        (out_g, loss_g, m_g), (out_c, loss_c, m_c) = (
+            runs[recipe, "cuda"], runs[recipe, "cpu"])
+        exact = True
+        for field in ("center_index", "region_valid", "anchor_index",
+                      "crop_valid"):
+            same = float((getattr(out_g, field).cpu()
+                          == getattr(out_c, field)).float().mean())
+            print(f"training step ({recipe}): {field} equal share "
+                  f"{same:.5f}")
+            check(same >= 0.97, f"training step: {field} differs between "
+                  f"card and CPU (equal share {same:.5f})")
+            exact = exact and same == 1.0
+        check(np.isfinite(loss_g) and np.isfinite(loss_c),
+              "training step: non-finite loss")
+        if not exact:
+            print(f"training step ({recipe}): selections differ, loss and "
+                  f"gradients not compared")
+            continue
+        check(abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c)),
+              f"training step: loss {loss_g} on the card, {loss_c} on the "
+              f"CPU ({recipe})")
+        # f32 gradients carry the rounding of every train-mode BatchNorm
+        # above them, each of which magnifies it: within 2 % of the array's
+        # largest entry at the heads, 15 % at SA1's first layer, 21
+        # normalisations below the loss; a wrong stride or a cut graph is
+        # off by its whole size
+        for name, tol in (("score_net.backbone.score_dense.weight", 2e-2),
+                          ("grn_head.stem.dense.weight", 2e-2),
+                          ("score_net.backbone.sa0.mlp.layer0.dense.weight",
+                           0.15)):
+            g_g = m_g.get_parameter(name).grad.cpu()
+            g_c = m_c.get_parameter(name).grad
+            err = float((g_g - g_c).abs().max() / g_c.abs().max())
+            cos = float(torch.nn.functional.cosine_similarity(
+                g_g.flatten(), g_c.flatten(), dim=0))
+            print(f"training step ({recipe}): gradient of {name} card vs "
+                  f"cpu, max abs err over max abs {err:.3e} (max abs "
+                  f"{float(g_c.abs().max()):.3e}, cosine {cos:.6f})")
+            check(float(g_c.abs().max()) > 0 and cos >= 0.99
+                  and (recipe == "native" or err <= tol),
+                  f"training step: gradient of {name} differs ({recipe})")
 
 
 BF16_STEP_GRADS = ("score_net.backbone.score_dense.weight",
@@ -2274,11 +2409,11 @@ def training_phases(dev) -> dict:
     # batch 1 and 64 centers: the crop takes its plain path there
     # (64 x 25,600 pairs are under its kernel's threshold), as in training
     n_val = 12
-    val = {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
-           "gather_max": 2}
+    val = {"fps": 4, "ball_query": 1, "three_nn": 1,
+           "group_regions_chunked": 1, "group_regions": 0, "gather_max": 2}
     full_step = {"fps": 4, "ball_query": 1, "three_nn": 1,
-                 "group_regions": 1, "gather_max_argmax": 2,
-                 "gather_max_backward": 2}
+                 "group_regions_chunked": 1, "group_regions": 0,
+                 "gather_max_argmax": 2, "gather_max_backward": 2}
     plain = {}
     with tempfile.TemporaryDirectory() as tmp:
         train_full = train(["--synthetic-scenes", "60"], tmp, "full-scan",
@@ -2298,7 +2433,8 @@ def training_phases(dev) -> dict:
         # f32 at exact geometry, with the f32 pools
         bf16_full = train(
             ["--bf16"], tmp, "bf16-full-scan", n_val,
-            {"fps": 4, "ball_query": 1, "three_nn": 1, "group_regions": 1,
+            {"fps": 4, "ball_query": 1, "three_nn": 1,
+             "group_regions_chunked": 1, "group_regions": 0,
              "gather_max_argmax_bf16": 2, "gather_max_backward_bf16": 2},
             val)
         with SlabNNProbe() as probe:
@@ -2324,14 +2460,14 @@ def serving_wants() -> dict:
     bf16 full scan, `--fast`), by kernel."""
     f32_zero = dict.fromkeys(TRAIN_KERNELS + BF16_KERNELS, 0)
     full_want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
-                 "crop": 1, "group_regions": 1,
+                 "crop": 1, "group_regions_chunked": 1, "group_regions": 0,
                  **dict.fromkeys(SLAB_KERNELS, 0), **f32_zero}
     # K3 launches in every slab forward: its launches read K8's flag on
     # the card and return at once where the slab 3-NN is proven
     slab_want = {"fps_grouped": 2, "fps": 2, "group_slab": 2, "crop_slab": 1,
                  "three_nn_slab": 1, "three_nn": 1, "gather_max_slab": 2,
                  "ball_query": 0, "gather_max": 0, "crop": 0,
-                 "group_regions": 0, **f32_zero}
+                 "group_regions": 0, "group_regions_chunked": 0, **f32_zero}
     # the bf16 paths launch the bf16 pools and no f32 pool
     return {"full_scan": full_want, "slab": slab_want,
             "bf16_full_scan": full_want | {"gather_max": 0,
@@ -3039,6 +3175,148 @@ def suite_phase(out_dir: Path) -> dict:
     return readings
 
 
+# --- the library functions no entry point reaches (ROADMAP A8) ------------
+
+# phase (j): each item's launches in one forward on the card
+LIBRARY_LAUNCHES = {
+    "msg_sa1": {"fps": 1, "ball_query": 2},
+    "avg_sa1": {"fps": 1, "ball_query": 1},
+    "edge_sa1": {"fps": 1, "ball_query": 1},
+    "edge_sa1_exact": {"fps": 1, "ball_query": 0},
+    "edge_fp3": {"three_nn": 1},
+    "two_scales_and_crop": {},
+}
+LIBRARY_REPS = 3
+LIBRARY_RTOL = 1e-4    # f32 features: of the largest entry
+
+
+def library_items(pc: np.ndarray, dev: torch.device) -> dict:
+    """Phase (j)'s items at full width on `pc` [N, 6]: {name: a callable
+    returning (index tensors, f32 feature tensors)}.  The layers are made
+    on the CPU from a seed (the same weights on both sides), then moved."""
+    from regnet_for_3d_grasping_torch.config import (GripperConfig,
+                                                     infer_config)
+    from regnet_for_3d_grasping_torch.geometry import region
+    from regnet_for_3d_grasping_torch.models.backbone import (
+        SetAbstractionAvg, SetAbstractionMSG)
+    from regnet_for_3d_grasping_torch.models.edge import (
+        EdgeFeaturePropagation, EdgeSetAbstraction)
+    from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
+    from regnet_for_3d_grasping_torch.ops.grouping import gather_points
+    cfg = infer_config()
+    cloud = torch.from_numpy(pc[None]).to(dev)
+    xyz, rgb = cloud[..., :3].contiguous(), cloud[..., 3:].contiguous()
+    mlp = (128, 128, 256)
+
+    def made(seed, mod):
+        torch.manual_seed(seed)
+        return mod().eval().to(dev)
+
+    layers = {
+        "msg_sa1": made(1, lambda: SetAbstractionMSG(
+            3, 5120, (0.02, 0.04), (64, 64), (mlp, mlp))),
+        "avg_sa1": made(2, lambda: SetAbstractionAvg(3, 5120, 0.02, 64,
+                                                     mlp)),
+        "edge_sa1": made(3, lambda: EdgeSetAbstraction(3, 5120, 0.02, 64,
+                                                       mlp)),
+        "edge_sa1_exact": made(3, lambda: EdgeSetAbstraction(
+            3, 5120, 0.02, 64, mlp, ball_query_method="exact")),
+    }
+    fp = made(4, lambda: EdgeFeaturePropagation(2 * 512 + 3,
+                                                (256, 256, 256)))
+    g = torch.Generator().manual_seed(5)
+    sparse_idx = farthest_point_sample(xyz, 5120)
+    sparse = gather_points(xyz, sparse_idx)
+    sparse_feat = torch.randn(1, 5120, 512, generator=g).to(dev)
+    chunks = region.group_chunks(cfg.region.center_num)
+    centers = gather_points(cloud, farthest_point_sample(
+        xyz, cfg.region.center_num))
+    axis = torch.nn.functional.normalize(
+        torch.randn(1, cfg.region.center_num, 3, generator=g), dim=-1)
+    theta = (torch.rand(1, cfg.region.center_num, 1, generator=g) * 2 - 1) \
+        * np.pi
+    grasp = torch.cat([centers[..., :3], axis.to(dev), theta.to(dev)], -1)
+
+    def sa(name):
+        def run():
+            new_xyz, feat = layers[name](xyz, rgb)
+            return [new_xyz], [feat]
+        return run
+
+    def edge_fp():
+        return [], [fp(xyz, sparse, rgb, sparse_feat)]
+
+    def two_scales():
+        a, b = region.group_regions_two_scales(
+            list(range(60, 60 + 2 * chunks)), cloud, centers,
+            cfg.region.group_num, cfg.group_radius,
+            cfg.region.group_num_more, cfg.group_radius_more)
+        crop = region.closing_region_crop(
+            70, cloud, b.index, grasp, GripperConfig(),
+            cfg.region.gripper_num)
+        return ([a.index, a.valid, b.index, b.valid, crop.index_in_all,
+                 crop.valid], [crop.points])
+
+    return {**{k: sa(k) for k in layers}, "edge_fp3": edge_fp,
+            "two_scales_and_crop": two_scales}
+
+
+def library_fields(pc: np.ndarray, device: str) -> dict:
+    """Phase (j) on `device`: each item's outputs as numpy, and on the card
+    its median forward ms over `LIBRARY_REPS` and its launches a forward,
+    the counters reset just before and read just after."""
+    if device == "cpu":
+        torch.set_num_threads(CPU_THREADS)
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    dev = torch.device(device)
+    out = {}
+    with torch.no_grad():
+        for name, fn in library_items(pc, dev).items():
+            ms, reps = [], LIBRARY_REPS if device == "cuda" else 1
+            _cuda.reset_launches()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                idx, feats = fn()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: v / reps for k, v in _cuda.launches.items() if v}
+            out[name] = {"index": [t.cpu().numpy() for t in idx],
+                         "features": [t.float().cpu().numpy()
+                                      for t in feats],
+                         "ms": statistics.median(ms), "launches": launches}
+    return out
+
+
+def library_card_vs_cpu(card: dict, cpu: dict) -> dict:
+    """Phase (j)'s checks: indices equal, f32 features within
+    `LIBRARY_RTOL` of the largest entry, each item's launches a forward
+    `LIBRARY_LAUNCHES`.  Returns each item's ms, launches and distance."""
+    found = {}
+    for name, want in LIBRARY_LAUNCHES.items():
+        c, h = card[name], cpu[name]
+        check(all(np.array_equal(a, b) for a, b in zip(c["index"],
+                                                        h["index"])),
+              f"phase (j) {name}: the card's indices are not the CPU's")
+        err = max((float(np.abs(a - b).max()) / float(np.abs(b).max())
+                   for a, b in zip(c["features"], h["features"])),
+                  default=0.0)
+        check(err <= LIBRARY_RTOL and all(
+            np.isfinite(a).all() for a in c["features"]),
+              f"phase (j) {name}: features {err:.3e} of the largest apart")
+        got = {k: c["launches"].get(k, 0) for k in
+               set(want) | set(c["launches"])}
+        check(got == {k: want.get(k, 0) for k in got},
+              f"phase (j) {name}: launches a forward {got}, expected {want}")
+        found[name] = {"ms": c["ms"], "cpu_s": h["ms"] / 1e3,
+                       "launches": c["launches"], "rel_err": err}
+        print(f"phase (j) {name}: median forward {c['ms']:.3f} ms on the "
+              f"card (CPU {h['ms'] / 1e3:.1f} s), launches a forward "
+              f"{c['launches']}, indices equal, features {err:.2e} of the "
+              f"largest apart")
+    return found
+
+
 # --- data parallelism ------------------------------------------------------
 
 # the outputs phase (h) holds bit for bit against the solo forward
@@ -3553,11 +3831,13 @@ def main() -> None:
     ball_query_kernels(xyz, centers, tx, sa1_12, record, scan_calls)
     three_nn_kernels(dev, xyz, centers, tx, sa1_12, record, scan_calls)
 
-    # K11: the region grouping (r 0.008, K 256, L 128) of a serving forward
-    # (4,000 centers), a training batch (12 clouds x 64 centers) and a
-    # validation forward (1 x 64).  Operations: an exact radius test on
-    # this run's pairs (`radius_test_ops`), hash and argmax (10) on the
-    # pairs in radius
+    # K12, the served grouping (r 0.008, K 256, L 100 staged as 128), and
+    # K11, the fused grouping on no model path (L 128), at a serving
+    # forward (4,000 centers: 4 chunks, 4 seeds), a training batch (12
+    # clouds x 64 centers) and a validation forward (1 x 64).  Operations:
+    # an exact test on this run's pairs (`expansion_test_ops`,
+    # `radius_test_ops`), and on the pairs in radius the pick: K12 the
+    # lowbias32 hash, its float and argmax (13), K11 hash and argmax (10)
     dist_m = fps.dist_init(xyz, xyz[..., 2] > 0.76)
     c4000 = xyz[:, fps.fps(xyz, dist_m, N_CENTERS)[0].long()].contiguous()
     picks = fps.fps(tx, fps.dist_init(tx, tx[..., 2] > 0.76), TRAIN_CENTERS)
@@ -3565,6 +3845,8 @@ def main() -> None:
     c64 = xyz[:, fps.fps(xyz, dist_m, TRAIN_CENTERS)[0].long()].contiguous()
     Lg = sampling.pallas_bucket_stride(N_POINTS, 256)
     bucket_scan_edges(dev)
+    group12 = group_chunked_kernels(xyz, c4000, tx, c12, c64, record,
+                                    scan_calls)
     rows = []
     for label, x, c in (
             ("serving: 4000 centers x 25600 points", xyz, c4000),
@@ -3576,28 +3858,26 @@ def main() -> None:
         def plain(x=x, c=c):
             return group.group_regions_fused_plain(x, c, 21, 0.008, 256, Lg)
 
-        def plain_path(x=x, c=c):
-            # the chunked path that grouping took before K11
-            seeds = list(range(region.group_chunks(c.shape[1])))
-            return region.group_regions(seeds, x, c, 256, 0.008)
-
         test_ops, slab, inside = radius_test_ops(x, c, group.radius2(0.008))
         print(f"group_regions {label}: {slab} pairs inside the x slab")
         row = bucket_scan_case("group_regions", label, kernel, plain, (x, c),
                                test_ops + inside * 10, inside,
                                "group_regions", 256, Lg)
-        threshold = region.GROUP_KERNEL_MIN_WORK
-        region.GROUP_KERNEL_MIN_WORK = 1 << 62
-        try:
-            row["replaced_plain_path_ms"] = cuda_ms(plain_path, 3)
-        finally:
-            region.GROUP_KERNEL_MIN_WORK = threshold
         rows.append(row)
         scan_calls[f"group_regions {label}"] = (
             kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
     record_rows(record, "group_regions", CSRC + "group.cu",
                 JAX_OPS + "group_pallas.py:119", rows)
-    got = group.group_regions_fused(xyz, c4000, 21, 0.008, 256, Lg)
+    # K11's path: its entry point at the three shapes, counters reset just
+    # before and read just after (no model path launches it)
+    _cuda.reset_launches()
+    for x, c in ((xyz, c4000), (tx, c12), (xyz, c64)):
+        group.group_regions_fused(x, c, 21, 0.008, 256, Lg)
+    torch.cuda.synchronize()
+    k11_launches = dict(_cuda.launches)
+    check(k11_launches["group_regions"] == 3
+          and k11_launches["group_regions_chunked"] == 0,
+          f"group_regions_fused did not launch K11: {k11_launches}")
 
     # K5: crop of 4000 proposals around the selected centers (the serving
     # path), and of the training and validation shapes' 64 proposals
@@ -3640,12 +3920,13 @@ def main() -> None:
     record_rows(record, "crop", CSRC + "crop.cu",
                 JAX_OPS + "crop_pallas.py:145", rows)
 
-    # K4: the region pool (4,000 x 256 slots x 256 channels, K11's picks)
+    # K4: the region pool (4,000 x 256 slots x 256 channels, K12's picks)
     # and the refine pool (4,000 x 64 slots, K5's picks of the crop above)
-    groups = region.group_regions([21], xyz, c4000, 256, 0.008)
-    check(torch.equal(groups.index, torch.where(
-        (got[1] > 0)[..., None], got[0], 0)),
-        "region.group_regions does not return K11's picks")
+    groups = region.group_regions(SERVING_GROUP_SEEDS, xyz, c4000, 256,
+                                  0.008)
+    check(torch.equal(groups.index, group12[0])
+          and torch.equal(groups.valid, group12[1] > 0),
+          "region.group_regions does not return K12's picks")
     feature = torch.randn(1, N_POINTS, 256, device=dev)
     rows = [gather_max_case("region pool: 4000 x 256 slots", feature,
                             groups.index),
@@ -3747,7 +4028,7 @@ def main() -> None:
     # one forward of each serving path on the card and on the CPU, with the
     # same seeds and sort noise; the CPU's run in a helper process beside
     # the training phases
-    full_rand = {"group_seeds": [11], "crop_seeds": [[15]]}
+    full_rand = {"group_seeds": [11, 12, 13, 14], "crop_seeds": [[15]]}
     slab_rand = {"sort_u": torch.rand(1, N_POINTS, generator=torch.Generator()
                                       .manual_seed(3)).numpy(),
                  "sa1_seed": 16, "group_seeds": [17], "crop_seeds": [[18]]}
@@ -3759,6 +4040,7 @@ def main() -> None:
     wants = serving_wants()
     paths, solo_s = serving_phases(wants)
     paths["k8_flat_entry"] = flat_launches
+    paths["k11_entry"] = k11_launches
     # (f) the serving knobs through the infer CLI, and one forward of each
     # configuration against the CPU's (in `compared`, below)
     t0 = time.perf_counter()
@@ -3793,6 +4075,7 @@ def main() -> None:
     try:
         cpu_steps = step_pool.submit(cpu_bf16_steps, step_data.name)
         cpu_eval = step_pool.submit(eval_fields, 12, eval_grasps, "cpu")
+        cpu_library = step_pool.submit(library_fields, pc, "cpu")
         paths |= training_phases(dev)
         # (b) two training runs from one seed are bit-equal
         with tempfile.TemporaryDirectory() as tmp:
@@ -3801,6 +4084,11 @@ def main() -> None:
                                           cpu_eval.result(timeout=900))
         # 17. one bf16 training step on the card against the CPU
         step = bf16_step_card_vs_cpu(step_data.name, cpu_steps)
+        # (j) the library functions no entry point reaches, card and CPU
+        t0 = time.perf_counter()
+        library = library_card_vs_cpu(library_fields(pc, "cuda"),
+                                      cpu_library.result(timeout=900))
+        print(f"phase (j): {time.perf_counter() - t0:.1f} s")
         compare_phases(pc, compared, cpu)
     finally:
         cpu.close()
@@ -3809,7 +4097,7 @@ def main() -> None:
     print(json.dumps({"bf16_train_step_card_vs_cpu": step}))
     print(json.dumps({"determinism": det, "evaluator": evaluator,
                       "suite_v2": suite, "knob_serving": knob_serving,
-                      "data_parallel": data_parallel}))
+                      "data_parallel": data_parallel, "library": library}))
 
     main_path = {**dict.fromkeys(results, "full_scan"),
                  **dict.fromkeys(SLAB_KERNELS, "slab"),
@@ -3821,13 +4109,14 @@ def main() -> None:
                  "gather_max_argmax_bf16": "train_bf16_full_scan",
                  "gather_max_backward_bf16": "train_bf16_full_scan",
                  "gather_max_slab_argmax_bf16": "train_bf16_slab",
-                 "three_nn_slab_flat": "k8_flat_entry"}
+                 "three_nn_slab_flat": "k8_flat_entry",
+                 "group_regions": "k11_entry"}
     for k in results:
         results[k]["launches"] = paths[main_path[k]][k]
         results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}
         check(results[k]["launches"] > 0 or k == "three_nn",
               f"{k} was never launched on its path")
-    for k, path in (("group_regions", "train_full_scan"),
+    for k, path in (("group_regions_chunked", "train_full_scan"),
                     ("gather_max_backward", "train_slab"),
                     ("gather_max_backward_bf16", "train_bf16_slab")):
         check(paths[path][k] > 0, f"{k} was never launched in {path}")

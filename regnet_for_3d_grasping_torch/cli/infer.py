@@ -183,6 +183,10 @@ def main(argv=None, devices=None) -> list:
     ``--device``, `parallel.mesh.visible_devices`)."""
     args = build_parser().parse_args(argv)
 
+    from regnet_for_3d_grasping_torch.utils.cache import (
+        enable_compilation_cache)
+    enable_compilation_cache()
+
     from regnet_for_3d_grasping_torch.eval.evaluator import eval_test
     from regnet_for_3d_grasping_torch.models.regnet import build_regnet
     from regnet_for_3d_grasping_torch.utils.export import extract_grasp_sets

@@ -226,7 +226,10 @@ def main(argv=None, devices=None) -> dict:
     the visible devices (default: `parallel.mesh.visible_devices` of
     ``--device``)."""
     from regnet_for_3d_grasping_torch.parallel.mesh import visible_devices
+    from regnet_for_3d_grasping_torch.utils.cache import (
+        enable_compilation_cache)
     args = build_parser().parse_args(argv)
+    enable_compilation_cache()
     devices = list(devices) if devices is not None else \
         visible_devices(args.device)
     _prepare(args)

@@ -58,8 +58,16 @@ class ModelConfig:
     fps_groups: int = 1
     # x-bound of the last FP's slab 3-NN, in the cloud's units (meters)
     fp3_nn_bound: float = 0.06
+    # the full-scan SA layers' ball query: "bucket" (stratified) or "exact"
+    # (the first K in-radius points in index order, the value-parity
+    # setting); the slab ball query ignores it
+    ball_query_method: str = "bucket"
     # "float32" or "bfloat16" (network compute; geometry stays f32)
     compute_dtype: str = "float32"
+    # the score BatchNorm's momentum, torch convention (JAX
+    # models/backbone.py:333); the JAX package reads bn_epsilon nowhere
+    bn_momentum: float = 0.1
+    bn_epsilon: float = 1e-5
     # recompute each SA/FP layer's activations in the backward
     # (`models/backbone.py`); the train CLI's --remat
     remat_backbone: bool = False
@@ -75,6 +83,7 @@ class RegionConfig:
     group_num: int = 256
     group_num_more: int = 1024   # wide-region points; no model path reads it
     r_time_group: float = 0.1    # radius = max(gripper dims) * r_time
+    r_time_group_more: float = 0.8   # the wide region's radius factor
     gripper_num: int = 64
     min_region_points: int = 5
     grasp_score_thre: float = 0.5
@@ -138,6 +147,13 @@ class PipelineConfig:
     def group_radius(self) -> float:
         g = self.gripper
         return max(g.width, g.height, g.depth) * self.region.r_time_group
+
+    @property
+    def group_radius_more(self) -> float:
+        """The wide region's radius (`geometry.region.
+        group_regions_two_scales`)."""
+        g = self.gripper
+        return max(g.width, g.height, g.depth) * self.region.r_time_group_more
 
 
 def train_config(**overrides) -> PipelineConfig:

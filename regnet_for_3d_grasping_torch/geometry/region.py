@@ -4,11 +4,11 @@ grouping and the closing-region crop, on the full-scan paths and, given a
 shapes qualify (`_use_slab_group`, `_use_slab_crop`, `use_slab_backbone`).
 
 Randomness enters as u32 seeds, the values the JAX package reads from its
-keys.  On the full-scan paths `group_regions` and
-`closing_region_crop_dense` take one seed on the kernel path
-(``key_data(key)[-1]``) or one per chunk of centers or proposals on the
-plain path (``key_data(split(k_group, n_chunks))[:, -1]``); on the slab
-paths each takes one.  `group_seed_count` and `crop_seed_count` say which.
+keys.  On the full-scan paths `group_regions` takes one seed per chunk of
+centers (``key_data(split(k_group, n_chunks))[:, -1]``), and
+`closing_region_crop_dense` one on the kernel path (``key_data(key)[-1]``)
+or one per chunk of proposals on the plain path; on the slab paths each
+takes one.  `group_seed_count` and `crop_seed_count` say which.
 """
 
 from __future__ import annotations
@@ -23,9 +23,9 @@ from regnet_for_3d_grasping_torch.geometry.codec import grasps_to_frames
 from regnet_for_3d_grasping_torch.ops import crop as crop_ops
 from regnet_for_3d_grasping_torch.ops import group as group_ops
 from regnet_for_3d_grasping_torch.ops import slab
-from regnet_for_3d_grasping_torch.ops.distances import bpdist2
 from regnet_for_3d_grasping_torch.ops.fps import farthest_point_sample
-from regnet_for_3d_grasping_torch.ops.grouping import gather_points
+from regnet_for_3d_grasping_torch.ops.grouping import (gather_points,
+                                                       group_points)
 from regnet_for_3d_grasping_torch.ops.sampling import (bucket_choice,
                                                        bucket_stride,
                                                        hash_uniform,
@@ -35,24 +35,17 @@ from regnet_for_3d_grasping_torch.ops.sampling import (bucket_choice,
 # (regnet_for_3d_grasping_tpu/geometry/region.py:311, rule at :353-356);
 # gripper_num must be a multiple of 8
 CROP_KERNEL_MIN_WORK = 1 << 24
-# NC*N at or above which grouping takes the fused kernel K11; group_num
-# must be a multiple of 8 (the shape rule of the JAX package's
-# _use_pallas_group, region.py:359-362).  The JAX package leaves its Pallas
-# kernel off because it lost on the TPU (region.py:302-312); on the H100
-# the fused kernel replaces the plain path's int64 hashing, so the port
-# sets its own threshold: below the training shape (64 x 25,600) and the
-# serving shape (4,000 x 25,600), above the shapes of the unit tests
-GROUP_KERNEL_MIN_WORK = 1 << 20
+# Grouping on the full scan is the JAX package's chunked path at every
+# shape: its Pallas grouping (K11 here, `ops/group.group_regions_fused`)
+# is off on every backend (_PALLAS_GROUP_THRESHOLD = None,
+# region.py:302-312), so no shape of the JAX package reaches it.  On the
+# card the chunked path runs as kernel K12 (`group_regions_chunked`)
 GROUP_CENTER_CHUNK = 1024
 CROP_PROPOSAL_CHUNK = 512
 
 
 def use_crop_kernel(m: int, n: int, gripper_num: int) -> bool:
     return m * n >= CROP_KERNEL_MIN_WORK and gripper_num % 8 == 0
-
-
-def use_group_kernel(m: int, n: int, group_num: int) -> bool:
-    return m * n >= GROUP_KERNEL_MIN_WORK and group_num % 8 == 0
 
 
 def _use_slab_group(n: int, group_num: int) -> bool:
@@ -117,20 +110,16 @@ def group_chunks(nc: int) -> int:
 
 def group_seed_count(nc: int, n: int, group_num: int,
                      sorted_cloud: bool = False) -> int:
-    """Seeds `group_regions` takes: 1 on the slab and kernel paths, one
-    per center chunk on the plain path."""
+    """Seeds `group_regions` takes: 1 on the slab path, one per center
+    chunk on the full scan (as JAX splits its key, ``region.py:172``)."""
     if sorted_cloud and _use_slab_group(n, group_num):
-        return 1
-    if use_group_kernel(nc, n, group_num):
         return 1
     return group_chunks(nc)
 
 
 def group_stride(nc: int, n: int, group_num: int) -> int:
     """Bucket width of `group_regions`' index output on the full-scan
-    paths."""
-    if use_group_kernel(nc, n, group_num):
-        return pallas_bucket_stride(n, group_num)
+    paths (JAX ``region.py:92-104`` with its Pallas grouping off)."""
     return bucket_stride(n, group_num)
 
 
@@ -146,16 +135,15 @@ def group_regions(seeds: Sequence[int], pc: torch.Tensor,
                   radius: float, sorted_cloud: slab.SortedCloud | None = None,
                   cell: float = 0.0) -> RegionGroups:
     """Stratified pick of `group_num` points with ``d2 <= r2`` around each
-    center.  Where `use_group_kernel` holds, the fused kernel K11 makes
-    the picks (JAX ``region.py:149-158``).  Otherwise the plain path does,
-    with the random tiebreak from `hash_uniform` (JAX
+    center, with the random tiebreak from `hash_uniform` (JAX
     ``region.py:160-185``): centers in chunks of 1024, padded with far
-    centers, one seed per chunk.
+    centers, one seed per chunk.  Kernel K12 on the card, its plain version
+    on the CPU (`ops/group.group_regions_chunked`).
 
     With `sorted_cloud` (over the same rows as `pc`) and qualifying shapes,
     kernel K6 scans only each center tile's slab and the picks are
     stratified over the slab's windows; counts and validity stay exact."""
-    B, N, _ = pc.shape
+    N = pc.shape[1]
     NC = centers.shape[1]
     chunk = min(GROUP_CENTER_CHUNK, NC)
     want = group_seed_count(NC, N, group_num, sorted_cloud is not None)
@@ -170,31 +158,73 @@ def group_regions(seeds: Sequence[int], pc: torch.Tensor,
         valid = (count > 0) & sel_any
         return RegionGroups(torch.where(valid[..., None], idx, 0), valid,
                             off)
-    if use_group_kernel(NC, N, group_num):
-        idx, count = group_ops.group_regions_fused(
-            xyz.contiguous(), cxyz.contiguous(), seeds[0], radius, group_num,
-            pallas_bucket_stride(N, group_num))
-        valid = count > 0
-        return RegionGroups(torch.where(valid[..., None], idx, 0), valid)
-    r2 = float(np.float32(radius * radius))
-    pad = (-NC) % chunk
-    if pad:
-        cxyz = torch.cat([cxyz, torch.full((B, pad, 3), 1e10,
-                                           device=cxyz.device)], 1)
-    idx, valid = [], []
-    for c, seed in zip(torch.split(cxyz, chunk, dim=1), seeds):
-        mask = bpdist2(c, xyz) <= r2
-        noise = hash_uniform(seed, tuple(mask.shape), device=mask.device)
-        i, any_valid, _ = bucket_choice(mask, group_num, score=noise)
-        idx.append(torch.where(any_valid[..., None], i, 0))
-        valid.append(any_valid)
-    return RegionGroups(torch.cat(idx, 1)[:, :NC], torch.cat(valid, 1)[:, :NC])
+    idx, count = group_ops.group_regions_chunked(
+        xyz.contiguous(), cxyz.contiguous(), seeds, radius, group_num, chunk)
+    return RegionGroups(idx, count > 0)
+
+
+def group_regions_two_scales(seeds: Sequence[int], pc: torch.Tensor,
+                             centers: torch.Tensor, group_num: int,
+                             radius: float, group_num_more: int,
+                             radius_more: float) -> tuple:
+    """Both region scales from one distance matrix (JAX
+    ``region.py:188-240``): per chunk of 1,024 centers one `bpdist2`, and
+    for each scale the chunked path's pick, ``d2 <= r2`` with its own
+    seed: ``seeds[2*j]`` (`group_num` within `radius`) and
+    ``seeds[2*j + 1]`` (`group_num_more` within `radius_more`) for chunk j,
+    as JAX splits its key into 2 n_chunks keys.  Plain PyTorch on every
+    device (the JAX package computes it in XLA).  Returns two
+    `RegionGroups`; a scale's points are ``group_points(pc, index)``."""
+    NC = centers.shape[1]
+    if len(seeds) != 2 * group_chunks(NC):
+        raise ValueError(f"group_regions_two_scales: {len(seeds)} seeds, "
+                         f"expected {2 * group_chunks(NC)}")
+    picks = group_ops.chunked_picks(
+        pc[..., :3].float(), centers[..., :3].float(),
+        min(GROUP_CENTER_CHUNK, NC),
+        [(group_num, radius, seeds[0::2]),
+         (group_num_more, radius_more, seeds[1::2])])
+    return tuple(RegionGroups(idx, count > 0) for idx, count in picks)
 
 
 class ClosingRegion(NamedTuple):
     index_in_all: torch.Tensor   # [B, NC, K] indices into the cloud
     valid: torch.Tensor          # [B, NC] bool, > min_points inside
     slab_off: torch.Tensor | None = None   # see RegionGroups.slab_off
+    # [B, NC, K, C] gripper-frame xyz and the colours (`closing_region_crop`
+    # with `with_points`), else None
+    points: torch.Tensor | None = None
+
+
+def closing_region_crop(seed: int, pc: torch.Tensor,
+                        group_index: torch.Tensor, grasp: torch.Tensor,
+                        gripper: GripperConfig, gripper_num: int,
+                        min_points: int = 5,
+                        with_points: bool = True) -> ClosingRegion:
+    """The crop from a wide region's points (JAX ``region.py:251-300``):
+    the points of `group_index` [B, NC, GM] in each proposal's gripper
+    frame, inside where x in (0, depth/2), |y| < width/2, |z| < height/2,
+    `gripper_num` of them picked by `bucket_choice` over the GM slots with
+    `hash_uniform` noise from the u32 `seed`; valid where more than
+    `min_points` lie inside.  With `with_points`, the picks' gripper-frame
+    xyz and their colours.  Plain PyTorch on every device."""
+    frame, center = grasps_to_frames(grasp.float())
+    rel = group_points(pc[..., :3].float(), group_index) - center[..., None, :]
+    local = torch.einsum("...ij,...ki->...kj", frame, rel)
+    inside = ((local[..., 0] > 0) & (local[..., 0] < gripper.depth / 2)
+              & (local[..., 1].abs() < gripper.width / 2)
+              & (local[..., 2].abs() < gripper.height / 2))
+    noise = hash_uniform(seed, tuple(inside.shape), device=inside.device)
+    idx, any_valid, count = bucket_choice(inside, gripper_num, score=noise)
+    idx = torch.where(any_valid[..., None], idx, 0)
+    index_in_all = torch.gather(group_index, -1, idx.long()).to(torch.int32)
+    points = None
+    if with_points:
+        local_sel = torch.gather(local, -2, idx.long()[..., None].expand(
+            *idx.shape, 3))
+        points = torch.cat([local_sel, group_points(pc[..., 3:],
+                                                    index_in_all)], -1)
+    return ClosingRegion(index_in_all, count > min_points, points=points)
 
 
 def crop_seed_count(nc: int, n: int, gripper_num: int,

@@ -6,7 +6,11 @@ In training mode the seg head drops out with ``cfg.dropout_prob``.  Given a `Sor
 cell, SA1's ball query (kernel K6) and the last FP's 3-NN (kernel K8, with
 its exactness certificate and full-scan fallback) run the sorted-slab
 kernels; every other layer, and every layer without them, runs the
-full-scan paths.
+full-scan paths, whose ball query takes ``cfg.ball_query_method``
+("exact": the first K in index order, in plain PyTorch; the slab ball
+query ignores it).  `SetAbstractionMSG` and `SetAbstractionAvg` (JAX
+``:115-175``) are the reference library's multi-scale and mean-pooled SA,
+on no model path.
 
 At a bf16 compute dtype the layers follow flax (`nn/layers.py`) and the
 JAX package's promotions: the relative xyz stays f32 and, beside bf16
@@ -51,13 +55,14 @@ class SetAbstraction(nn.Module):
     def __init__(self, in_channels: int, num_centroids: int, radius: float,
                  num_neighbours: int, mlp_channels: Sequence[int],
                  fps_groups: int = 1, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, ball_query_method: str = "bucket"):
         super().__init__()
         self.num_centroids = num_centroids
         self.radius = radius
         self.num_neighbours = num_neighbours
         self.fps_groups = fps_groups
         self.remat = remat
+        self.ball_query_method = ball_query_method
         self.mlp = SharedMLP(in_channels + 3, mlp_channels, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None,
@@ -73,17 +78,14 @@ class SetAbstraction(nn.Module):
             nidx = self._slab_ball_query(sc, new_xyz, slab_cell, seed)
         else:
             nidx, _ = ball_query(xyz, new_xyz, self.radius,
-                                 self.num_neighbours)
+                                 self.num_neighbours,
+                                 method=self.ball_query_method)
         args = (xyz, feature, new_xyz, nidx)
         return new_xyz, (remat(self._features, *args) if self.remat
                          else self._features(*args))
 
     def _features(self, xyz, feature, new_xyz, nidx):
-        group_feat = group_points(xyz, nidx) - new_xyz[:, :, None, :]
-        if feature is not None:
-            group_feat = torch.cat([group_feat, group_points(feature, nidx)],
-                                   -1)
-        return self.mlp(group_feat).amax(dim=2)
+        return self.mlp(_grouped(xyz, feature, new_xyz, nidx)).amax(dim=2)
 
     def _slab_ball_query(self, sc, new_xyz, slab_cell, seed):
         """x-sort the centroids for tile locality (stably: FPS repeats
@@ -96,6 +98,66 @@ class SetAbstraction(nn.Module):
                                          self.num_neighbours, slab_cell)
         inv = torch.sort(c_ord, dim=-1, stable=True).indices
         return gather_points(nidx_s, inv)
+
+
+def _grouped(xyz, feature, new_xyz, nidx):
+    """The neighbourhood's xyz relative to its centroid, with the
+    neighbours' features after it where there are features."""
+    group = group_points(xyz, nidx) - new_xyz[:, :, None, :]
+    if feature is None:
+        return group
+    return torch.cat([group, group_points(feature, nidx)], -1)
+
+
+class SetAbstractionMSG(nn.Module):
+    """Multi-scale grouping (JAX ``models/backbone.py:115-147``, the
+    reference's PointNetSAModuleMSG): one FPS, then for each scale (radius,
+    K) a ball query and its own MLP ``mlp{i}``, the scales' maxima over
+    neighbours concatenated."""
+
+    def __init__(self, in_channels: int, num_centroids: int,
+                 radii: Sequence[float], num_neighbours: Sequence[int],
+                 mlp_channels: Sequence[Sequence[int]],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_centroids = num_centroids
+        self.radii = tuple(radii)
+        self.num_neighbours = tuple(num_neighbours)
+        for i, ch in enumerate(mlp_channels):
+            self.add_module(f"mlp{i}",
+                            SharedMLP(in_channels + 3, ch, dtype=dtype))
+
+    def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None):
+        """xyz [B,N,3], feature [B,N,C] -> (new_xyz [B,S,3], [B,S,sum C'])."""
+        new_xyz = gather_points(xyz, farthest_point_sample(
+            xyz, self.num_centroids))
+        outs = []
+        for i, (r, k) in enumerate(zip(self.radii, self.num_neighbours)):
+            nidx, _ = ball_query(xyz, new_xyz, r, k)
+            outs.append(getattr(self, f"mlp{i}")(
+                _grouped(xyz, feature, new_xyz, nidx)).amax(dim=2))
+        return new_xyz, torch.cat(outs, -1)
+
+
+class SetAbstractionAvg(nn.Module):
+    """SA with a mean over neighbours (JAX ``models/backbone.py:150-175``,
+    the reference's PointNetSAAvgModule)."""
+
+    def __init__(self, in_channels: int, num_centroids: int, radius: float,
+                 num_neighbours: int, mlp_channels: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_centroids = num_centroids
+        self.radius = radius
+        self.num_neighbours = num_neighbours
+        self.mlp = SharedMLP(in_channels + 3, mlp_channels, dtype=dtype)
+
+    def forward(self, xyz: torch.Tensor, feature: torch.Tensor | None):
+        new_xyz = gather_points(xyz, farthest_point_sample(
+            xyz, self.num_centroids))
+        nidx, _ = ball_query(xyz, new_xyz, self.radius, self.num_neighbours)
+        return new_xyz, self.mlp(
+            _grouped(xyz, feature, new_xyz, nidx)).mean(dim=2)
 
 
 class FeaturePropagation(nn.Module):
@@ -173,7 +235,7 @@ class PointNet2Seg(nn.Module):
             # are FPS-ordered, not random, and stay exact
             self.add_module(f"sa{i}", SetAbstraction(
                 c_in, s, r, k, ch, cfg.fps_groups if i == 0 else 1, dtype,
-                cfg.remat_backbone))
+                cfg.remat_backbone, cfg.ball_query_method))
             c_in = ch[-1]
             skip.append(c_in)
         for i, (ch, k) in enumerate(zip(cfg.fp_channels,
@@ -185,7 +247,7 @@ class PointNet2Seg(nn.Module):
         self.seg_mlp = SharedMLP(c_in, cfg.seg_channels, cfg.dropout_prob,
                                  dtype)
         self.score_dense = Dense(cfg.seg_channels[-1], 1, dtype)
-        self.score_bn = BatchNorm(1)
+        self.score_bn = BatchNorm(1, momentum=cfg.bn_momentum)
         self.n_sa = len(cfg.num_centroids)
         self.n_fp = len(cfg.fp_channels)
 

@@ -117,6 +117,9 @@ def _check_supported(cfg: PipelineConfig) -> None:
         raise ValueError(f"unknown refine_pose {r.refine_pose!r}")
     if r.center_select not in ("fps", "bucket"):
         raise ValueError(f"unknown center_select {r.center_select!r}")
+    if cfg.model.ball_query_method not in ("bucket", "exact"):
+        raise ValueError(f"unknown ball_query_method "
+                         f"{cfg.model.ball_query_method!r}")
 
 
 def pose_search_thetas(points: torch.Tensor, proposals: torch.Tensor,

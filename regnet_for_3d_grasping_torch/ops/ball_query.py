@@ -6,10 +6,19 @@ package does on the TPU: kernel K2 (``csrc/ball_query.cu``, the
 center-tiled bucket scan of ``csrc/bucket_scan.cuh`` with a strict radius
 test and the first pick, grid by `ops.bucket_scan.scan_grid`; buckets of
 `pallas_bucket_stride` = 512 at SA1) where `use_kernel` holds, else the
-plain bucket path (buckets of ``ceil(N/K)``).
+plain bucket path (buckets of ``ceil(N/K)``).  ``method="exact"`` is the
+first K in-radius points in index order (JAX ``ball_query.py:116-163``),
+which the JAX package computes in XLA: plain PyTorch on every device.
+
+The JAX ops package exports the function under this module's name, and so
+does the port's (``ops.ball_query(...)``): the module is callable, and
+``ops.ball_query.KERNEL_MIN_WORK`` and the rest stay its attributes.
 """
 
 from __future__ import annotations
+
+import sys
+import types
 
 import numpy as np
 import torch
@@ -31,18 +40,46 @@ def use_kernel(m: int, n: int, k: int) -> bool:
 
 
 def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
-               num_neighbours: int, chunk: int = 4096):
+               num_neighbours: int, chunk: int = 4096,
+               method: str = "bucket"):
     """xyz [B, N, 3], centers [B, M, 3] -> (index [B, M, K] int32, short
     rows padded with the first hit, 0 when no hit; count [B, M] int32
-    capped at K)."""
+    capped at K).  `method`: "bucket" (stratified) or "exact" (the first K
+    in index order)."""
     xyz = xyz.float().contiguous()
     centers = centers.float().contiguous()
     r2 = float(np.float32(radius * radius))
     M, N = centers.shape[1], xyz.shape[1]
+    if method == "exact":
+        return _ball_query_exact(xyz, centers, r2, num_neighbours)
+    if method != "bucket":
+        raise ValueError(f"unknown ball query method {method!r}")
     if use_kernel(M, N, num_neighbours):
         return ball_query_bucketed(xyz, centers, r2, num_neighbours,
                                    pallas_bucket_stride(N, num_neighbours))
     return _ball_query_bucket(xyz, centers, r2, num_neighbours, chunk)
+
+
+def _ball_query_exact(xyz, centers, r2, K, work=1 << 23):
+    """The first K points with ``d2 < r2`` (`bpdist2`) in index order,
+    short rows padded with the first hit, the count capped at K (JAX
+    ``ball_query.py:116-163``, whose chunks over the points and top-K
+    merge give this).  Chunked over centers, `work` pairs a chunk."""
+    B, N, _ = xyz.shape
+    k = min(K, N)
+    ids = torch.arange(N, device=xyz.device)
+    idx, cnt = [], []
+    for c in torch.split(centers, max(1, work // N), dim=1):
+        mask = bpdist2(c, xyz) < r2
+        first = torch.topk(torch.where(mask, ids, N), k, dim=-1,
+                           largest=False, sorted=True).values
+        if k < K:
+            first = torch.nn.functional.pad(first, (0, K - k), value=N)
+        hit = first < N
+        head = torch.where(hit[..., :1], first[..., :1], 0)
+        idx.append(torch.where(hit, first, head).to(torch.int32))
+        cnt.append(hit.sum(-1, dtype=torch.int32))
+    return torch.cat(idx, 1), torch.cat(cnt, 1)
 
 
 def _ball_query_bucket(xyz, centers, r2, K, chunk):
@@ -101,3 +138,14 @@ def ball_query_bucketed_plain(xyz, centers, r2, K, L, chunk=512):
         idx.append(_bucket_winners(mask, K, L))
         cnt.append(torch.clamp(mask.sum(-1, dtype=torch.int32), max=K))
     return torch.cat(idx, 1), torch.cat(cnt, 1)
+
+
+class _CallableModule(types.ModuleType):
+    """``ops.ball_query(...)`` calls `ball_query`, as the JAX ops package's
+    export of that name does."""
+
+    def __call__(self, *args, **kwargs):
+        return ball_query(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

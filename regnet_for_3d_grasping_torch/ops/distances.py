@@ -20,17 +20,33 @@ def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def bpdist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [B, N1, 3], b [B, N2, 3] -> [B, N1, N2] squared distances,
-    clamped at 0."""
-    ai = [a[..., :, None, i] for i in range(3)]
-    bi = [b[..., None, :, i] for i in range(3)]
-    cross = _fma(ai[2], bi[2], _fma(ai[1], bi[1], ai[0] * bi[0]))
+    """a [..., N1, C], b [..., N2, C] -> [..., N1, N2] squared distances,
+    clamped at 0 (C = 3 for points; the cross term is the chain of fused
+    multiply-adds over the channels in order)."""
+    cross = a[..., :, None, 0] * b[..., None, :, 0]
+    for i in range(1, a.shape[-1]):
+        cross = _fma(a[..., :, None, i], b[..., None, :, i], cross)
     a2 = _sq_norm(a)[..., :, None]
     b2 = _sq_norm(b)[..., None, :]
     return torch.clamp(a2 - 2.0 * cross + b2, min=0.0)
 
 
+def bpdist(a: torch.Tensor) -> torch.Tensor:
+    """a [..., N, C] -> [..., N, N] squared distances within the set,
+    clamped at 0 (JAX ``ops/distances.py:20-37``: `bpdist2` of the set
+    with itself, one norm shared by both sides)."""
+    return bpdist2(a, a)
+
+
+def pdist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N1, C], b [N2, C] -> [N1, N2] squared distances, clamped at 0
+    (JAX ``ops/distances.py:40-51``)."""
+    return bpdist2(a[None], b[None])[0]
+
+
 def _sq_norm(v: torch.Tensor) -> torch.Tensor:
-    """((x*x + y*y) + z*z), the JAX CPU sum order."""
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return (x * x + y * y) + z * z
+    """((x*x + y*y) + z*z), the JAX CPU sum order, over any channels."""
+    out = v[..., 0] * v[..., 0]
+    for i in range(1, v.shape[-1]):
+        out = out + v[..., i] * v[..., i]
+    return out

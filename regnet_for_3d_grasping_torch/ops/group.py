@@ -1,5 +1,13 @@
-"""Radius grouping of the proposal regions, the fused form (JAX
+"""Radius grouping of the proposal regions: the served form (K12, JAX
+``geometry/region.py:160-185``) and the fused form (K11, JAX
 ``ops/group_pallas.py``).
+
+Kernel K12 (``csrc/group.cu``, `group_regions_chunked`) computes what the
+JAX package serves on every backend: centers in chunks, the expansion-form
+``bpdist2(c, xyz) <= r2``, `hash_uniform` over each chunk's [B, chunk, N]
+linear index with the chunk's seed, and `bucket_choice` over buckets of
+``ceil(N / K)`` columns.  Its plain version is that chunked loop,
+`group_regions_chunked_plain`.
 
 Kernel K11 (``csrc/group.cu``, the center-tiled bucket scan of
 ``csrc/bucket_scan.cuh`` with a radius test; grid by
@@ -15,11 +23,17 @@ and the JAX package pick the same points.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
-from regnet_for_3d_grasping_torch.ops.sampling import fill_empty_buckets
+from regnet_for_3d_grasping_torch.ops.distances import bpdist2
+from regnet_for_3d_grasping_torch.ops.sampling import (bucket_choice,
+                                                       bucket_stride,
+                                                       fill_empty_buckets,
+                                                       hash_uniform)
 
 _U32 = 0xFFFFFFFF
 
@@ -80,3 +94,86 @@ def group_regions_fused_plain(xyz, centers, seed, radius, K, L, chunk=256):
         idx.append(fill_empty_buckets(torch.where(any_b, win, -1), any_b))
         cnt.append(mask.sum(-1, dtype=torch.int32))
     return torch.cat(idx, 1), torch.cat(cnt, 1)
+
+
+def group_regions_chunked(xyz: torch.Tensor, centers: torch.Tensor,
+                          seeds, radius: float, K: int, chunk: int):
+    """Kernel K12: xyz [B, N, 3], centers [B, M, 3] f32, one u32 seed per
+    `chunk` centers -> (index [B, M, K] int32, 0 for a center with no point
+    in radius; count [B, M] int32, exact).  Bucket k covers columns [k*L,
+    (k+1)*L), L = ceil(N / K).  CPU tensors take
+    `group_regions_chunked_plain`."""
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    if len(seeds) != -(-M // chunk):
+        raise ValueError(f"group_regions_chunked: {len(seeds)} seeds for "
+                         f"{M} centers in chunks of {chunk}")
+    if xyz.device.type == "cpu":
+        return group_regions_chunked_plain(xyz, centers, seeds, radius, K,
+                                           chunk)
+    _cuda.check(xyz, "group_regions_chunked xyz", torch.float32, (B, N, 3))
+    _cuda.check(centers, "group_regions_chunked centers", torch.float32,
+                (B, M, 3))
+    if B * chunk * N >= 1 << 32:
+        raise ValueError(f"group_regions_chunked: {B * chunk * N} elements "
+                         "a chunk overflow the hash's u32 counter")
+    L = bucket_stride(N, K)
+    # one launch takes at most `most` chunks (the seeds go by value); more
+    # chunks take a launch for each `most` of them
+    most = _cuda.constant("group_regions_chunked_max_chunks", xyz.device)
+    span = most * chunk
+    out = []
+    for m0 in range(0, M, span):
+        c = centers[:, m0:m0 + span].contiguous()
+        m = c.shape[1]
+        tile, rng, partial = bucket_scan.scan_args(
+            "group_regions_chunked", xyz, m, K, L,
+            bucket_scan.staged_width(L))
+        part = seeds[m0 // chunk:(m0 + m + chunk - 1) // chunk]
+        seed_arr = (ctypes.c_uint32 * len(part))(
+            *(int(s) & _U32 for s in part))
+        idx = torch.empty(B, m, K, dtype=torch.int32, device=xyz.device)
+        count = torch.empty(B, m, dtype=torch.int32, device=xyz.device)
+        _cuda.launch("group_regions_chunked", xyz.device, xyz, c, seed_arr,
+                     chunk, len(part), idx, count, partial, B, N, m, K, L,
+                     tile, rng, radius2(radius))
+        out.append((idx, count))
+    if len(out) == 1:
+        return out[0]
+    return (torch.cat([i for i, _ in out], 1),
+            torch.cat([n for _, n in out], 1))
+
+
+def group_regions_chunked_plain(xyz, centers, seeds, radius, K, chunk):
+    """Plain PyTorch version of K12, the JAX package's chunked loop: the
+    centers padded with far centers to whole chunks, then per chunk and
+    seed `bucket_choice` over ``bpdist2 <= r2`` with `hash_uniform`
+    noise."""
+    return chunked_picks(xyz, centers, chunk, [(K, radius, seeds)])[0]
+
+
+def chunked_picks(xyz, centers, chunk, scales) -> list:
+    """The chunked loop over one distance matrix for several scales
+    ``(K, radius, seeds)``, one seed a chunk each -> [(index [B, M, K]
+    int32, 0 where a center has no point in radius; count [B, M] int32)]
+    by scale (JAX ``region.py:160-185`` and, with two scales,
+    ``:188-240``)."""
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    pad = (-M) % chunk
+    if pad:
+        centers = torch.cat([centers, torch.full(
+            (B, pad, 3), 1e10, dtype=centers.dtype, device=centers.device)],
+            1)
+    out = [([], []) for _ in scales]
+    for j, c in enumerate(torch.split(centers, chunk, dim=1)):
+        d2 = bpdist2(c, xyz)
+        for (K, radius, seeds), (idx, cnt) in zip(scales, out):
+            mask = d2 <= radius2(radius)
+            noise = hash_uniform(seeds[j], tuple(mask.shape),
+                                 device=mask.device)
+            i, any_valid, count = bucket_choice(mask, K, score=noise)
+            idx.append(torch.where(any_valid[..., None], i, 0))
+            cnt.append(count)
+    return [(torch.cat(idx, 1)[:, :M], torch.cat(cnt, 1)[:, :M])
+            for idx, cnt in out]

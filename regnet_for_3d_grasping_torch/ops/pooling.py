@@ -6,7 +6,7 @@ refine pool on XLA, ``pooling.py:53-54``) changes no value.  The bucket
 structure the TPU kernel needs is not needed by a direct gather, so there
 is no `stride` argument.  The kernel reads only the slots `kept_slots`
 keeps: slot 0 and every slot whose row differs from slot 0's (the bucket
-fills of K11 and K5 copy slot 0's row into every empty slot).
+fills of K12, K11 and K5 copy slot 0's row into every empty slot).
 
 When `feature` needs a gradient the argmax form runs: it also gives the
 winner `win[b, s, c]`, the source row of the lowest slot holding the

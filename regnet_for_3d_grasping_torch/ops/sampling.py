@@ -56,6 +56,33 @@ def fill_empty_buckets(win: torch.Tensor,
     return torch.where(win >= 0, win, first).to(torch.int32)
 
 
+def masked_random_choice(generator: torch.Generator | None,
+                         mask: torch.Tensor, k: int,
+                         noise: torch.Tensor | None = None):
+    """k elements drawn uniformly from the True entries of each mask row
+    (JAX ``ops/sampling.py:56-86``): uniform noise in [0.5, 1) from
+    `generator` (on `mask`'s device), or `noise` [..., N] in its place,
+    -1 where the mask is False, and the k best by a stable sort (ties to
+    the lower index, as ``lax.top_k``).  A row with at least k entries
+    gives a k-subset without replacement; fewer cycle through the drawn
+    ones; none gives index 0 and `any_valid` False.
+
+    Returns index [..., k] int32, any_valid [...] bool, count [...] int32
+    (uncapped)."""
+    if noise is None:
+        noise = torch.rand(mask.shape, generator=generator,
+                           device=mask.device) * 0.5 + 0.5
+    score = torch.where(mask, noise, torch.tensor(-1.0, dtype=noise.dtype,
+                                                  device=mask.device))
+    idx = torch.sort(score, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k].to(torch.int32)
+    count = mask.sum(dim=-1, dtype=torch.int32)
+    denom = torch.clamp(count, min=1)[..., None]
+    slots = torch.arange(k, device=mask.device)
+    wrapped = torch.gather(idx, -1, (slots % denom).long())
+    return torch.where(slots < denom, idx, wrapped), count > 0, count
+
+
 def bucket_choice(mask: torch.Tensor, k: int,
                   score: torch.Tensor | None = None):
     """One-pass stratified selection of up to k valid elements per row

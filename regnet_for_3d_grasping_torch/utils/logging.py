@@ -1,7 +1,10 @@
 """Scalar metric logging under the JAX package's tag names (its
 ``utils/logging.py``): one JSON line per scalar in
 ``<log_dir>/<tag>/metrics.jsonl``, named ``batch_{mode}_{tag}`` or
-``epoch_{mode}_{tag}``.  The tensorboard secondary sink is not ported."""
+``epoch_{mode}_{tag}``; where ``torch.utils.tensorboard`` imports (it
+needs the ``tensorboard`` package), a ``SummaryWriter`` in the same
+directory is a secondary sink under the same names (JAX
+``utils/logging.py:25-47``)."""
 
 from __future__ import annotations
 
@@ -19,11 +22,19 @@ class MetricLogger:
         os.makedirs(self.dir, exist_ok=True)
         self._f = open(os.path.join(self.dir, "metrics.jsonl"), "a",
                        buffering=1)
+        self._tb = None
+        try:  # optional secondary sink
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb = SummaryWriter(self.dir)
+        except Exception:
+            pass
 
     def scalar(self, name: str, value, step: int) -> None:
         rec = {"tag": name, "value": float(value), "step": int(step),
                "time": time.time()}
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(name, float(value), step)
 
     def scalars(self, metrics: Mapping[str, object], step: int,
                 mode: str = "train", granularity: str = "batch") -> None:
@@ -33,6 +44,8 @@ class MetricLogger:
 
     def close(self) -> None:
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
     def __enter__(self):
         return self

@@ -273,6 +273,72 @@ def test_slice_with_every_knob_matches_jax(tiny_variables, knob_slice_run,
         assert (z > KNOBS["region.center_min_z"]).all()
 
 
+def test_slice_groups_as_the_jax_package(tiny_variables):
+    """The whole tiny slice at 2,048 centers (2 chunks of 1,024; 2,048 x 512
+    points = 2^20, where a work threshold once sent grouping to K11)
+    against JAX's REGNet with no dispatch patched: the groups index for
+    index, and the selections and logits that follow them.  JAX's grouping
+    runs compiled, as the package serves it (eagerly, `lax.map` folds the
+    cloud's norms as a constant at another rounding); the crop takes its
+    plain path on both sides, one seed per chunk of 512 proposals."""
+    pc, variables = tiny_variables
+    over = {"region.center_num": 2048}
+    cfg = jtiny(**over)
+    n_group = region.group_seed_count(2048, 512, cfg.region.group_num)
+    n_crop = region.crop_seed_count(2048, 512, cfg.region.gripper_num)
+    assert (n_group, n_crop) == (2, 4)
+    seen = {"crop": []}
+
+    def seeds_of(key, n):
+        return [int(s) for s in np.asarray(jax.random.key_data(
+            jax.random.split(key, n)))[:, -1]]
+
+    def jgroup_spy(key, pc_, centers, K, radius, **kw):
+        assert kw["sorted_cloud"] is None
+        jax.debug.callback(
+            lambda kd: seen.update(group=[int(x) for x in kd[:, -1]]),
+            jax.random.key_data(jax.random.split(key, n_group)))
+        out = jax.jit(lambda k, p, c: jregion.group_regions(
+            k, p, c, K, radius, with_points=False))(key, pc_, centers)
+        seen["jax_index"] = np.asarray(out.index)
+        return out
+
+    def jcrop_spy(key, *a, **kw):
+        jax.debug.callback(
+            lambda kd: seen["crop"].append([int(x) for x in kd[:, -1]]),
+            jax.random.key_data(jax.random.split(key, n_crop)))
+        return jregion.closing_region_crop_dense(key, *a, **kw)
+
+    def group_spy(*a, **kw):
+        out = region.group_regions(*a, **kw)
+        seen["index"] = out.index.numpy()
+        return out
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(jregnet, "group_regions", jgroup_spy)
+        mp.setattr(jregnet, "closing_region_crop_dense", jcrop_spy)
+        ref = JREGNet(cfg).apply(variables, jnp.asarray(pc),
+                                 rngs={"sampling": jax.random.PRNGKey(3)})
+        from regnet_for_3d_grasping_torch.models import regnet as pregnet
+        mp.setattr(pregnet, "group_regions", group_spy)
+        model = REGNet(tiny_config(**over))
+        weights.load_into(model, variables)
+        model.eval()
+        with torch.no_grad():
+            out = model(torch.from_numpy(pc), group_seeds=seen["group"],
+                        crop_seeds=seen["crop"])
+    finally:
+        mp.undo()
+    np.testing.assert_array_equal(seen["index"], seen["jax_index"])
+    for field in ("center_index", "region_valid", "anchor_index",
+                  "crop_valid"):
+        np.testing.assert_array_equal(getattr(out, field).numpy(),
+                                      np.asarray(getattr(ref, field)))
+    np.testing.assert_allclose(out.cls_logits.numpy(),
+                               np.asarray(ref.cls_logits), **TOL)
+
+
 def test_slice_knobs_change_the_thetas(knob_slice_run):
     """The search moved some thetas off the regression, so the comparison
     above held the knobs, not a pass-through."""

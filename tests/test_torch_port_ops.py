@@ -270,12 +270,9 @@ def test_bucket_choice_matches_jax(with_score):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-def test_strides_match_jax(monkeypatch):
-    # grouping takes its fused kernel above the port's own threshold: hold
-    # the stride against the JAX rule with that threshold switched on
-    monkeypatch.setattr(jregion, "_PALLAS_GROUP_THRESHOLD",
-                        region.GROUP_KERNEL_MIN_WORK)
-    monkeypatch.setattr(jregion, "_on_tpu", lambda: True)
+def test_strides_match_jax():
+    # grouping takes the chunked path at every full-scan shape, as the JAX
+    # package does (its Pallas grouping is off): the rule as it runs
     for n, k in ((25600, 64), (25600, 256), (1100, 16), (512, 16)):
         assert sampling.bucket_stride(n, k) == jsamp.bucket_stride(n, k)
         assert (sampling.pallas_bucket_stride(n, k)
@@ -283,7 +280,7 @@ def test_strides_match_jax(monkeypatch):
         for nc in (4000, 64, 8):
             assert region.group_stride(nc, n, k) == jregion.group_stride(
                 nc, n, k)
-    assert region.group_stride(4000, 25600, 256) == 128
+    assert region.group_stride(4000, 25600, 256) == 100
     assert region.group_stride(8, 512, 16) == 32
     assert region.CROP_KERNEL_MIN_WORK == jregion._PALLAS_CROP_THRESHOLD
     assert region.dense_crop_stride(4000, 25600, 64) == 512
@@ -302,10 +299,9 @@ def test_group_regions_matches_jax(dense_cloud):
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
 
 
-def test_group_regions_chunks(dense_cloud, monkeypatch):
-    """Several 1024-center chunks, one seed each, the tail padded (the
-    plain path, at a size that would otherwise take the fused kernel)."""
-    monkeypatch.setattr(region, "GROUP_KERNEL_MIN_WORK", 1 << 40)
+def test_group_regions_chunks(dense_cloud):
+    """Several 1024-center chunks, one seed each, the tail padded (2,100 x
+    1,100 points, past the fused kernel's former threshold)."""
     xyz, _ = dense_cloud
     centers = (np.random.RandomState(9).rand(B, 2100, 3) * 0.1).astype(
         np.float32)

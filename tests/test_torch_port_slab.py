@@ -676,7 +676,7 @@ def test_slab_dispatch_rules_match_jax(monkeypatch):
     for n, k in ((25600, 64), (4096, 8), (512, 16), (2048, 16), (25600, 12)):
         assert region._use_slab_crop(n, k) == jregion._use_slab_crop(n, k)
     assert region.group_seed_count(4000, 25600, 256, True) == 1
-    assert region.group_seed_count(4000, 25600, 256) == 1     # kernel K11
+    assert region.group_seed_count(4000, 25600, 256) == 4     # 4 chunks
     assert region.group_seed_count(2100, 256, 8) == 3         # plain path
     assert region.crop_seed_count(4000, 25600, 64, True) == 1
     assert region.crop_seed_count(128, 512, 16, True) == 1   # plain path

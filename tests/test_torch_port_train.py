@@ -155,20 +155,32 @@ def test_k11_seed_and_chunking_do_not_leak(group_case):
     assert torch.equal(d[0][0], d[0][1])
 
 
-def test_group_regions_kernel_branch_matches_jax(group_case, monkeypatch):
-    """`region.group_regions` on the K11 branch against the JAX
-    `group_regions` with its Pallas grouping switched on (interpret)."""
+def test_group_regions_kernel_branch_matches_jax(group_case):
+    """K11's entry point against the JAX package's Pallas grouping
+    (interpret), with the index masked where a center has no point in
+    radius as a caller masks it; and `region.group_regions`, which no
+    longer takes K11 (JAX's Pallas grouping is off on every backend),
+    against JAX's `group_regions` as it runs, nothing patched."""
     xyz, centers = group_case
-    monkeypatch.setattr(jregion, "_use_pallas_group", lambda *a: True)
-    monkeypatch.setattr(jgroup_pallas, "group_regions_pallas",
-                        functools.partial(jgroup_pallas.group_regions_pallas,
-                                          interpret=True))
-    monkeypatch.setattr(region, "GROUP_KERNEL_MIN_WORK", 0)
     key = jax.random.PRNGKey(12)
+    L = region.pallas_bucket_stride(1100, 16)
+    ri, rc = jgroup_pallas.group_regions_pallas(
+        jnp.asarray(xyz), jnp.asarray(centers), jnp.uint32(seed_of(key)),
+        0.02, 16, interpret=True)
+    gi, gc = group.group_regions_fused(t(xyz), t(centers), seed_of(key),
+                                       0.02, 16, L)
+    masked = torch.where((gc > 0)[..., None], gi, 0)
+    np.testing.assert_array_equal(
+        masked.numpy(), np.where((np.asarray(rc) > 0)[..., None],
+                                 np.asarray(ri), 0))
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(rc))
+    assert not (gc[:, -1] > 0).any()
     ref = jregion.group_regions(key, jnp.asarray(xyz), jnp.asarray(centers),
                                 16, 0.02, with_points=False)
     assert region.group_seed_count(130, 1100, 16) == 1
-    got = region.group_regions([seed_of(key)], t(xyz), t(centers), 16, 0.02)
+    got = region.group_regions(
+        [int(np.asarray(jax.random.key_data(jax.random.split(key, 1)))
+             [0, -1])], t(xyz), t(centers), 16, 0.02)
     np.testing.assert_array_equal(got.index.numpy(), np.asarray(ref.index))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     assert got.slab_off is None and not got.valid[:, -1].any()
@@ -180,21 +192,27 @@ def test_group_regions_kernel_branch_matches_jax(group_case, monkeypatch):
                                    (8, 512, 16), (128, 4096, 64),
                                    (64, 25600, 100), (40, 25600, 256),
                                    (41, 25600, 256)])
-def test_use_group_kernel_is_the_jax_shape_rule(m, n, k, monkeypatch):
-    monkeypatch.setattr(jregion, "_PALLAS_GROUP_THRESHOLD",
-                        region.GROUP_KERNEL_MIN_WORK)
-    monkeypatch.setattr(jregion, "_on_tpu", lambda: True)
-    assert region.use_group_kernel(m, n, k) == jregion._use_pallas_group(
-        m, n, k)
-    assert region.group_stride(m, n, k) == jregion.group_stride(m, n, k)
+def test_use_group_kernel_is_the_jax_shape_rule(m, n, k):
+    """The full-scan grouping's shape rule is the JAX package's as it
+    runs, nothing patched: its Pallas grouping is off everywhere, so the
+    stride is `bucket_choice`'s, and the seeds one per chunk of 1,024
+    centers, as JAX splits its key."""
+    assert not jregion._use_pallas_group(m, n, k)
+    assert region.group_stride(m, n, k) == jregion.group_stride(m, n, k) \
+        == jbucket_stride(n, k)
+    assert region.group_seed_count(m, n, k) == -(-m // 1024)
 
 
 def test_group_kernel_threshold_covers_training_and_serving():
-    assert region.GROUP_KERNEL_MIN_WORK == 1 << 20
-    assert region.use_group_kernel(64, 25600, 256)
-    assert region.use_group_kernel(4000, 25600, 256)
-    assert not region.use_group_kernel(8, 512, 16)
+    """No threshold sends the served grouping to K11 any more: at the
+    training (64 x 25,600) and serving (4,000 x 25,600) shapes it is the
+    chunked path, 1 and 4 seeds, buckets of 100 columns."""
+    assert not hasattr(region, "GROUP_KERNEL_MIN_WORK")
+    assert not hasattr(region, "use_group_kernel")
     assert region.group_seed_count(64, 25600, 256) == 1
+    assert region.group_seed_count(4000, 25600, 256) == 4
+    assert region.group_stride(4000, 25600, 256) == 100
+    assert region.group_stride(8, 512, 16) == 32
 
 
 # --- K4 / K9: argmax form and first-winner backward ---------------------------
@@ -729,9 +747,20 @@ class Spies:
                     crop=jregion.closing_region_crop_dense,
                     sort=jslab.sort_cloud, ball=jslab.ball_query_slab)
 
-        def group_spy(key, *a, **kw):
-            self.seen["group"] = [seed_of(key)]
-            return orig["group"](key, *a, **kw)
+        def group_spy(key, pc_, centers, K, radius, **kw):
+            if kw.get("sorted_cloud") is not None \
+                    and jregion._use_slab_group(pc_.shape[1], K):
+                self.seen["group"] = [seed_of(key)]
+                return orig["group"](key, pc_, centers, K, radius, **kw)
+            # the full scan's chunked path, one seed a chunk, compiled as
+            # the JAX package trains (eagerly, lax.map folds the cloud's
+            # norms as a constant at another rounding)
+            keys = jax.random.split(key, region.group_chunks(centers.shape[1]))
+            self.seen["group"] = [
+                int(x) for x in np.asarray(jax.random.key_data(keys))[:, -1]]
+            return jax.jit(functools.partial(
+                orig["group"], group_num=K, radius=radius, **kw))(
+                    key, pc_, centers)
 
         def crop_spy(key, *a, **kw):
             self.seen["crop"].append([seed_of(key)])
@@ -760,19 +789,18 @@ class Spies:
 
 
 def full_scan_kernels(mp):
-    """Ball query, grouping and crop on their kernel semantics on both
-    sides: Pallas in interpret mode there, thresholds at 0 here."""
+    """Ball query and crop on their kernel semantics on both sides: Pallas
+    in interpret mode there, thresholds at 0 here.  Grouping is the JAX
+    package's chunked path on both sides, as it is at every shape (its
+    Pallas grouping is off)."""
     mp.setattr(jbq, "_use_pallas_bq", lambda *a: True)
     mp.setattr(jregion, "_use_pallas_crop", lambda *a: True)
-    mp.setattr(jregion, "_use_pallas_group", lambda *a: True)
     for mod, name in ((jbq_pallas, "ball_query_pallas"),
-                      (jcrop_pallas, "closing_region_crop_pallas"),
-                      (jgroup_pallas, "group_regions_pallas")):
+                      (jcrop_pallas, "closing_region_crop_pallas")):
         mp.setattr(mod, name, functools.partial(getattr(mod, name),
                                                 interpret=True))
     mp.setattr(ball_query, "KERNEL_MIN_WORK", 0)
     mp.setattr(region, "CROP_KERNEL_MIN_WORK", 0)
-    mp.setattr(region, "GROUP_KERNEL_MIN_WORK", 0)
 
 
 def jax_step(jcfg, variables, batch, key, stage):
