@@ -36,8 +36,11 @@ result unless every phase passed):
    its entry point offers beside the wrapper's 4)
    and the argmax and backward forms of the pools K4 and K9, f32 and bf16
    (bf16 training; bit for bit, K4's bf16 argmax also with a NaN and at
-   C = 7, the bf16 backward against its plain version's ordered sum), of
-   the training paths (12 clouds, 64 centers), with their median times, a
+   C = 7, the backward against the plain version's ordered sum: f32 on
+   CPU copies, bf16 on the card; its zero fill and its scatter also timed
+   apart; and on adversarial winners and gradients, `backward_edges`), of
+   the training paths (12 clouds, 64 centers) and the 4,000-center region
+   pool, with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
    their span tables scan and the pairs that pass; for K12, K11, K5, K2
    and K3 from the operations an exact test needs on the run's pairs and
@@ -323,9 +326,12 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
     shapes `cases` = [(label, feature, index, extra args)], the first the
     main path's.  Winners and pooled values must equal the plain version's
     (bit for bit); the backward, which sums in a fixed order, must repeat
-    itself bit for bit and, on f32, agree with the plain ``index_add_``
-    (atomic, unordered) within rtol 1e-5 / atol 1e-5, on bf16 equal the
-    plain version's ordered sum, rounded at each add, bit for bit.  The
+    itself bit for bit and equal the ordered sum bit for bit: on f32 the
+    plain version on CPU copies of `g` and the winners (``index_add_`` on
+    the CPU adds in index order), and also the plain version on the card
+    (an atomic ``index_add_``, unordered) within rtol 1e-5 / atol 1e-5; on
+    bf16 the plain version's ordered sum on the card, rounded at each add.
+    Its fill and its scatter are timed apart (`backward_parts`).  The
     gradient `g` has the feature's dtype.  The forward's bound counts the
     feature rows
     that this run's indices touch (`pooled_slots` masks the slots that are
@@ -351,7 +357,9 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
               f"the backward of {name_fwd} is not deterministic ({label})")
         df_plain = pooling.scatter_winner_plain(g, win, n_points)
         check(bit_equal(df, df_plain) if bf16 else
-              torch.allclose(df, df_plain, rtol=1e-5, atol=1e-5),
+              torch.allclose(df, df_plain, rtol=1e-5, atol=1e-5)
+              and bit_equal(df.cpu(), pooling.scatter_winner_plain(
+                  g.cpu(), win.cpu(), n_points)),
               f"the backward of {name_fwd} differs ({label})")
         lib_f, lib_b = embedding_bag_pair(feature, index)
         rows_id = (index.long() + torch.arange(
@@ -384,23 +392,30 @@ def pool_kernels(record, name_fwd, src, replaces, argmax, plain, cases,
             "bytes": nbytes(g, win, df), "ops": g.numel(),
             "device_ms": device_ms(lambda: pooling.scatter_winner(
                 g, win, n_points), 10)}
+            | backward_parts(g, win, n_points)
             | backward_library(lib_b, g, win, n_points))
     record_rows(record, name_fwd, src, replaces, rows_f)
     return rows_b
 
 
+def backward_parts(g, win, n: int) -> dict:
+    """The backward's zero fill and its scatter's own work timed apart
+    (device ms; the entry point's `parts`: the tile form, S <= 128, is one
+    kernel, timed without its stores; the sort form onto zeros), beside the
+    whole call."""
+    from regnet_for_3d_grasping_torch.ops import pooling
+    return {f"{part}_device_ms": device_ms(
+        lambda: pooling.scatter_winner(g, win, n, code), 10)
+        for part, code in (("fill", pooling.BACKWARD_FILL),
+                           ("scatter", pooling.BACKWARD_SCATTER))}
+
+
 def backward_library(embedding_bag_bwd, g, win, n: int) -> dict:
-    """The library yardstick of the backward: ``embedding_bag``'s (the
-    max's gradient), or, where torch has none (on bf16), one
-    ``index_add_`` of `g` into the flattened winner keys (atomic: another
-    order of the same sums)."""
-    try:
-        return {"library_ms": cuda_ms(embedding_bag_bwd, 10),
-                "library_device_ms": device_ms(embedding_bag_bwd, 10),
-                "library": "embedding_bag backward"}
-    except (RuntimeError, NotImplementedError):
-        if g.dtype != torch.bfloat16:
-            raise
+    """The library yardsticks of the backward: one ``index_add_`` of `g`
+    into the flattened winner keys with its zero fill (atomic: another
+    order of the same sums), and ``embedding_bag``'s backward (the max's
+    gradient), where torch has one (not on bf16).  ``library_ms`` is
+    ``embedding_bag``'s where it runs, else ``index_add_``'s."""
     B, S, C = g.shape
     keys = ((win.long() + torch.arange(B, device=g.device)[:, None, None]
              * n) * C + torch.arange(C, device=g.device)).reshape(-1)
@@ -410,9 +425,92 @@ def backward_library(embedding_bag_bwd, g, win, n: int) -> dict:
         return torch.zeros(B * n * C, dtype=g.dtype,
                            device=g.device).index_add_(0, keys, flat)
 
-    return {"library_ms": cuda_ms(index_add, 10),
-            "library_device_ms": device_ms(index_add, 10),
-            "library": "index_add_"}
+    add = {"index_add_ms": cuda_ms(index_add, 10),
+           "index_add_device_ms": device_ms(index_add, 10)}
+    try:
+        return add | {"library_ms": cuda_ms(embedding_bag_bwd, 10),
+                      "library_device_ms": device_ms(embedding_bag_bwd, 10),
+                      "library": "embedding_bag backward"}
+    except (RuntimeError, NotImplementedError):
+        if g.dtype != torch.bfloat16:
+            raise
+    return add | {"library_ms": add["index_add_ms"],
+                  "library_device_ms": add["index_add_device_ms"],
+                  "library": "index_add_"}
+
+
+def same_bits(got, ref) -> bool:
+    """Bit for bit, but any NaN equal to any NaN: the card's f32 adds
+    return the canonical NaN, the CPU's keep the operand's."""
+    nan = got.isnan()
+    return (got.dtype == ref.dtype and torch.equal(nan, ref.isnan())
+            and bit_equal(torch.where(nan, 0, got),
+                          torch.where(nan, 0, ref)))
+
+
+def backward_edges(dev) -> None:
+    """The pools' backward on adversarial winners and gradients, f32 and
+    bf16, each bit-equal to the plain version's ordered sum (`same_bits`;
+    f32 on CPU copies, bf16 on the card, whose loop over s is slow on the
+    CPU) and to itself on a second call: every winner distinct at
+    4,000 rows, every winner 0 (the slab's unpicked regions) at the
+    training pools and at 4,000 rows (one chain of 4,000 a column), -0.0
+    and NaN in g, C = 7, and rows at the two forms' edges (1, 128, 129)
+    and past a long-form segment (2,049).  Prints each call's device
+    time."""
+    from regnet_for_3d_grasping_torch.ops import pooling
+    rng = np.random.RandomState(15)
+    n = N_POINTS
+
+    def winners(kind, B, S, C):
+        if kind == "distinct":
+            return np.stack([rng.permutation(n)[:S] for _ in range(B * C)]
+                            ).reshape(B, C, S).transpose(0, 2, 1)
+        if kind == "zero":
+            return np.zeros((B, S, C))
+        return rng.randint(0, kind, (B, S, C))
+
+    def grads(kind, B, S, C):
+        g = rng.randn(B, S, C) * 10.0 ** rng.randint(-4, 5, (B, S, C))
+        if kind == "signed zeros and NaN":
+            g[rng.rand(B, S, C) < 0.3] = -0.0
+            g[rng.rand(B, S, C) < 1e-4] = np.nan
+            g[0, 0, 0] = np.nan
+        return g
+
+    cases = [
+        ("every winner distinct, 1 x 4000 x 256", 1, 4000, 256, "distinct",
+         None),
+        ("every winner 0, 12 x 64 x 256", TRAIN_B, 64, 256, "zero", None),
+        ("every winner 0, 1 x 4000 x 256", 1, 4000, 256, "zero", None),
+        ("-0.0 and NaN in g, 12 x 64 x 256, 8 rows", TRAIN_B, 64, 256, 8,
+         "signed zeros and NaN"),
+        ("-0.0 and NaN in g, 1 x 4000 x 256, 40 rows", 1, 4000, 256, 40,
+         "signed zeros and NaN"),
+        ("C = 7, 12 x 64 x 7", TRAIN_B, 64, 7, 50, None),
+        ("C = 7, 1 x 4000 x 7", 1, 4000, 7, 3, None),
+        ("S = 1, 12 x 1 x 256", TRAIN_B, 1, 256, 5, None),
+        ("S = 128, 2 x 128 x 256", 2, 128, 256, 30, None),
+        ("S = 129, 2 x 129 x 256", 2, 129, 256, 30, None),
+        ("S = 2049, 1 x 2049 x 40", 1, 2049, 40, 7, None)]
+    for label, B, S, C, wkind, gkind in cases:
+        win = torch.from_numpy(np.ascontiguousarray(
+            winners(wkind, B, S, C).astype(np.int32)))
+        g32 = torch.from_numpy(grads(gkind, B, S, C).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            g = g32.to(dtype)
+            gd, wd = g.to(dev), win.to(dev)
+            got = pooling.scatter_winner(gd, wd, n)
+            ref = (pooling.scatter_winner_plain(g, win, n)
+                   if dtype == torch.float32 else
+                   pooling.scatter_winner_plain(gd, wd, n).cpu())
+            check(bit_equal(got, pooling.scatter_winner(gd, wd, n))
+                  and same_bits(got.cpu(), ref),
+                  f"the pools' backward differs from the ordered sum "
+                  f"({label}, {dtype})")
+            ms = device_ms(lambda: pooling.scatter_winner(gd, wd, n), 5)
+            print(f"backward edge {label}, {dtype}: bit-equal, device "
+                  f"{ms:.4f} ms")
 
 
 def pool_gradient(pool, feature, argmax_name, backward_name) -> tuple:
@@ -1715,7 +1813,7 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
     # (12 sorted clouds, 64 x-sorted centers each; K6 and K7 make the
     # indices, held against their plain versions at this batch too) and at
     # the 4,000-center region pool; the bf16 forms (bf16 training) at the
-    # training pools on the same values rounded to bf16
+    # same pools on the same values rounded to bf16
     print(f"training batch in slab order: {int(g12[1].sum())} points in "
           f"radius, {int((g12[2] & (g12[1] > 0)).sum())} of "
           f"{TRAIN_B * TRAIN_CENTERS} regions with a pick, "
@@ -1740,7 +1838,7 @@ def slab_kernels(dev, xyz, record, scan_calls) -> list:
         JAX_OPS + "slab.py:1072 (bf16 rows, with_argmax; :996-1010)",
         slab.gather_max_slab_argmax, slab.gather_max_slab_argmax_plain,
         [(label + ", bf16", f.bfloat16(), i, e)
-         for label, f, i, e in cases[:2]], N_POINTS, slab.slab_cover)
+         for label, f, i, e in cases], N_POINTS, slab.slab_cover)
     # a pool that needs a gradient takes the argmax form and the backward of
     # its dtype, and its gradient is the scatter of its own winners
     region_idx, region_args = cases[0][2], cases[0][3]
@@ -3968,15 +4066,15 @@ def main() -> None:
         JAX_OPS + "pooling.py:216", pooling.gather_max_argmax,
         pooling.gather_max_argmax_plain, cases, N_POINTS,
         kept=kept_stats)
-    # the bf16 argmax form (bf16 training) at the training pools, on the
-    # same values rounded to bf16, with a NaN and at C = 7 (2-byte loads)
+    # the bf16 argmax form (bf16 training) at the same pools, on the same
+    # values rounded to bf16, with a NaN and at C = 7 (2-byte loads)
     f12b = f12.bfloat16()
     bf16_backward_rows = pool_kernels(
         record, "gather_max_argmax_bf16", CSRC + "gather_max.cu",
         JAX_OPS + "pooling.py:216 (bf16 rows, with_argmax; :241-246)",
         pooling.gather_max_argmax, pooling.gather_max_argmax_plain,
         [(label + ", bf16", f.bfloat16(), i, e)
-         for label, f, i, e in cases[:2]], N_POINTS, kept=kept_stats)
+         for label, f, i, e in cases], N_POINTS, kept=kept_stats)
     nan = f12b.clone()
     nan[3, g12.index[3, 7, 5].long(), 9] = float("nan")
     nan[0, g12.index[0, 2, 0].long(), 4] = float("nan")
@@ -4001,6 +4099,8 @@ def main() -> None:
             and float(grad.float().sum()) == pooled.numel(),
             f"the pool's gradient is not the scatter of its winners "
             f"({f.dtype})")
+
+    backward_edges(dev)
 
     # K6-K10 on the same cloud in slab order
     slab_rows, slab_rows_bf16, flat_launches = slab_kernels(dev, xyz, record,

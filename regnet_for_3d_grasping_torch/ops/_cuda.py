@@ -74,7 +74,7 @@ SIGNATURES = {
     "gather_max_argmax": ("gather_max", "regnet_gather_max_argmax",
                           (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max_backward": ("gather_max", "regnet_gather_max_backward",
-                            (_P, _P, _P, _I, _I, _I, _I, _P)),
+                            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max_slab_argmax": (
         "gather_max_slab", "regnet_gather_max_slab_argmax",
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
@@ -87,7 +87,7 @@ SIGNATURES = {
                                (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max_backward_bf16": ("gather_max",
                                  "regnet_gather_max_backward_bf16",
-                                 (_P, _P, _P, _I, _I, _I, _I, _P)),
+                                 (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max_slab_argmax_bf16": (
         "gather_max_slab", "regnet_gather_max_slab_argmax_bf16",
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),

@@ -21,6 +21,9 @@ for bit as the plain max and argmax do.  The backward of a bf16 pool,
 ``gather_max_backward_bf16``, sums as the JAX package's bf16 scatter-add
 does (``jnp.zeros(n*C, bf16).at[keys].add(g)``, ``pooling.py:295``): in s
 order, each add rounded to bf16 (held against ``jax.vjp`` on the CPU).
+On the card the backward writes every entry of dfeature once, each the
+ordered sum of its contributions from +0.0 (``csrc/gather_max.cu``;
+tests/test_torch_port_pool_backward.py emulates its two forms).
 """
 
 from __future__ import annotations
@@ -69,11 +72,25 @@ def gather_max_argmax(feature: torch.Tensor, index: torch.Tensor):
     return out, win
 
 
-def scatter_winner(g: torch.Tensor, win: torch.Tensor, n: int) -> torch.Tensor:
+# the backward entry point's `parts`: its zero fill, its scatter alone
+# (onto a dfeature that is zero), or the whole backward (the wrapper's)
+BACKWARD_FILL, BACKWARD_SCATTER = 1, 2
+BACKWARD_WHOLE = BACKWARD_FILL | BACKWARD_SCATTER
+# rows (S) up to which the backward takes its short form (`kShortRows`),
+# and the fewest rows a chunk of its offsets holds (f32 at 256 channels)
+SHORT_ROWS, CHUNK_ROWS = 128, 128
+
+
+def scatter_winner(g: torch.Tensor, win: torch.Tensor, n: int,
+                   parts: int = BACKWARD_WHOLE) -> torch.Tensor:
     """The backward of K4 and K9: g [B, S, C] f32 or bf16, win [B, S, C]
     -> dfeature [B, n, C] in `g`'s dtype with ``dfeature[b, win[b, s, c], c]
-    += g[b, s, c]``, summed in s order (deterministic; on bf16 each sum
-    rounded to bf16).  CPU tensors take `scatter_winner_plain`."""
+    += g[b, s, c]``, summed in s order from +0.0 (deterministic; on bf16
+    each sum rounded to bf16).  CPU tensors take `scatter_winner_plain`.
+    On the card one entry point writes dfeature; `parts` runs a part of it
+    alone, to time the parts apart: `BACKWARD_FILL` its zero fill,
+    `BACKWARD_SCATTER` the scatter alone, onto uninitialised memory.
+    Either returns what is no gradient."""
     if g.device.type == "cpu":
         return scatter_winner_plain(g, win, n)
     B, S, C = g.shape
@@ -83,9 +100,14 @@ def scatter_winner(g: torch.Tensor, win: torch.Tensor, n: int) -> torch.Tensor:
                          f"got {g.dtype}")
     _cuda.check(g, "gather_max backward g", g.dtype, (B, S, C))
     _cuda.check(win, "gather_max backward win", torch.int32, (B, S, C))
-    df = torch.zeros(B, n, C, dtype=g.dtype, device=g.device)
+    df = torch.empty(B, n, C, dtype=g.dtype, device=g.device)
+    # the short form's owner lists: an 8-byte entry a (b, c, s) slot, and
+    # where each chunk of rows starts in them [B, chunks + 1, C]
+    chunks = -(-n // CHUNK_ROWS)
+    scratch = torch.empty(B * C * (2 * S + chunks + 1) if S <= SHORT_ROWS
+                          else 0, dtype=torch.int32, device=g.device)
     _cuda.launch(kernel_name("gather_max_backward", g.dtype), g.device, g,
-                 win, df, B, n, C, S)
+                 win, df, scratch, B, n, C, S, parts)
     return df
 
 
