@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the nine CUDA sources (twenty-one kernel entry points) of
+2. build: the ten CUDA sources (twenty-one kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -15,13 +15,17 @@ result unless every phase passed):
    training paths launch, and at their edge cases, with the cluster size
    chosen for each, and every cluster size timed apart at the main
    shapes), K6 and K7, the SA1 ball query K2 (also at a training batch of
-   12 clouds), the served grouping K12 (the JAX package's chunked path:
-   4 chunks of 1,024 centers and 4 seeds at serving, buckets of 100
-   columns staged as 128), the fused grouping K11 (on no model path) and
-   the crop K5 (also at a
-   validation forward's 64 centers; the four at small edge shapes, some
-   with buckets wider than 1,024 columns or than a block stages, with
-   the grid `ops/bucket_scan.scan_grid` picks, pairs per ns and the
+   12 clouds), the served grouping K12 (the JAX package's chunked path on
+   a cell grid: 4 chunks of 1,024 centers and 4 seeds at serving, buckets
+   of 100 columns; the grid the build wrote held against
+   `ops/group.grid_plan`, the records a center tests and the cells it
+   visits printed, and each call's device activities counted: build and
+   query), the fused grouping K11
+   (on no model path) and the crop K5 (also at a validation forward's 64
+   centers; the four at small edge shapes, some with buckets wider than
+   1,024 columns or than a block stages, K12 also on cell boundaries, 75
+   m from the origin and in one cell at 25,600 points; for K11, K5 and
+   K2 the grid `ops/bucket_scan.scan_grid` picks, pairs per ns and the
    bound's share printed, and each call's device activities counted: scan
    and fill), the FP3 3-NN K3 (at serving, at a training batch and on the
    slab fallback's x-sorted keys, with the grid `ops/knn.split_grid`
@@ -42,7 +46,8 @@ result unless every phase passed):
    the training paths (12 clouds, 64 centers) and the 4,000-center region
    pool, with their median times, a
    bound computed from the shapes (for the slab kernels from the pairs
-   their span tables scan and the pairs that pass; for K12, K11, K5, K2
+   their span tables scan and the pairs that pass; for K12 from its
+   bytes, beside the old all-pairs count; for K11, K5, K2
    and K3 from the operations an exact test needs on the run's pairs and
    the pairs that pass), and a library call where one computes the same
    function (the bf16 backward: ``index_add_``, torch has no bf16
@@ -174,6 +179,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import pickle
 import statistics
@@ -876,15 +882,19 @@ def radius_test_ops(x, c, r2: float, strict: bool = False,
     return pairs * 3 + slab * 7, slab, inside
 
 
-def expansion_test_ops(x, c) -> int:
-    """The float operations K12's exact test needs on this run's pairs: the
-    expansion-form distance rounds unlike the difference form, so no slab
-    rules a pair out, and every pair costs the cross term (a product and
-    two fused multiply-adds), -2 cross + |c|^2, + |p|^2 and the compare
-    (6); |p|^2 and |c|^2 (5 each) once a point and once a center."""
+def expansion_test_ops(x, c, pairs: int | None = None) -> int:
+    """The float operations of K12's expansion test on `pairs` (center,
+    point) pairs, by default all of them (the bucket scan K12 ran before
+    its cell grid tested every pair: the expansion-form distance rounds
+    unlike the difference form, so no slab rules a pair out): the cross
+    term (a product and two fused multiply-adds), -2 cross + |c|^2,
+    + |p|^2 and the compare (6) a pair; |p|^2 and |c|^2 (5 each) once a
+    point and once a center."""
     B, M = c.shape[:2]
     N = x.shape[1]
-    return B * M * N * 6 + B * (M + N) * 5
+    if pairs is None:
+        pairs = B * M * N
+    return pairs * 6 + B * (M + N) * 5
 
 
 def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
@@ -916,15 +926,14 @@ def box_test_ops(x, frames, bases, box, chunk: int = 256) -> tuple:
 
 
 def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
-                     k, bucket, staged=None) -> dict:
+                     k, bucket) -> dict:
     """Phase 3 for one K11, K5 or K2 shape: the call against its plain
     version (indices and counts equal to the bit); its time with and
     without the host, and the plain version's; the grid that
     ``ops/bucket_scan.scan_grid`` picks with `kernel`'s constants; pairs
     per ns and the bound's share of the device time.  The bound counts
     `ops`: an exact test on this run's pairs (`radius_test_ops`,
-    `box_test_ops`, `expansion_test_ops`) and the pick's work on the
-    `passing` pairs.  `staged`: the slots a bucket is staged in (K12)."""
+    `box_test_ops`) and the pick's work on the `passing` pairs."""
     from regnet_for_3d_grasping_torch.ops import _cuda, bucket_scan
     got, ref = call(), plain()
     check(all_equal(got, ref),
@@ -933,7 +942,7 @@ def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
     dev = got[0].device
     grid = bucket_scan.scan_grid(batch, m, n, k, bucket,
                                  _cuda.sm_count(dev),
-                                 *bucket_scan.limits(kernel, dev), staged)
+                                 *bucket_scan.limits(kernel, dev))
     pairs = batch * m * n
     row = {"shape": label, "max_abs_err": max_err(got, ref),
            "ms": cuda_ms(call, 20), "plain_ms": cuda_ms(plain, 3),
@@ -952,9 +961,10 @@ def bucket_scan_case(name, label, call, plain, inputs, ops, passing, kernel,
 
 def bucket_scan_edges(dev) -> None:
     """K11, K12, K5 and K2 against their plain versions at small shapes
-    (K12 with buckets of ceil(N / K) columns, 69 to 4,500, staged in
-    multiples of 32, and centers in chunks of 50, the last padded, and at
-    M = 130 in 65 chunks of 2, two launches of at most 64 seeds): M not
+    (K12 through both its passes, with buckets of ceil(N / K) columns, 69
+    to 4,500, and centers in chunks of 50, the last short, and at M = 130
+    in 65 chunks of 2 through the grid, two query launches of at most 64
+    seeds after one build): M not
     a multiple of any tile, M = 1, B = 3, N not a multiple of L, K*L > N,
     L = 512 (the serving width of K5 and K2), L = 1,280 (two 1,024-column
     segments a bucket), L = 4,608 (wider than a block stages: windows of
@@ -1010,12 +1020,15 @@ def bucket_scan_edges(dev) -> None:
         # than one launch takes (two launches)
         for ch in {min(50, M), 2 if M == 130 else min(50, M)}:
             seeds = [9 + 1000 * i for i in range(-(-M // ch))]
-            g12 = group.group_regions_chunked(x, c, seeds, 0.0625, K, ch)
             r12 = group.group_regions_chunked_plain(x, c, seeds, 0.0625, K,
                                                     ch)
-            check(all_equal(g12, r12), f"K12 differs at edge shape B={B} "
-                  f"N={N} M={M} K={K} L={sampling.bucket_stride(N, K)}, "
-                  f"chunks of {ch}")
+            for via in ("grid", "direct")[:2 if len(seeds) <= 64 else 1]:
+                with k12_pass(via):
+                    g12 = group.group_regions_chunked(x, c, seeds, 0.0625, K,
+                                                      ch)
+                check(all_equal(g12, r12), f"K12 ({via}) differs at edge "
+                      f"shape B={B} N={N} M={M} K={K} "
+                      f"L={sampling.bucket_stride(N, K)}, chunks of {ch}")
         gc = crop.closing_region_crop(x, frames, bases, 9, box, K, L)
         rc = crop.crop_plain(x, frames, bases, 9, box, K, L)
         check(all_equal(gc, rc), f"K5 differs at edge shape B={B} N={N} "
@@ -1048,16 +1061,232 @@ def bucket_scan_edges(dev) -> None:
 SERVING_GROUP_SEEDS = [21, 22, 23, 24]
 
 
+@contextlib.contextmanager
+def k12_pass(via: str):
+    """K12 through its grid pass or its direct pass inside the block,
+    whatever `group.route` would pick (its pair limit moved out of reach
+    either way)."""
+    from regnet_for_3d_grasping_torch.ops import group
+    with replaced(group, "DIRECT_PAIRS", 1 << 62 if via == "direct" else -1):
+        yield
+
+
+@contextlib.contextmanager
+def k12_scratch():
+    """Yields a list that gets the scratch of every K12 grid call inside
+    the block (`group.grid_scratch`), whose grid `group.grid_views`
+    reads."""
+    from regnet_for_3d_grasping_torch.ops import group
+    made = []
+    make = group.grid_scratch
+
+    def keep(*args):
+        made.append(make(*args))
+        return made[-1]
+
+    with replaced(group, "grid_scratch", keep):
+        yield made
+
+
+def grid_group_case(label, x, c, seeds, chunk, radius=0.008, K=256,
+                    reps=20) -> tuple:
+    """Phase 3 for one K12 shape: the call against the plain chunked path
+    (indices and counts equal to the bit), through the pass `group.route`
+    picks and through the other; the grid the build wrote
+    (`group.grid_views` of the call's scratch) against `grid_plan`, and its
+    cells' first records against the plan's cells; the records a center
+    tests (a direct pass: every point) and the cells it visits
+    (`grid_candidates`); the times of the call with and without the host,
+    of the plain version and of the other pass.  The bound counts what the
+    function needs on this run's data, whichever pass runs: its bytes
+    (cloud and centers read once, indices and counts written once) and its
+    operations (the expansion test on the records the grid pass would
+    test, 13 a pair in radius for the hash and the key), the larger;
+    `all_pairs_bound_ms` is the bound the bucket-scan design was held to,
+    the expansion test on every pair.  Returns (the row, the call, the
+    kernels it launches)."""
+    from regnet_for_3d_grasping_torch.ops import _cuda, group
+    B, N = x.shape[:2]
+    M = c.shape[1]
+    r2 = group.radius2(radius)
+    kind, per = group.route(B, M, N, K, len(seeds), _cuda.sm_count(x.device))
+
+    def call(via=None):
+        if via is None:
+            return group.group_regions_chunked(x, c, seeds, radius, K, chunk)
+        with k12_pass(via):
+            return group.group_regions_chunked(x, c, seeds, radius, K, chunk)
+
+    def plain():
+        return group.group_regions_chunked_plain(x, c, seeds, radius, K,
+                                                 chunk)
+
+    ref = plain()
+    for via in ("grid", "direct"):
+        check(all_equal(call(via), ref), f"group_regions_chunked ({via}) "
+              f"differs from its plain version ({label})")
+    with k12_scratch() as made:
+        call("grid")
+    plan = group.grid_plan(x, r2)
+    _, grids, starts, _ = group.grid_views(made[0], B, N)
+    check(all(torch.equal(a, b) for a, b in zip(group.grid_read(grids),
+                                                   plan)),
+          f"K12's grid differs from grid_plan ({label}): "
+          f"{group.grid_read(grids)} against {plan}")
+    cells = group.grid_cells(x, plan)
+    for b, (gx, gy, gz) in enumerate(plan.dims.tolist()):
+        ok = cells[b, :, 0] >= 0
+        lin = (cells[b, ok, 2] * gy + cells[b, ok, 1]) * gx + cells[b, ok, 0]
+        want = torch.cumsum(torch.bincount(lin, minlength=gx * gy * gz), 0)
+        check(torch.equal(starts[b, 1:gx * gy * gz + 1].long(), want)
+              and int(starts[b, 0]) == 0,
+              f"K12's cell starts differ from grid_plan's cells ({label})")
+    got = call()
+    pairs, visited = group.grid_candidates(x, c, r2)
+    inside = int(ref[1].sum())
+    tested = int(pairs.sum()) if kind == "grid" else B * M * N
+    byts = nbytes(x, c, *got)
+    other = "direct" if kind == "grid" else "grid"
+    row = {"shape": label, "max_abs_err": max_err(got, ref),
+           "route": f"{kind} ({per} centers a block)" if per else kind,
+           "ms": cuda_ms(call, reps), "plain_ms": cuda_ms(plain, 3),
+           "device_ms": device_ms(call, reps),
+           f"{other}_device_ms": device_ms(lambda: call(other), reps),
+           "bytes": byts,
+           "ops": expansion_test_ops(x, c, int(pairs.sum())) + inside * 13,
+           "grid_dims": plan.dims.tolist(),
+           "cell_side": [1 / float(v) for v in plan.inv_h],
+           "pairs_tested": tested, "pairs_in_radius": inside,
+           "pairs_tested_per_center": tested / (B * M),
+           "grid_pairs_tested_per_center": float(pairs.double().mean()),
+           "grid_pairs_tested_max": int(pairs.max()),
+           "cells_visited_per_center": float(visited.double().mean()),
+           "cells_visited_max": int(visited.max())}
+    all_pairs = bound(byts, expansion_test_ops(x, c) + inside * 13)[0]
+    row["bound_share"] = bound(byts, row["ops"])[0] / row["device_ms"]
+    row["all_pairs_bound_ms"] = all_pairs
+    row["all_pairs_bound_share"] = all_pairs / row["device_ms"]
+    print(f"group_regions_chunked {label}: {row['route']}; grid "
+          f"{row['grid_dims']} of cells {row['cell_side']}, "
+          f"{row['grid_pairs_tested_per_center']:.2f} records a center in "
+          f"the grid pass ({100 * row['grid_pairs_tested_per_center'] / N:.3f}"
+          f" % of {N}; most {row['grid_pairs_tested_max']}), "
+          f"{row['cells_visited_per_center']:.2f} cells visited a center "
+          f"(most {row['cells_visited_max']}); this pass tests "
+          f"{row['pairs_tested_per_center']:.2f} a center; {inside} pairs in "
+          f"radius, bound share {row['bound_share']:.3f} (all-pairs "
+          f"{row['all_pairs_bound_share']:.3f}), call {row['ms']:.4f} ms, "
+          f"device {row['device_ms']:.4f} ms, {other} pass "
+          f"{row[f'{other}_device_ms']:.4f} ms")
+    kernels = (("grid_build_kernel", "grid_query_kernel") if kind == "grid"
+               else ("direct_kernel",))
+    return row, call, kernels
+
+
+def boundary_cloud(xyz, c, radius=0.008) -> tuple:
+    """The serving cloud with a fifth of its points moved onto cell
+    boundaries of its grid on x (half on the first f32 of a cell, half on
+    the last of the cell below; none in the first cell, at the largest x or
+    near the cloud's largest norm, so the grid stays), and a copy of `c`
+    moved on x so that each center's box starts at a boundary (where the
+    search finds it)."""
+    from regnet_for_3d_grasping_torch.ops import group
+    r2 = group.radius2(radius)
+    plan = group.grid_plan(xyz, r2)
+    lo, inv_h = plan.lo[0, 0], plan.inv_h[0]
+
+    def cell(v):
+        return torch.floor((v - lo) * inv_h)
+
+    def first_of_cell(k):
+        """The least f32 of cell k: lo + k h, then a few steps either way."""
+        v = (lo.double() + k.double() / inv_h.double()).float()
+        down, up = torch.full_like(v, -math.inf), torch.full_like(v, math.inf)
+        for _ in range(8):
+            v = torch.where(cell(v) >= k, torch.nextafter(v, down), v)
+        for _ in range(8):
+            v = torch.where(cell(v) < k, torch.nextafter(v, up), v)
+        return v
+
+    g = torch.Generator(device=xyz.device).manual_seed(5)
+    x = xyz.clone()
+    ok = ((x[0].double().norm(dim=-1) < 0.99 * plan.p_norm[0])
+          & (cell(x[0, :, 0]) >= 1) & (x[0, :, 0] < plan.hi[0, 0]))
+    pick = torch.nonzero(ok)[:, 0]
+    pick = pick[torch.randperm(len(pick), generator=g,
+                               device=xyz.device)[:N_POINTS // 5]]
+    k = cell(x[0, pick, 0])
+    on = first_of_cell(k)
+    half = len(pick) // 2
+    x[0, pick[:half], 0] = on[:half]
+    x[0, pick[half:], 0] = torch.nextafter(
+        on[half:], torch.full_like(on[half:], -math.inf))
+    below = torch.nextafter(on, torch.full_like(on, -math.inf))
+    exact = int(((cell(on) == k) & (cell(below) == k - 1)).sum())
+    after = group.grid_plan(x, r2)
+    check(all(torch.equal(a, b) for a, b in zip(plan, after)),
+          "boundary cloud: moving points onto boundaries moved the grid")
+    # centers whose box starts (x - rho, rounded outward) at a boundary
+    cb = c.clone()
+    d = cb[0].double()
+    rho = group.reach(torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                                 + d[:, 2] * d[:, 2]), plan.p_norm[0], r2)
+    edge = first_of_cell(cell(cb[0, :, 0] - rho))
+    cx = edge + rho
+    down, up = torch.full_like(cx, -math.inf), torch.full_like(cx, math.inf)
+    for _ in range(64):
+        start = torch.nextafter(cx - rho, down)
+        cx = torch.where(start > edge, torch.nextafter(cx, down),
+                         torch.where(start < edge, torch.nextafter(cx, up),
+                                     cx))
+    cb[0, :, 0] = cx
+    on_edge = int((torch.nextafter(cx - rho, down) == edge).sum())
+    print(f"boundary cloud: {len(pick)} points moved, {exact} boundaries "
+          f"exact (the first f32 of cell k, the one below in k - 1); "
+          f"{on_edge} of {cb.shape[1]} centers' boxes start at a boundary")
+    return x, cb
+
+
+def grid_group_edges(xyz, c4000) -> None:
+    """K12 at 25,600 points, through both passes, on clouds the CPU tests
+    hold the emulation on:
+    points on cell boundaries and centers whose box starts at one; the
+    cloud 75 m from the origin (the expansion form's rounding passes
+    points beyond the radius there, and the reach covers them); every
+    point in one cell (a 0.1 mm cube, each center in radius of all)."""
+    from regnet_for_3d_grasping_torch.ops import group
+    bx, bc = boundary_cloud(xyz, c4000)
+    far = xyz + 75.0
+    g = torch.Generator(device=xyz.device).manual_seed(9)
+    one = 0.4 + torch.rand(1, N_POINTS, 3, generator=g,
+                           device=xyz.device) * 1e-4
+    for label, x, c, radius, seeds, chunk in (
+            ("cell boundaries", bx, bc, 0.008, SERVING_GROUP_SEEDS, 1024),
+            ("75 m from the origin", far, c4000 + 75.0, 0.008,
+             SERVING_GROUP_SEEDS, 1024),
+            ("one cell", one, one[:, :64] + 2e-5, 0.01, [7], 64)):
+        ref = group.group_regions_chunked_plain(x, c, seeds, radius, 256,
+                                                chunk)
+        for via in ("grid", "direct"):
+            with k12_pass(via):
+                got = group.group_regions_chunked(x, c, seeds, radius, 256,
+                                                  chunk)
+            check(all_equal(got, ref),
+                  f"K12 ({via}) differs on the {label} cloud")
+        pairs, cells = group.grid_candidates(x, c, group.radius2(radius))
+        print(f"edge K12 {label}: {int(got[1].sum())} pairs in radius, "
+              f"{float(pairs.double().mean()):.1f} records tested a center, "
+              f"{float(cells.double().mean()):.2f} cells visited; equal")
+
+
 def group_chunked_kernels(xyz, c4000, tx, c12, c64, record,
                           scan_calls) -> tuple:
     """Phase 3 for K12, the served grouping, at serving (4,000 centers in 4
     chunks of 1,024, one seed each), at a training batch (12 x 64) and at
-    a validation forward (1 x 64): indices and counts bit-equal to the
-    plain chunked path (`bucket_scan_case`).  Returns the serving call's
-    output."""
+    a validation forward (1 x 64): `grid_group_case` at each, and its edge
+    clouds (`grid_group_edges`).  Returns the serving call's output."""
     from regnet_for_3d_grasping_torch.geometry import region
-    from regnet_for_3d_grasping_torch.ops import bucket_scan, group, sampling
-    L = sampling.bucket_stride(N_POINTS, 256)
+    from regnet_for_3d_grasping_torch.ops import group
     rows = []
     for label, x, c, seeds in (
             ("serving: 4000 centers x 25600 points, 4 chunks", xyz, c4000,
@@ -1066,23 +1295,11 @@ def group_chunked_kernels(xyz, c4000, tx, c12, c64, record,
              [22]),
             ("validation: 1 cloud x 64 centers", xyz, c64, [21])):
         chunk = min(region.GROUP_CENTER_CHUNK, c.shape[1])
-
-        def kernel(x=x, c=c, seeds=seeds, chunk=chunk):
-            return group.group_regions_chunked(x, c, seeds, 0.008, 256,
-                                               chunk)
-
-        def plain(x=x, c=c, seeds=seeds, chunk=chunk):
-            return group.group_regions_chunked_plain(x, c, seeds, 0.008,
-                                                     256, chunk)
-
-        inside = int(plain()[1].sum())
-        rows.append(bucket_scan_case(
-            "group_regions_chunked", label, kernel, plain, (x, c),
-            expansion_test_ops(x, c) + inside * 13, inside,
-            "group_regions_chunked", 256, L, bucket_scan.staged_width(L)))
-        scan_calls[f"group_regions_chunked {label}"] = (
-            kernel, ("bucket_scan_kernel", "bucket_fill_kernel"))
-    record_rows(record, "group_regions_chunked", CSRC + "group.cu",
+        row, call, kernels = grid_group_case(label, x, c, seeds, chunk)
+        rows.append(row)
+        scan_calls[f"group_regions_chunked {label}"] = (call, kernels)
+    grid_group_edges(xyz, c4000)
+    record_rows(record, "group_regions_chunked", CSRC + "grid_group.cu",
                 "regnet_for_3d_grasping_tpu/geometry/region.py:160-185 "
                 "(the XLA path of group_regions)", rows)
     return group.group_regions_chunked(xyz, c4000, SERVING_GROUP_SEEDS,
@@ -3929,7 +4146,7 @@ def main() -> None:
     ball_query_kernels(xyz, centers, tx, sa1_12, record, scan_calls)
     three_nn_kernels(dev, xyz, centers, tx, sa1_12, record, scan_calls)
 
-    # K12, the served grouping (r 0.008, K 256, L 100 staged as 128), and
+    # K12, the served grouping (r 0.008, K 256, L 100), and
     # K11, the fused grouping on no model path (L 128), at a serving
     # forward (4,000 centers: 4 chunks, 4 seeds), a training batch (12
     # clouds x 64 centers) and a validation forward (1 x 64).  Operations:

@@ -133,6 +133,9 @@ class TrainConfig:
     lr_step_epochs: int = 5      # lr * gamma ** (epoch // lr_step_epochs)
     lr_gamma: float = 0.5
     seed: int = 1
+    # the JAX package's mesh axis name (read nowhere there either; the
+    # port names its axes in parallel/mesh.AXIS_NAMES)
+    data_parallel_axis: str = "data"
 
 
 @dataclasses.dataclass(frozen=True)

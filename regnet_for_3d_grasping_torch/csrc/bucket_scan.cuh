@@ -1,9 +1,8 @@
-// The center-tiled bucket scan shared by K11 and K12 (group.cu), K5
-// (crop.cu) and K2 (ball_query.cu): for each center m and bucket k of L
-// columns, the column that the Pick keeps among the columns that pass the
-// Test (K11, K5: the largest 23-bit counter-hash score, K12: the largest
-// f32 of the chunked lowbias32 hash, the first column on ties; K2: the
-// first column), -1 where none passes, and the count of passing
+// The center-tiled bucket scan shared by K11 (group.cu), K5 (crop.cu) and
+// K2 (ball_query.cu): for each center m and bucket k of L columns, the
+// column that the Pick keeps among the columns that pass the Test (K11,
+// K5: the largest 23-bit counter-hash score, the first column on ties; K2:
+// the first column), -1 where none passes, and the count of passing
 // columns over all buckets, capped at `cap` (K2: K; K11, K5: exact); empty
 // buckets then take the first non-empty bucket's pick, and a center with no
 // passing column gets all zeros.  The test (which columns pass for a
@@ -28,14 +27,12 @@
 //      which no test passes), so the cloud crosses L2 once per tile, not
 //      once per center.  A lane reads a column once and tests it against
 //      each of its warp's C centers, keeping one hit bit per (center,
-//      32-column step) of a segment, 1,024 columns at most.  A bucket
-//      whose L is not a multiple of 32 (K12: ceil(N / K), 100 at 25,600
-//      points and K = 256) is staged `lpad` = L rounded up to 32 slots
-//      apart, the pad NaN, so that each bucket starts a step: 8 + 2
-//      instructions per pair for the radius.  At the end of a segment one
-//      vote asks whether any lane hit for any of the C centers; at the
-//      serving shapes most buckets have none, and then the warp only
-//      writes -1 for its C slots.  Otherwise each center with a hit counts
+//      32-column step) of a segment, 1,024 columns at most (L is a
+//      multiple of 32, so each bucket starts a step).  At the end of a
+//      segment one vote asks whether any lane hit for any of the C
+//      centers; at the serving shapes most buckets have none, and then the
+//      warp only writes -1 for its C slots.  Otherwise each center with a
+//      hit counts
 //      its bits and asks its Pick for the segment's key (HashPick: the
 //      hash of its hit columns alone, packed with the place into a key
 //      whose warp-wide maximum, two `redux.sync`, is the pick; FirstPick:
@@ -84,22 +81,11 @@ struct Params {
   float v[4];
 };
 
-// What a score may be keyed by besides a center's cloud b, its row m in
-// that cloud and the call's seed: the chunked grouping (K12) takes one seed
-// per chunk of `chunk` centers, `chunks` of them (at most kMaxChunks a
-// launch), by value, so that a call copies nothing to the card.
-constexpr int kMaxChunks = 64;
-struct Rows {
-  uint32_t seeds[kMaxChunks];
-  int chunk, chunks;
-};
-
 // The TPU kernels' counter hash, top 23 bits: keyed by the center's row in
 // its own cloud and the column (group_pallas.py:57-66, crop_pallas.py:70-80).
 // `row` is the part that depends on the center alone.
 struct Hash23 {
-  static __device__ __forceinline__ uint32_t row(const Rows&, int, int m,
-                                                 uint32_t seed, int) {
+  static __device__ __forceinline__ uint32_t row(int m, uint32_t seed) {
     return (uint32_t)m * 0x9E3779B9u + seed;
   }
   static __device__ __forceinline__ uint32_t score(uint32_t row, int j) {
@@ -130,10 +116,8 @@ template <class Score>
 struct ScorePick {
   using Key = uint64_t;
   static constexpr Key kNone = 0;
-  static __device__ __forceinline__ uint32_t row(const Rows& rows, int b,
-                                                 int m, uint32_t seed,
-                                                 int n) {
-    return Score::row(rows, b, m, seed, n);
+  static __device__ __forceinline__ uint32_t row(int m, uint32_t seed) {
+    return Score::row(m, seed);
   }
   static __device__ __forceinline__ Key key(uint32_t score, int rel) {
     return ((uint64_t)(score + 1u) << 32) | (uint32_t)(0xFFFFFFFFu - rel);
@@ -169,8 +153,7 @@ using HashPick = ScorePick<Hash23>;
 struct FirstPick {
   using Key = uint32_t;
   static constexpr Key kNone = 0xFFFFFFFFu;
-  static __device__ __forceinline__ uint32_t row(const Rows&, int, int,
-                                                 uint32_t, int) {
+  static __device__ __forceinline__ uint32_t row(int, uint32_t) {
     return 0;
   }
   static __device__ __forceinline__ Key warp_key(uint32_t hits, int lane,
@@ -240,43 +223,25 @@ __device__ __forceinline__ void stage(const float* __restrict__ xyz, int col0,
     s[u] = s[stride + u] = s[2 * stride + u] = __int_as_float(0x7fc00000);
 }
 
-// staged slots [s0, s1) of a range of `cols` columns from col0, whose
-// buckets of `bucket` columns lie `lpad` slots apart -> s[3][stride] from
-// slot s0, NaN in a slot past its bucket's columns or past the range.
-// Where lpad == bucket the slots are the columns, staged by `stage`.
+// columns [s0, s1) of a range of `cols` columns from col0 -> s[3][stride]
+// from column s0, NaN past the range
 __device__ __forceinline__ void stage_range(const float* __restrict__ xyz,
-                                            int col0, int cols, int bucket,
-                                            int lpad, int s0, int s1,
-                                            int stride, float* s) {
-  if (lpad == bucket) {
-    stage(xyz, col0 + s0, max(0, min(cols - s0, s1 - s0)), s1 - s0, stride,
-          s);
-    return;
-  }
-  const float* src = xyz + (size_t)col0 * 3;
-  for (int u = threadIdx.x; u < s1 - s0; u += kThreads) {
-    const int slot = s0 + u, kk = slot / lpad, v = slot - kk * lpad;
-    const int col = kk * bucket + v;
-    const bool in = v < bucket && col < cols;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      s[i * stride + u] =
-          in ? __ldg(src + (size_t)col * 3 + i) : __int_as_float(0x7fc00000);
-  }
+                                            int col0, int cols, int s0,
+                                            int s1, int stride, float* s) {
+  stage(xyz, col0 + s0, max(0, min(cols - s0, s1 - s0)), s1 - s0, stride, s);
 }
 
 // One warp's scan of one segment of a bucket (`steps` 32-column steps from
 // `pts`, this lane's first column, in the SoA rows `win` apart): bit s of
 // hits[c] marks a pass of center c at column 32*s + lane.  Where any
 // center hit, each center with a hit adds its count and hands `take` its
-// Pick's key for the segment (center m0 + c of cloud b, of `n` columns;
-// the bucket's first column `col`).
+// Pick's key for the segment (center m0 + c; the bucket's first column
+// `col`).
 template <class Test, class Pick, class Take>
 __device__ __forceinline__ void scan_segment(
     const Test (&test)[Test::kPerWarp], int (&cnt)[Test::kPerWarp],
     const float* pts, int win, int steps, const Params& p, int lane,
-    const Rows& rows, int b, int n, int m0, uint32_t seed, int col, int seg,
-    Take take) {
+    int m0, uint32_t seed, int col, int seg, Take take) {
   constexpr int C = Test::kPerWarp;
   uint32_t hits[C];
 #pragma unroll
@@ -299,23 +264,22 @@ __device__ __forceinline__ void scan_segment(
     if (!__any_sync(0xffffffffu, hits[c])) continue;
     cnt[c] += __popc(hits[c]);
     take(c, Pick::warp_key(hits[c], lane,
-                           Pick::row(rows, b, m0 + c, seed, n), col, seg));
+                           Pick::row(m0 + c, seed), col, seg));
   }
 }
 
-// kWide: buckets of more than kSegCols staged slots, scanned in segments,
-// the block's one bucket staged in windows where the range exceeds
+// kWide: buckets of more than kSegCols columns, scanned in segments, the
+// block's one bucket staged in windows where the range exceeds
 // kMaxStageCols; otherwise a bucket is one segment and the range one
-// window, and a pick needs no key carried.  A bucket's `bucket` columns
-// are staged `lpad` slots apart.
+// window, and a pick needs no key carried.
 template <class Test, class Pick, bool kWide>
 __global__ void __launch_bounds__(kThreads, Test::kMinBlocks)
 bucket_scan_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ frames,
                    const float* __restrict__ centers, uint32_t seed,
                    int32_t* __restrict__ idx, int32_t* __restrict__ partial,
-                   int n, int m_total, int k_total, int bucket, int lpad,
-                   int tile, int range, int nranges, Params p, Rows rows) {
+                   int n, int m_total, int k_total, int bucket, int tile,
+                   int range, int nranges, Params p) {
   constexpr int C = Test::kPerWarp;
   using Key = typename Pick::Key;
   extern __shared__ float s_pts[];  // [3][win]
@@ -323,8 +287,8 @@ bucket_scan_kernel(const float* __restrict__ xyz,
 
   const int b = blockIdx.y;
   const int t_id = blockIdx.x / nranges, r_id = blockIdx.x % nranges;
-  const int stride = range * lpad;
-  // the slots staged at a time: the whole range, or windows of whole
+  const int stride = range * bucket;
+  // the columns staged at a time: the whole range, or windows of whole
   // segments of its one bucket
   const int win = !kWide || stride <= kMaxStageCols ? stride : kWinCols;
   const int col0 = r_id * range * bucket;
@@ -353,34 +317,32 @@ bucket_scan_kernel(const float* __restrict__ xyz,
                  col0 / bucket;
   const bool writes = lane < C && m0 + lane < m_total;
   if (!kWide) {
-    stage_range(cloud, col0, cols, bucket, lpad, 0, nbk * lpad, stride,
-                s_pts);
+    stage_range(cloud, col0, cols, 0, nbk * bucket, stride, s_pts);
     __syncthreads();
     if (m0 < m_total) {
       for (int kk = sub; kk < nbk; kk += per_group) {
         const int col = col0 + kk * bucket;  // the bucket's first column
         int pick = -1;
         scan_segment<Test, Pick>(
-            test, cnt, s_pts + kk * lpad + lane, stride, lpad / 32, p, lane,
-            rows, b, n, m0, seed, col, 0, [&](int c, Key k) {
+            test, cnt, s_pts + kk * bucket + lane, stride, bucket / 32, p,
+            lane, m0, seed, col, 0, [&](int c, Key k) {
               if (lane == c) pick = col + Pick::rel(k);
             });
         if (writes) out[kk] = pick;
       }
     }
   } else {
-    // the slots scanned: the last bucket's up to its last column's step
+    // the columns scanned: the last bucket's up to its last column's step
     const int last = (nbk - 1) * bucket;
-    const int end = (nbk - 1) * lpad + (cols - last + 31) / 32 * 32;
+    const int end = last + (cols - last + 31) / 32 * 32;
     Key mine = Pick::kNone;  // lane c: center c's best over the segments
     for (int w0 = 0; w0 < end; w0 += win) {
       if (w0) __syncthreads();  // the last window's readers are done
-      stage_range(cloud, col0, cols, bucket, lpad, w0, min(w0 + win, end),
-                  win, s_pts);
+      stage_range(cloud, col0, cols, w0, min(w0 + win, end), win, s_pts);
       __syncthreads();
       if (m0 >= m_total) continue;
       for (int kk = sub; kk < nbk; kk += per_group) {
-        const int b0 = kk * lpad, b1 = min(b0 + lpad, end);
+        const int b0 = kk * bucket, b1 = min(b0 + bucket, end);
         const int col = col0 + kk * bucket;  // the bucket's first column
         const int lo = max(b0, w0), hi = min(b1, w0 + win);
         if (lo >= hi) continue;  // not in this window
@@ -388,8 +350,8 @@ bucket_scan_kernel(const float* __restrict__ xyz,
         for (int seg = lo; seg < hi; seg += kSegCols)
           scan_segment<Test, Pick>(
               test, cnt, s_pts + (seg - w0) + lane, win,
-              min(32, (hi - seg) / 32), p, lane, rows, b, n, m0, seed, col,
-              seg - b0, [&](int c, Key k) {
+              min(32, (hi - seg) / 32), p, lane, m0, seed, col, seg - b0,
+              [&](int c, Key k) {
                 if (lane == c) mine = Pick::better(mine, k);
               });
         if (hi == b1 && writes)  // the bucket's last segment
@@ -437,38 +399,33 @@ bucket_fill_kernel(int32_t* __restrict__ idx,
 
 // Both launches on `stream`; counts capped at `cap`; cudaErrorInvalidValue
 // for a grid the kernel does not take (ops/bucket_scan.scan_grid gives only
-// ones it takes).  `lpad`: the slots a bucket is staged in, `bucket`
-// rounded up to a multiple of 32 (0: `bucket`, which must be one).
+// ones it takes; `bucket` must be a multiple of 32).
 template <class Test, class Pick>
 int launch(const float* xyz, const float* frames, const float* centers,
            uint32_t seed, int32_t* idx, int32_t* count, int32_t* partial,
            int batch, int n, int m_total, int k_total, int bucket, int tile,
-           int range, int cap, Params p, cudaStream_t stream, int lpad = 0,
-           Rows keys = Rows{{}, 1, 1}) {
+           int range, int cap, Params p, cudaStream_t stream) {
   constexpr int C = Test::kPerWarp;
-  if (lpad == 0) lpad = bucket;
-  if (batch < 1 || n < 1 || m_total < 1 || bucket < 1 || lpad < 32 ||
-      lpad % 32 || lpad < bucket || lpad - bucket >= 32 ||
+  if (batch < 1 || n < 1 || m_total < 1 || bucket < 32 || bucket % 32 ||
       (long long)k_total * bucket < n || tile < C || tile > kMaxTile ||
       tile % C || kWarps % (tile / C) || range < 1 ||
-      (range > 1 && (long long)range * lpad > kMaxStageCols) ||
-      keys.chunk < 1 || keys.chunks < 1 || keys.chunks > kMaxChunks)
+      (range > 1 && (long long)range * bucket > kMaxStageCols))
     return (int)cudaErrorInvalidValue;
   const int nb = (n + bucket - 1) / bucket;
   const int nranges = (nb + range - 1) / range;
   const int tiles = (m_total + tile - 1) / tile;
   const dim3 grid(tiles * nranges, batch);
-  const int stride = range * lpad;
+  const int stride = range * bucket;
   const size_t smem =
       3 * (size_t)(stride <= kMaxStageCols ? stride : kWinCols) * sizeof(float);
-  if (lpad <= kSegCols)
+  if (bucket <= kSegCols)
     bucket_scan_kernel<Test, Pick, false><<<grid, kThreads, smem, stream>>>(
         xyz, frames, centers, seed, idx, partial, n, m_total, k_total, bucket,
-        lpad, tile, range, nranges, p, keys);
+        tile, range, nranges, p);
   else
     bucket_scan_kernel<Test, Pick, true><<<grid, kThreads, smem, stream>>>(
         xyz, frames, centers, seed, idx, partial, n, m_total, k_total, bucket,
-        lpad, tile, range, nranges, p, keys);
+        tile, range, nranges, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int rows = batch * m_total;

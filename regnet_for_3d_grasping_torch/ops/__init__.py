@@ -10,16 +10,18 @@ kernels' plain PyTorch versions:
       (forward, argmax form, and the first-winner backward shared with K9;
       each in f32 and bf16, as K9's two forms)
   K5  crop.closing_region_crop           csrc/crop.cu
-      (K5, K11, K12 and K2 share the bucket scan of csrc/bucket_scan.cuh, grid
-      by bucket_scan.scan_grid: a scan and a fill, two launches a call)
+      (K5, K11 and K2 share the bucket scan of csrc/bucket_scan.cuh, grid by
+      bucket_scan.scan_grid: a scan and a fill, two launches a call)
   K6-K9  slab.*                          csrc/slab_select.cu,
                                          three_nn_slab.cu, gather_max_slab.cu
       (K6 and K7 build their span table and fill their empty slots on the
       card: three launches a call)
   K10 fps.fps_grouped                    csrc/fps.cu (K1's kernel, slices)
   K11 group.group_regions_fused          csrc/group.cu (no model path)
-  K12 group.group_regions_chunked        csrc/group.cu (the served grouping,
-      the JAX package's chunked path, on the same bucket scan)
+  K12 group.group_regions_chunked        csrc/grid_group.cu (the served
+      grouping, the JAX package's chunked path: on a cell grid over the
+      cloud, a build and a query, or for a call of few pairs one direct
+      launch; group.route picks)
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; ``_cuda.launches`` counts the kernel launches.

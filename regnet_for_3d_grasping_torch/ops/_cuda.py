@@ -68,9 +68,9 @@ SIGNATURES = {
     "group_regions": ("group", "regnet_group_regions",
                       (_P, _P, _U, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _F, _P)),
-    "group_regions_chunked": ("group", "regnet_group_regions_chunked",
-                              (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P)),
+    "group_regions_chunked": ("grid_group", "regnet_group_regions_chunked",
+                              (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P)),
     "gather_max_argmax": ("gather_max", "regnet_gather_max_argmax",
                           (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "gather_max_backward": ("gather_max", "regnet_gather_max_backward",
@@ -106,12 +106,6 @@ QUERIES = {
     "group_regions_per_warp": ("group", "regnet_group_regions_per_warp", ()),
     "group_regions_stage_cols": ("group", "regnet_group_regions_stage_cols",
                                  ()),
-    "group_regions_chunked_per_warp": (
-        "group", "regnet_group_regions_chunked_per_warp", ()),
-    "group_regions_chunked_stage_cols": (
-        "group", "regnet_group_regions_chunked_stage_cols", ()),
-    "group_regions_chunked_max_chunks": (
-        "group", "regnet_group_regions_chunked_max_chunks", ()),
     "crop_per_warp": ("crop", "regnet_crop_per_warp", ()),
     "crop_stage_cols": ("crop", "regnet_crop_stage_cols", ()),
 }

@@ -1,6 +1,6 @@
-"""The grid of the center-tiled bucket scan that K11 and K12
-(``ops/group.py``), K5 (``ops/crop.py``) and K2 (``ops/ball_query.py``)
-share (``csrc/bucket_scan.cuh``).
+"""The grid of the center-tiled bucket scan that K11 (``ops/group.py``), K5
+(``ops/crop.py``) and K2 (``ops/ball_query.py``) share
+(``csrc/bucket_scan.cuh``).
 
 A block of 8 warps owns a tile of centers, C per warp, and a range of
 buckets whose columns it stages in shared memory; a fill pass then sums the
@@ -22,8 +22,7 @@ BLOCKS_PER_SM = 8
 
 
 def scan_grid(batch: int, m: int, n: int, k: int, bucket: int, sms: int,
-              per_warp: int, stage_cols: int, staged: int | None = None
-              ) -> tuple:
+              per_warp: int, stage_cols: int) -> tuple:
     """(tile, range): centers and buckets per block for `batch` clouds of
     `n` columns in `k` buckets of `bucket`, `m` centers each, `per_warp`
     centers per warp, on a card of `sms` SMs.  The largest tile (8 warps'
@@ -32,17 +31,13 @@ def scan_grid(batch: int, m: int, n: int, k: int, bucket: int, sms: int,
     give about `BLOCKS_PER_SM` blocks per SM and fit `stage_cols` staged
     columns; where no tile fills the card, the smallest, one bucket a block
     (the most blocks).  A bucket wider than `stage_cols` takes a block of
-    its own, which stages it in windows.  `staged`: the slots a bucket
-    takes in shared memory, `bucket` rounded up to a multiple of 32 (K12,
-    `staged_width`); by default `bucket`, which must be one."""
-    lp = bucket if staged is None else staged
-    if (k * bucket < n or lp % 32 or lp < 32 or bucket < 1
-            or not bucket <= lp < bucket + 32):
+    its own, which stages it in windows.  `bucket` must be a positive
+    multiple of 32."""
+    if k * bucket < n or bucket % 32 or bucket < 32:
         raise ValueError(f"bucket scan: K={k} buckets of L={bucket} must "
-                         f"cover N={n}, staged {lp} slots apart, a positive "
-                         f"multiple of 32 less than L + 32")
+                         f"cover N={n}, L a positive multiple of 32")
     nb = -(-n // bucket)                 # buckets that hold a column
-    r_max = max(1, min(nb, stage_cols // lp))
+    r_max = max(1, min(nb, stage_cols // bucket))
     for groups in (8, 4, 2, 1):
         tile = groups * per_warp
         tiles = batch * -(-m // tile)
@@ -52,13 +47,6 @@ def scan_grid(batch: int, m: int, n: int, k: int, bucket: int, sms: int,
     return per_warp, 1
 
 
-def staged_width(bucket: int) -> int:
-    """The slots a bucket of `bucket` columns takes when the kernel stages
-    it: `bucket` rounded up to a multiple of 32 (K12's buckets of ceil(N /
-    K) columns)."""
-    return -(-bucket // 32) * 32
-
-
 def ranges(n: int, bucket: int, rng: int) -> int:
     """Bucket ranges of a grid: the partial counts per center."""
     return -(-(-(-n // bucket)) // rng)
@@ -66,19 +54,18 @@ def ranges(n: int, bucket: int, rng: int) -> int:
 
 def limits(kernel: str, device: torch.device) -> tuple:
     """(centers per warp, most staged columns) of `kernel` ("group_regions",
-    "group_regions_chunked", "crop" or "ball_query"), from its library's
-    uncounted queries."""
+    "crop" or "ball_query"), from its library's uncounted queries."""
     return (_cuda.constant(f"{kernel}_per_warp", device),
             _cuda.constant(f"{kernel}_stage_cols", device))
 
 
 def scan_args(kernel: str, xyz: torch.Tensor, m: int, k: int,
-              bucket: int, staged: int | None = None) -> tuple:
+              bucket: int) -> tuple:
     """(tile, range, partial counts [B, m, ranges] int32) of one call of
     `kernel` on xyz's card."""
     B, N, _ = xyz.shape
     tile, rng = scan_grid(B, m, N, k, bucket, _cuda.sm_count(xyz.device),
-                          *limits(kernel, xyz.device), staged)
+                          *limits(kernel, xyz.device))
     partial = torch.empty(B, m, ranges(N, bucket, rng), dtype=torch.int32,
                           device=xyz.device)
     return tile, rng, partial
