@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the ten CUDA sources (twenty-one kernel entry points) of
+2. build: the eleven CUDA sources (twenty-five kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -66,7 +66,17 @@ result unless every phase passed):
    says proven); the slab FP3 layer runs once with CUDA's sync debug mode
    set to raise.  And once, on a cloud scaled past the slab 3-NN's bound,
    the refused certificate and the FP layer's fallback to the full scan,
-   counted on the card.  (a) K8 flat (``three_nn_slab(flat=True)``) at
+   counted on the card.  K13a-d, BatchNorm + ReLU (`batch_norm_kernels`),
+   at SA1's shapes at serving (327,680 x 256) and in training (3,932,160
+   x 128 and x 256), a head's stem (4,000 x 1,024), score_bn (C = 1) and
+   the heads' C = 2, 4, 10 and 40, f32 and bf16, train, eval and frozen:
+   K13b bit-equal to the plain version given the same statistics, K13d
+   given the same coefficients; K13a and K13c within `BN_ULPS` of the f64
+   sums and within their stated tolerances of torch's f32 ones, dx within
+   `BN_DX_TOL`; every kernel twice, bit-equal; the module against its
+   written-out chain on the card (`bn_module_check`), one launch of each
+   kernel; times beside the bound and ``torch.nn.functional.batch_norm``
+   (+ ``relu``), forward and backward.  (a) K8 flat (``three_nn_slab(flat=True)``) at
    serving and at 12 training clouds, where its spans sum past G (the
    bounded grid) and where the clamp cut spans (flat differs from
    bounded), against its plain version bit for bit, timed beside the
@@ -76,7 +86,9 @@ result unless every phase passed):
 4. the full-scan path: the port's infer CLI, with its evaluation, on 3
    tabletop clouds with the trained weights (``weights/r5_real_e100.npz``),
    the kernel launch counters reset just before and read just after (the
-   full-scan paths, serving and training, launch K12 and no K11);
+   full-scan paths, serving and training, launch K12 and no K11; every
+   serving forward K13b once a BatchNorm, `BN_LAYERS`, a training step
+   each of K13a-d once a BatchNorm);
    (d) every forward of every serving path draws the same seeds (C1), and
    the first cloud's pickled sets are the CPU's `eval_test` of its raw
    sets;
@@ -98,7 +110,8 @@ result unless every phase passed):
    the queries that failed inside and outside them;
 10. one training step at batch 2 on the card and on the CPU with the same
     weights and seeds and dropout off, with the native GEMMs and BatchNorm
-    statistics and again with both summed in f64 on both sides:
+    statistics and again with both summed in f64 on both sides (on the
+    card K13a's own f64 sums; the card launches K13 in both):
     selections equal, loss within 1e-4, the gradients' cosines at least
     0.99, and, without the summation orders, the gradients of the score
     and proposal heads within 2 % of their largest entry and that of SA1's
@@ -159,7 +172,8 @@ result unless every phase passed):
    --profile-dir`` (4 native batches, 4 augmented, a trace naming the
    port's kernels) and ``--remat`` (after 4 steps bit-equal to phase 8's
    run, its peak memory and step times beside phase 8's), each with phase
-   8's launch counts;
+   8's launch counts (``--remat``: K13a and K13b once more for each of the
+   `BN_REMAT` BatchNorms it recomputes);
 5., 7., 13., 14. one forward of each serving path (full scan, slab, bf16
    full scan, ``--fast``; and phase (f)'s five) on the card and on the CPU
    (plain versions, the CPU twin of the bf16 GEMM) with the same seeds and
@@ -2294,9 +2308,11 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
     """One refine-stage training step at batch 2 on the card and on the CPU
     (plain versions), same initial weights, batch and seeds, dropout off;
     twice: with the native GEMMs and BatchNorm statistics, and with both
-    summed in f64 on both sides (`f64_dense`, `f64_batch_statistics`),
-    which takes the summation orders out, as the CPU tests of the bf16
-    step do.  A unit whose pre-activation lies within the native sums'
+    summed in f64 on both sides (`f64_dense` on both; on the CPU
+    `f64_batch_statistics`, on the card K13a, whose statistics are those
+    f64 sums up to their order), which takes the summation orders out, as
+    the CPU tests of the bf16 step do.  The card's side launches K13 once
+    a BatchNorm in each recipe.  A unit whose pre-activation lies within the native sums'
     rounding of 0 sits on one side of a ReLU on the card and on the other
     on the CPU, and such a flip moves a head's gradient by several % of
     its largest entry (the CPU's own f32 step lies 0.02-10 % from its f64
@@ -2320,6 +2336,7 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
             R.center_num, R.num_points, R.group_num))),
         crop_seeds=[list(range(50, 50 + region.crop_seed_count(
             R.center_num, R.num_points, R.gripper_num)))])
+    from regnet_for_3d_grasping_torch.ops import _cuda
     runs = {}
     for recipe in ("native", "f64 sums"):
         for name in ("cuda", "cpu"):
@@ -2330,6 +2347,7 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
                     stack.enter_context(replaced(
                         layers, "batch_statistics", f64_batch_statistics))
                 model = build_model(cfg, 5, name).train()
+                _cuda.reset_launches()
                 t0 = time.perf_counter()
                 out, total, metrics = trainer.forward_losses(
                     model, trainer.device_batch(batch, name), "refine", **kw)
@@ -2338,6 +2356,13 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
             print(f"training step on {name} ({recipe}): "
                   f"{time.perf_counter() - t0:.1f}s, loss "
                   f"{float(total.detach()):.6f}")
+            if name == "cuda":
+                # the card's BatchNorms run K13 in both recipes: K13a sums
+                # in f64 itself, so the patched `batch_statistics` (the
+                # plain statistics) reaches the CPU's side alone
+                got = {k: _cuda.launches[k] for k in BN_STEP}
+                check(got == BN_STEP, f"training step on the card "
+                      f"({recipe}): K13 launched {got}, expected {BN_STEP}")
     # a score that lies within rounding of score_thre on one device and not
     # on the other changes the FPS mask, and with it some centers: so the
     # selections must agree on 97 % of their entries, and loss and gradients
@@ -2725,10 +2750,11 @@ def training_phases(dev) -> dict:
     # (64 x 25,600 pairs are under its kernel's threshold), as in training
     n_val = 12
     val = {"fps": 4, "ball_query": 1, "three_nn": 1,
-           "group_regions_chunked": 1, "group_regions": 0, "gather_max": 2}
+           "group_regions_chunked": 1, "group_regions": 0, "gather_max": 2,
+           **BN_EVAL}
     full_step = {"fps": 4, "ball_query": 1, "three_nn": 1,
                  "group_regions_chunked": 1, "group_regions": 0,
-                 "gather_max_argmax": 2, "gather_max_backward": 2}
+                 "gather_max_argmax": 2, "gather_max_backward": 2, **BN_STEP}
     plain = {}
     with tempfile.TemporaryDirectory() as tmp:
         train_full = train(["--synthetic-scenes", "60"], tmp, "full-scan",
@@ -2739,7 +2765,8 @@ def training_phases(dev) -> dict:
                  str(FPS_GROUPS)], tmp, "slab", n_val,
                 {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
                  "three_nn_slab": 1, "three_nn": 1,
-                 "gather_max_slab_argmax": 2, "gather_max_backward": 2}, val)
+                 "gather_max_slab_argmax": 2, "gather_max_backward": 2,
+                 **BN_STEP}, val)
         probe.report()
         # 10. one training step on the card and on the CPU
         train_step_card_vs_cpu(tmp, dev)
@@ -2750,8 +2777,8 @@ def training_phases(dev) -> dict:
             ["--bf16"], tmp, "bf16-full-scan", n_val,
             {"fps": 4, "ball_query": 1, "three_nn": 1,
              "group_regions_chunked": 1, "group_regions": 0,
-             "gather_max_argmax_bf16": 2, "gather_max_backward_bf16": 2},
-            val)
+             "gather_max_argmax_bf16": 2, "gather_max_backward_bf16": 2,
+             **BN_STEP}, val)
         with SlabNNProbe() as probe:
             bf16_slab = train(
                 ["--bf16", "--slab-cell", str(SLAB_CELL), "--fps-groups",
@@ -2759,7 +2786,7 @@ def training_phases(dev) -> dict:
                 {"fps_grouped": 1, "fps": 3, "group_slab": 2, "crop_slab": 1,
                  "three_nn_slab": 1, "three_nn": 1,
                  "gather_max_slab_argmax_bf16": 2,
-                 "gather_max_backward_bf16": 2}, val)
+                 "gather_max_backward_bf16": 2, **BN_STEP}, val)
         probe.report()
         # (g) the train CLI's flags that no other phase drives
         t0 = time.perf_counter()
@@ -2772,8 +2799,16 @@ def training_phases(dev) -> dict:
 
 def serving_wants() -> dict:
     """The launches of one forward on each serving path (full scan, slab,
-    bf16 full scan, `--fast`), by kernel."""
-    f32_zero = dict.fromkeys(TRAIN_KERNELS + BF16_KERNELS, 0)
+    bf16 full scan, `--fast`), by kernel: K13b once a BatchNorm (the
+    served model has `BN_LAYERS`)."""
+    from regnet_for_3d_grasping_torch.config import infer_config
+    from regnet_for_3d_grasping_torch.models.regnet import REGNet
+    from regnet_for_3d_grasping_torch.nn.layers import BatchNorm
+    n_bn = sum(isinstance(m, BatchNorm)
+               for m in REGNet(infer_config()).modules())
+    check(n_bn == BN_LAYERS, f"the served model has {n_bn} BatchNorms, "
+          f"expected {BN_LAYERS}")
+    f32_zero = dict.fromkeys(TRAIN_KERNELS + BF16_KERNELS, 0) | BN_EVAL
     full_want = {"fps": 4, "ball_query": 1, "three_nn": 1, "gather_max": 2,
                  "crop": 1, "group_regions_chunked": 1, "group_regions": 0,
                  **dict.fromkeys(SLAB_KERNELS, 0), **f32_zero}
@@ -3093,8 +3128,9 @@ def training_knob_phase(tmp, plain: dict, n_val: int, step_want: dict,
     from the native loader, augmented; a trace naming the port's kernels);
     `--remat` against phase 8's run without it (`plain`): parameters and
     statistics after the epoch's 4 steps bit-equal, losses equal, peak
-    memory and step times of both.  Each run's launches as phase 8's:
-    remat relaunches no kernel.  Returns the launches by run."""
+    memory and step times of both.  Each run's launches as phase 8's, but
+    that remat's recompute launches K13a and K13b once more for each
+    BatchNorm of the SA and FP layers.  Returns the launches by run."""
     import re
     from regnet_for_3d_grasping_torch.data import augment, native_loader
     from regnet_for_3d_grasping_torch.eval import evaluator
@@ -3167,8 +3203,10 @@ def training_knob_phase(tmp, plain: dict, n_val: int, step_want: dict,
           f"names the port's kernels {sorted(found)}")
 
     keep = {}
-    paths["train_remat"] = train(["--remat"], tmp, "remat", n_val,
-                                 step_want, val_want, keep)
+    paths["train_remat"] = train(
+        ["--remat"], tmp, "remat", n_val,
+        step_want | {k: step_want[k] + BN_REMAT
+                     for k in ("bn_stats", "bn_apply")}, val_want, keep)
     a, b = plain["res"], keep["res"]
     check([s["loss"] for s in a["steps"]] == [s["loss"] for s in b["steps"]],
           "(g) --remat changed the losses")
@@ -3494,11 +3532,11 @@ def suite_phase(out_dir: Path) -> dict:
 
 # phase (j): each item's launches in one forward on the card
 LIBRARY_LAUNCHES = {
-    "msg_sa1": {"fps": 1, "ball_query": 2},
-    "avg_sa1": {"fps": 1, "ball_query": 1},
-    "edge_sa1": {"fps": 1, "ball_query": 1},
-    "edge_sa1_exact": {"fps": 1, "ball_query": 0},
-    "edge_fp3": {"three_nn": 1},
+    "msg_sa1": {"fps": 1, "ball_query": 2, "bn_apply": 6},
+    "avg_sa1": {"fps": 1, "ball_query": 1, "bn_apply": 3},
+    "edge_sa1": {"fps": 1, "ball_query": 1, "bn_apply": 3},
+    "edge_sa1_exact": {"fps": 1, "ball_query": 0, "bn_apply": 3},
+    "edge_fp3": {"three_nn": 1, "bn_apply": 3},
     "two_scales_and_crop": {},
 }
 LIBRARY_REPS = 3
@@ -4048,6 +4086,352 @@ def dp_phases(wants: dict, solo_s: dict | None) -> tuple:
     return paths, found
 
 
+# --- K13: BatchNorm + ReLU (ops/batch_norm, csrc/batch_norm.cu) -------------
+
+# BatchNorm modules a forward runs (`infer_config()` and `train_config()`
+# alike): SA1-3 3 x 3, FP1-3 2 + 2 + 3, the seg MLP 4, score_bn, the GRN
+# head 7, the refine head 5; 16 of them inside the SA and FP layers, which
+# `--remat` recomputes in the backward
+BN_LAYERS, BN_REMAT = 33, 16
+# K13's launches in a forward in eval mode (serving, validation) and in a
+# training step: each BatchNorm once
+BN_EVAL = {"bn_stats": 0, "bn_apply": BN_LAYERS, "bn_backward_reduce": 0,
+           "bn_backward_apply": 0}
+BN_STEP = dict.fromkeys(BN_EVAL, BN_LAYERS)
+JAX_BN = "regnet_for_3d_grasping_tpu/nn/layers.py"
+BN_REPLACES = {
+    "bn_stats": JAX_BN + ":39-42 (flax nn.BatchNorm's batch statistics and "
+                "running update, fused by XLA)",
+    "bn_apply": JAX_BN + ":39-45 (flax nn.BatchNorm's normalisation and "
+                "nn.relu, fused by XLA)",
+    "bn_backward_reduce": JAX_BN + ":39-45 (the VJP of flax nn.BatchNorm + "
+                          "nn.relu: its reductions)",
+    "bn_backward_apply": JAX_BN + ":39-45 (the VJP of flax nn.BatchNorm + "
+                         "nn.relu: dx)",
+}
+# (label, rows, channels, modes, relu, the modes timed): the paths' shapes
+# (SA1's at serving and at batch 12, a head's stem, score_bn), timed, and
+# the heads' odd channel counts
+BN_CASES = (
+    ("training SA1 layer 2: 3,932,160 x 256", 3932160, 256, ("train",),
+     True, ("train",)),
+    ("serving SA1 layer 2: 327,680 x 256", 327680, 256, ("eval", "train"),
+     True, ("eval",)),
+    ("training SA1 layer 0: 3,932,160 x 128", 3932160, 128,
+     ("train", "frozen"), True, ("train",)),
+    ("head stem: 4,000 x 1,024", 4000, 1024, ("eval", "train"), True,
+     ("eval", "train")),
+    ("score_bn, serving: 25,600 x 1", 25600, 1, ("eval",), False,
+     ("eval",)),
+    ("score_bn, training: 307,200 x 1", 307200, 1, ("train",), False,
+     ("train",)),
+    ("GRN cls3: 4,000 x 4", 4000, 4, ("eval", "train"), False, ()),
+    ("refine cls2: 4,000 x 2", 4000, 2, ("train", "frozen"), False, ()),
+    ("refine reg2: 4,000 x 10", 4000, 10, ("eval", "train"), False, ()),
+    ("GRN reg3: 4,000 x 40", 4000, 40, ("train",), False, ()),
+    ("training head reg1: 768 x 256", 768, 256, ("train", "frozen"), True,
+     ()),
+)
+# K13's tolerances.  K13a against the f64 statistics rounded once: 2 f32
+# ulps (the f64 sums' order); against torch's f32 statistics (summed in
+# f32): the mean within 1e-5 and the variance within 1e-4 of E[x^2].
+# K13c against f64 sums of the plain g' and g' * (x - mean): 2 ulps and
+# 1e-12 of the sum of the terms' magnitudes; against torch's f32 sums
+# 1e-4 of it.  K13d (through K13c's coefficients) against the plain
+# backward: f32 1e-4 of the largest |dx|, bf16 2^-7 (one bf16 rounding
+# flipped by the coefficients' last bits).  K13b and K13d given the same
+# statistics and coefficients: bit for bit.
+BN_ULPS = 2.0 ** -22
+BN_DX_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def bn_inputs(m: int, c: int, dtype, seed: int, dev) -> tuple:
+    """x and g [m, c] (each channel its own offset and scale, channel 0
+    constant where C > 1: its clamp holds the variance at 0), and the
+    parameters and running buffers, f32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=gen, device=dev)
+    off = torch.randn(c, **kw) * 2
+    scale = torch.rand(c, **kw) * 3 + 0.1
+    x = torch.randn(m, c, **kw) * scale + off
+    if c > 1:
+        x[:, 0] = 0.75
+    g = torch.randn(m, c, **kw)
+    params = [torch.rand(c, **kw) + 0.5, torch.randn(c, **kw) * 0.3,
+              off + torch.randn(c, **kw) * 0.1,
+              scale * scale * (torch.rand(c, **kw) + 0.5)]
+    return (x.to(dtype), g.to(dtype), *params)
+
+
+def ulps_apart(got, ref, slack=None) -> bool:
+    """`got` within 2 f32 ulps of `ref` (and `slack` where given)."""
+    tol = ref.abs() * BN_ULPS + (0.0 if slack is None else slack)
+    return bool(((got.double() - ref.double()).abs() <= tol).all())
+
+
+def bn_case(m, c, dtype, mode, relu, dev, timed=False) -> dict:
+    """K13a-d at one shape, dtype and mode against their plain versions
+    (`ops/batch_norm`'s, on the card), each run twice and its bits
+    compared; `timed`: each kernel's, its plain version's and the library
+    call's times.  Returns the errors (and times) by kernel."""
+    from regnet_for_3d_grasping_torch.ops import batch_norm as B
+    x, g, w, b, rm, rv = bn_inputs(m, c, dtype, m + c, dev)
+    eps, train = 1e-5, mode == "train"
+    label = f"[{m} x {c}] {str(dtype)[6:]} {mode}{' relu' if relu else ''}"
+    out = {}
+    if train:
+        st = B.stats(x)
+        check(bit_equal(B.stats(x), st), f"K13a not repeatable ({label})")
+        xd = x.double()
+        mean64 = xd.mean(0)
+        ref64 = torch.stack([mean64, (xd * xd).mean(0) - mean64 * mean64])
+        check(ulps_apart(st, ref64.float(),
+                         (xd * xd).mean(0) * 2.0 ** -52 * 4),
+              f"K13a is not the f64 statistics ({label}): "
+              f"{max_err(st, ref64.float())}")
+        plain = B.stats_plain(x)
+        msq = (xd * xd).mean(0)
+        check(bool(((st[0] - plain[0]).abs() <= 1e-5 * msq.sqrt()).all()
+                   and ((st[1] - plain[1]).abs() <= 1e-4 * msq).all()),
+              f"K13a differs from the f32 statistics ({label})")
+        # the running update in place, against torch's on the same batch
+        rm1, rv1 = rm.clone(), rv.clone()
+        B.stats(x, rm1, rv1, 0.1)
+        rm2 = rm.clone().mul_(0.9).add_(st[0], alpha=1.0 - 0.9)
+        rv2 = rv.clone().mul_(0.9).add_(st[1].clamp(min=0.0),
+                                        alpha=1.0 - 0.9)
+        check(ulps_apart(rm1, rm2, 1e-30) and ulps_apart(rv1, rv2, 1e-30),
+              f"K13a's running update differs ({label})")
+        out["bn_stats"] = {"max_abs_err": max_err(st, ref64.float()),
+                           "vs_f32_plain": max_err(st, plain)}
+        mean, var = st[0], st[1]
+    else:
+        mean, var = rm, rv
+    args = (mean, var, w, b, eps, train, relu)
+    y = B.apply(x, *args)
+    check(bit_equal(y, B.apply_plain(x, *args)) and bit_equal(
+        B.apply(x, *args), y), f"K13b is not the plain version bit for bit "
+        f"({label})")
+    out["bn_apply"] = {"max_abs_err": 0.0}
+    coef = B.backward_reduce(g, x, *args)
+    check(bit_equal(B.backward_reduce(g, x, *args), coef),
+          f"K13c not repeatable ({label})")
+    gz = B.passed(g, x, *args).float()
+    xm = (x.float() - mean) * gz
+    s64 = (gz.double().sum(0), xm.double().sum(0))
+    mag = (gz.double().abs().sum(0), xm.double().abs().sum(0))
+    r = torch.rsqrt((var.clamp(min=0.0) if train else var) + eps)
+    check(ulps_apart(coef[1], s64[0].float(), 1e-12 * mag[0])
+          and ulps_apart(coef[0], s64[1].float() * r,
+                         1e-12 * mag[1] * r.double()),
+          f"K13c is not the f64 sums ({label})")
+    plain = B.backward_reduce_plain(g, x, *args)
+    check(bool(((coef[1] - plain[1]).abs() <= 1e-4 * mag[0]).all()
+               and ((coef[0] - plain[0]).abs() <= 1e-4 * mag[1] * r).all()),
+          f"K13c differs from the f32 sums ({label})")
+    out["bn_backward_reduce"] = {
+        "max_abs_err": max_err(coef[:2], torch.stack([s64[1].float() * r,
+                                                      s64[0].float()])),
+        "vs_f32_plain": max_err(coef, plain)}
+    dx = B.backward_apply(g, x, *args[:4], coef, *args[4:])
+    check(bit_equal(B.backward_apply(g, x, *args[:4], coef, *args[4:]), dx)
+          and bit_equal(dx, B.backward_apply_plain(g, x, *args[:4], coef,
+                                                   *args[4:])),
+          f"K13d is not the plain version bit for bit on K13c's "
+          f"coefficients ({label})")
+    ref = B.backward_apply_plain(g, x, *args[:4], plain, *args[4:])
+    err = max_err(dx, ref)
+    check(err <= BN_DX_TOL[dtype] * float(ref.abs().max()),
+          f"K13d differs from the plain backward ({label}): {err}")
+    out["bn_backward_apply"] = {"max_abs_err": err,
+                                "rel_err": err / float(ref.abs().max())}
+    print(f"K13 {label}: stats/coefficients/dx "
+          + ", ".join(f"{k} {v}" for k, v in out.items()))
+    if timed:
+        bn_times(out, x, g, w, b, rm, rv, mean, var, coef, eps, train, relu,
+                 label)
+    return out
+
+
+def bn_times(out, x, g, w, b, rm, rv, mean, var, coef, eps, train, relu,
+             label) -> None:
+    """Each kernel's time (host launch included, and with the host ahead),
+    its plain version's, its bytes (each input read once, each output
+    written once) and operations, and the library's: one
+    ``torch.nn.functional.batch_norm`` (+ ``relu``), training or eval,
+    forward (K13a: its training call; K13b: its eval call) and backward
+    (K13c and K13d: the training call's whole backward)."""
+    from regnet_for_3d_grasping_torch.ops import batch_norm as B
+    F = torch.nn.functional
+    args = (mean, var, w, b, eps, train, relu)
+    m, c = x.shape
+    vals, elt = m * c, x.element_size()
+    rm1, rv1 = rm.clone(), rv.clone()
+
+    def lib_fwd(training):
+        y = F.batch_norm(x, rm1, rv1, w, b, training, 0.1, eps)
+        return F.relu(y) if relu else y
+
+    xg = x.detach().clone().requires_grad_()
+
+    def lib_graph():
+        y = F.batch_norm(xg, rm1.clone(), rv1.clone(), w, b, True, 0.1, eps)
+        return F.relu(y) if relu else y
+
+    graph = []
+
+    def lib_bwd():
+        if not graph:
+            graph.append(lib_graph())
+        return torch.autograd.grad(graph[0], xg, g, retain_graph=True)
+
+    calls = {
+        "bn_apply": (lambda: B.apply(x, *args),
+                     lambda: B.apply_plain(x, *args),
+                     2 * vals * elt + 3 * c * 4, 4 * vals,
+                     lambda: lib_fwd(train)),
+        "bn_backward_reduce": (
+            lambda: B.backward_reduce(g, x, *args),
+            lambda: B.backward_reduce_plain(g, x, *args),
+            2 * vals * elt + 8 * c * 4, 8 * vals, lib_bwd),
+        "bn_backward_apply": (
+            lambda: B.backward_apply(g, x, *args[:4], coef, *args[4:]),
+            lambda: B.backward_apply_plain(g, x, *args[:4], coef, *args[4:]),
+            3 * vals * elt + 6 * c * 4, (9 if train else 5) * vals,
+            lib_bwd)}
+    if train:
+        calls["bn_stats"] = (lambda: B.stats(x, rm1, rv1, 0.1),
+                             lambda: B.stats_plain(x),
+                             vals * elt + 6 * c * 4, 3 * vals,
+                             lambda: lib_fwd(True))
+    for name, (kernel, plain, bytes_, ops, lib) in calls.items():
+        try:
+            lib_row = {"library_ms": cuda_ms(lib, 10),
+                       "library_device_ms": device_ms(lib, 10)}
+        except (RuntimeError, NotImplementedError) as e:
+            lib_row = {"library_ms": None, "library_none":
+                       f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"}
+        out[name] |= {"ms": cuda_ms(kernel, 10),
+                      "device_ms": device_ms(kernel, 10),
+                      "plain_ms": cuda_ms(plain, 3), "bytes": bytes_,
+                      "ops": ops} | lib_row
+        b_ms = bound(bytes_, ops)[0]
+        print(f"  {name} {label}: device {out[name]['device_ms']:.4f} ms "
+              f"(bound {b_ms:.4f}, share {b_ms / out[name]['device_ms']:.3f}"
+              f"), call {out[name]['ms']:.4f}, plain "
+              f"{out[name]['plain_ms']:.4f}, library "
+              f"{lib_row.get('library_device_ms')}")
+
+
+def bn_module_check(m, c, dtype, relu, dev, frozen=False) -> None:
+    """The module on the card (`nn/layers.BatchNorm`, K13) against its
+    written-out chain on the card with autograd, train mode: y and dx
+    (but where the two ReLUs differ, at most 1e-5 of the entries) within
+    `BN_DX_TOL` of the largest entry, dweight and dbias within 1e-4 of
+    their terms' magnitudes (K13a's statistics are the f64 sums', the
+    chain's torch's f32 ones), the running buffers within a tenth of
+    K13a's tolerance against torch's statistics, and one launch of each
+    kernel.  `frozen` (`nn/freezer.frozen_bn`): on the running statistics,
+    left unchanged, and no K13a."""
+    from regnet_for_3d_grasping_torch.nn import layers
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    x, g, w, b, rm, rv = bn_inputs(m, c, dtype, 7 * m + c, dev)
+    mods = []
+    for _ in range(2):
+        bn = layers.BatchNorm(c).to(dev).train()
+        bn.frozen = frozen
+        with torch.no_grad():
+            for t, v in zip((bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var), (w, b, rm, rv)):
+                t.copy_(v)
+        mods.append(bn)
+    xs = [x.clone().requires_grad_() for _ in mods]
+    _cuda.reset_launches()
+    y = mods[0](xs[0], relu)
+    y.backward(g)
+    torch.cuda.synchronize()
+    got = {k: _cuda.launches[k] for k in BN_REPLACES}
+    want = dict.fromkeys(BN_REPLACES, 1) | {"bn_stats": int(not frozen)}
+    check(got == want, f"the module's launches {got}, expected {want}")
+    y_ref = mods[1].written_out(xs[1], relu)
+    y_ref.backward(g)
+    label = (f"module [{m} x {c}] {str(dtype)[6:]}{' relu' if relu else ''}"
+             f"{' frozen' if frozen else ''}")
+    # dweight and dbias against the magnitude of their terms (a sum of
+    # millions in f32 on the chain's side)
+    xf, gf = x.float(), g.float().abs()
+    mean, var = xf.mean(0), xf.var(0, unbiased=False)
+    mag_w = (gf * (xf - mean).abs()).sum(0) * torch.rsqrt(var + 1e-5)
+    # where the pre-activation lies within the statistics' rounding of 0
+    # the two sides' ReLUs may differ: dx is compared elsewhere
+    flips = ((y > 0) != (y_ref > 0) if relu
+             else torch.zeros_like(y, dtype=torch.bool))
+    share = float(flips.float().mean())
+    print(f"K13 {label}: {int(flips.sum())} ReLU flips (share {share:.2e})")
+    check(share <= 1e-5, f"K13 {label}: ReLU flips {share:.2e}")
+    dx = torch.where(flips, xs[1].grad, xs[0].grad)
+    for what, a, r, scale in (
+            ("y", y, y_ref, None), ("dx", dx, xs[1].grad, None),
+            ("dweight", mods[0].weight.grad, mods[1].weight.grad, mag_w),
+            ("dbias", mods[0].bias.grad, mods[1].bias.grad, gf.sum(0))):
+        a, r = a.detach().double(), r.detach().double()
+        if scale is None:
+            err = float((a - r).abs().max() / r.abs().max().clamp(min=1e-30))
+            tol = BN_DX_TOL[dtype]
+        else:
+            err = float(((a - r).abs()
+                         / scale.double().clamp(min=1e-30)).max())
+            tol = 1e-4
+        print(f"K13 {label}: {what} within {err:.3e} of the written-out "
+              f"chain's ({'largest entry' if scale is None else 'terms'})")
+        check(err <= tol, f"K13 {label}: {what} {err:.3e} from the "
+              f"written-out chain")
+    if frozen:
+        check(torch.equal(mods[0].running_mean, rm)
+              and torch.equal(mods[0].running_var, rv),
+              f"K13 {label}: the running statistics moved")
+        return
+    msq = (xf * xf).mean(0)
+    check(bool(((mods[0].running_mean - mods[1].running_mean).abs()
+                <= 1e-6 * msq.sqrt() + 1e-30).all()
+               and ((mods[0].running_var - mods[1].running_var).abs()
+                    <= 1e-5 * msq + 1e-30).all()),
+          f"K13 {label}: running statistics differ")
+
+
+def batch_norm_kernels(dev, record) -> None:
+    """Phase 3 for K13a-d: every case of `BN_CASES` in f32 and bf16
+    against the plain versions (`bn_case`), the module against its
+    written-out chain (`bn_module_check`), and one record a kernel with
+    the main shape first."""
+    rows = {k: [] for k in BN_REPLACES}
+    for label, m, c, modes, relu, timed_modes in BN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode in modes:
+                timed = mode in timed_modes
+                res = bn_case(m, c, dtype, mode, relu, dev, timed)
+                if not timed:
+                    continue
+                for k, r in res.items():
+                    if "ms" in r:
+                        rows[k].append({"shape": f"{label}, "
+                                        f"{str(dtype)[6:]} {mode}", **r})
+    for m, c, dtype, relu in ((3932160, 128, torch.float32, True),
+                              (3932160, 128, torch.bfloat16, True),
+                              (4000, 1024, torch.float32, True),
+                              (307200, 1, torch.float32, False),
+                              (768, 10, torch.bfloat16, False)):
+        bn_module_check(m, c, dtype, relu, dev)
+    bn_module_check(4000, 256, torch.bfloat16, True, dev, frozen=True)
+    # the main shapes first: K13b's serving SA1 in f32 eval, the others'
+    # training SA1 in f32
+    main = {"bn_apply": BN_CASES[1][0] + ", float32 eval"}
+    for k, r in rows.items():
+        first = main.get(k, BN_CASES[0][0] + ", float32 train")
+        r.sort(key=lambda row: row["shape"] != first)
+        record_rows(record, k, CSRC + "batch_norm.cu", BN_REPLACES[k], r)
+
+
 def main() -> None:
     # --- 1. environment ---------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4329,6 +4713,8 @@ def main() -> None:
                 JAX_OPS + "pooling.py:285 and slab.py:1090 on bf16 g (the "
                 "XLA scatter-add in g.dtype)",
                 bf16_backward_rows + slab_rows_bf16)
+    # K13a-d, BatchNorm + ReLU, at the paths' shapes
+    batch_norm_kernels(dev, record)
     check(set(results) == set(_cuda.KERNELS),
           "not every kernel of the port was held against its plain version")
     if "--kernels-only" in sys.argv[1:]:
@@ -4427,7 +4813,10 @@ def main() -> None:
                  "gather_max_backward_bf16": "train_bf16_full_scan",
                  "gather_max_slab_argmax_bf16": "train_bf16_slab",
                  "three_nn_slab_flat": "k8_flat_entry",
-                 "group_regions": "k11_entry"}
+                 "group_regions": "k11_entry",
+                 "bn_stats": "train_full_scan",
+                 "bn_backward_reduce": "train_full_scan",
+                 "bn_backward_apply": "train_full_scan"}
     for k in results:
         results[k]["launches"] = paths[main_path[k]][k]
         results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}

@@ -18,8 +18,10 @@ untraced forwards; overlapping kernels would count twice), the
 device-to-host copies per forward (in slab mode one of them is the read of
 the 3-NN certificate), the forwards that fell back to the full-scan 3-NN,
 the device time per forward of the ten costliest kernels and of every
-kernel of ``csrc/``, and the GEMMs' share (cuBLAS's matrix-product
-kernels).
+kernel of ``csrc/``, the GEMMs' share (cuBLAS's matrix-product
+kernels), BatchNorm's kernels (K13, ``csrc/batch_norm.cu``) apart from the
+other elementwise and library kernels, and what every BatchNorm with its
+ReLU launched, by where the launch came from (`batch_norm_ranges`).
 
 With ``--train``: the training preset (25,600 points, 64 centers, batch 12,
 all three losses, freshly initialised weights; with ``--bf16``, bf16
@@ -28,13 +30,15 @@ it, on synthetic scenes made from a seed; two warm-up steps, two untraced
 steps, then one step whose forward (with the losses) and whose backward
 (with the update) are traced apart.
 It prints the step times, the peak device memory, and for each half the
-device busy time, the launches, the GEMMs' time and the five costliest
-kernels.
+device busy time, the launches, the GEMMs' time, BatchNorm's (as for a
+forward; in the backward, what the autograd nodes of BatchNorm's forward
+launched) and the five costliest kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from pathlib import Path
 
@@ -100,8 +104,8 @@ def main(argv=None) -> None:
 
     untraced = serve()
     _cuda.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with batch_norm_ranges(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_all = time.perf_counter()
         lat = serve()
         wall = (time.perf_counter() - t_all) * 1e3
@@ -132,13 +136,21 @@ def main(argv=None) -> None:
     own_ms = sum(e.self_device_time_total for e in own) / 1e3 / n
     gemm = [e for e in kernels if is_gemm(e.key)]
     gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3 / n
-    print(f"the port's own kernels {own_ms:.3f} ms, library and elementwise "
+    bn = [e for e in own if is_batch_norm(e.key)]
+    bn_ms = sum(e.self_device_time_total for e in bn) / 1e3 / n
+    print(f"the port's own kernels {own_ms:.3f} ms (BatchNorm's K13 "
+          f"{bn_ms:.3f} ms in {sum(e.count for e in bn) // n} launches, "
+          f"the others {own_ms - bn_ms:.3f}), library and elementwise "
           f"kernels {busy / n - own_ms:.3f} ms per forward, "
           f"{sum(e.count for e in kernels) // n} kernel launches per forward")
     print(f"GEMMs (cuBLAS) {gemm_ms:.3f} ms in "
           f"{sum(e.count for e in gemm) // n} launches per forward, "
           f"{gemm_ms / (busy / n):.3f} of the busy time; elementwise and "
           f"other library kernels {busy / n - own_ms - gemm_ms:.3f} ms")
+    ms, count, how = batch_norm_time(prof, forward=True)
+    print(f"BatchNorm + ReLU (every launch inside them, {how}): {ms / n:.3f} "
+          f"ms in {count / n:.1f} launches per forward, "
+          f"{ms / n / (busy / n):.3f} of the busy time")
 
 
 def is_gemm(name: str) -> bool:
@@ -148,10 +160,100 @@ def is_gemm(name: str) -> bool:
                                             "cublas", "sm90_", "nvjet"))
 
 
+def is_batch_norm(name: str) -> bool:
+    """A kernel of BatchNorm's K13 (``csrc/batch_norm.cu``)."""
+    return "bn_" in name and "_kernel" in name
+
+
+BN_RANGE, DENSE_RANGE = "regnet::batch_norm", "regnet::dense"
+
+
+@contextlib.contextmanager
+def batch_norm_ranges():
+    """Within the block, every ``nn/layers`` BatchNorm and ConvBN forward
+    runs inside a profiler range named `BN_RANGE` and every Dense inside
+    `DENSE_RANGE`, so that `batch_norm_time` can tell what BatchNorm and
+    its ReLU launched (a ConvBN's range minus its Dense's).  Only the
+    traced window pays for the ranges."""
+    from torch.profiler import record_function
+
+    from regnet_for_3d_grasping_torch.nn import layers
+    saved = {}
+    for cls, name in ((layers.ConvBN, BN_RANGE), (layers.BatchNorm, BN_RANGE),
+                      (layers.Dense, DENSE_RANGE)):
+        def forward(self, *args, _f=cls.forward, _name=name, **kwargs):
+            with record_function(_name):
+                return _f(self, *args, **kwargs)
+        saved[cls] = cls.forward
+        cls.forward = forward
+    try:
+        yield
+    finally:
+        for cls, f in saved.items():
+            cls.forward = f
+
+
+def _ancestors(e):
+    while e is not None:
+        yield e
+        e = e.cpu_parent
+
+
+def _in_batch_norm(e) -> bool:
+    """`e` lies inside a BatchNorm range and not inside its Dense's."""
+    for a in _ancestors(e):
+        if a.name == DENSE_RANGE:
+            return False
+        if a.name == BN_RANGE:
+            return True
+    return False
+
+
+def batch_norm_time(prof, forward: bool, seqs: set | None = None) -> tuple:
+    """(device ms, kernel launches, how many kernels were tied to their
+    launch) of what BatchNorm and its ReLU
+    launched in the profile `prof`: in a forward (traced within
+    `batch_norm_ranges`), the kernels whose launch lies inside a BatchNorm
+    range; in a backward, those launched by autograd nodes whose sequence
+    number is in `seqs` (`batch_norm_seqs` of the forward's profile).  A
+    kernel is tied to its launch by the correlation id it shares with the
+    runtime call."""
+    events = list(prof.events())
+    launch = {e.id: e for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and "Launch" in e.name and e.id > 0}
+    ms, count, tied = 0.0, 0, 0
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.id not in launch or "Memcpy" in e.name or \
+                "Memset" in e.name or e.name.startswith("regnet::"):
+            continue
+        tied += 1
+        r = launch[e.id]
+        mine = (_in_batch_norm(r) if forward else any(
+            a.sequence_nr in seqs and a.name.startswith("autograd::engine")
+            for a in _ancestors(r)))
+        if mine:
+            ms += e.self_device_time_total / 1e3
+            count += 1
+    return ms, count, f"{tied} kernels tied to their launch"
+
+
+def batch_norm_seqs(prof) -> set:
+    """The autograd sequence numbers of the ops inside BatchNorm ranges
+    (not inside their Dense's) of a traced forward."""
+    return {e.sequence_nr for e in prof.events()
+            if e.sequence_nr >= 0 and _in_batch_norm(e)}
+
+
 def device_kernels(prof) -> list:
-    """The profile's device-side rows, costliest first."""
+    """The profile's device-side rows, costliest first: kernels and copies,
+    not the ranges (`batch_norm_ranges`), which the card's timeline also
+    shows."""
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("regnet::")]
     return sorted(rows, key=lambda e: -e.self_device_time_total)
 
 
@@ -225,7 +327,7 @@ def _profile_train(args) -> None:
     model.train()
     opt.zero_grad()
     t0 = time.perf_counter()
-    with profile(activities=acts) as fwd:
+    with batch_norm_ranges(), profile(activities=acts) as fwd:
         _, total, _ = trainer.forward_losses(model, batch, "refine", **kw)
         torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -249,17 +351,23 @@ def _profile_train(args) -> None:
           f"fallbacks {_cuda.fallbacks['fp3_slab']}")
     mean_untraced = sum(t for t, _ in untraced) / len(untraced)
     busy_all = 0.0
+    seqs = batch_norm_seqs(fwd)
     for title, prof, wall in (("forward and losses", fwd, t1 - t0),
                               ("backward and update", bwd, t2 - t1)):
         rows = device_kernels(prof)
         busy = sum(e.self_device_time_total for e in rows) / 1e3
         busy_all += busy
         gemm = [e for e in rows if is_gemm(e.key)]
+        k13 = [e for e in own_kernels(rows) if is_batch_norm(e.key)]
+        bn_ms, bn_count, how = batch_norm_time(prof, prof is fwd, seqs)
         print(f"{title}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
               f"traced wall, {sum(e.count for e in rows)} kernel launches; "
               f"GEMMs {sum(e.self_device_time_total for e in gemm) / 1e3:.3f}"
-              f" ms in {sum(e.count for e in gemm)} launches; the five "
-              f"costliest kernels, device ms:")
+              f" ms in {sum(e.count for e in gemm)} launches; BatchNorm's "
+              f"K13 {sum(e.self_device_time_total for e in k13) / 1e3:.3f} "
+              f"ms in {sum(e.count for e in k13)} launches; BatchNorm + ReLU "
+              f"(every launch of theirs, {how}) {bn_ms:.3f} ms in "
+              f"{bn_count} launches; the five costliest kernels, device ms:")
         for e in rows[:5]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} x{e.count:<5d} "
                   f"{e.key[:90]}")

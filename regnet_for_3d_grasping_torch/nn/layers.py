@@ -10,6 +10,11 @@ axes, the variance as ``max(0, E[x^2] - E[x]^2)``, and the running update
 ``torch.nn.BatchNorm1d`` (without its batch counter), so `weights.py` maps
 the JAX variables onto it one to one.  ``module.train()`` / ``.eval()`` is
 the JAX package's ``train`` flag.
+
+On the card a BatchNorm, with its ConvBN's ReLU, runs through kernels K13
+(`ops/batch_norm.batch_norm`: statistics, normalisation + cast + ReLU, and
+their backward); the written-out chain here is their plain version, which
+the CPU runs.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from regnet_for_3d_grasping_torch.ops import batch_norm as bn_kernels
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -116,9 +123,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.frozen = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         """Normalises in at least f32 and returns `x`'s dtype (flax's
-        ``force_float32_reductions``)."""
+        ``force_float32_reductions``), then applies a ReLU where `relu`.
+        A CUDA tensor goes through K13, a CPU tensor through
+        `written_out`."""
+        if x.device.type == "cuda":
+            return bn_kernels.batch_norm(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.training and not self.frozen,
+                not _recomputing, self.momentum, self.eps, relu)
+        return self.written_out(x, relu)
+
+    def written_out(self, x: torch.Tensor, relu: bool = False
+                    ) -> torch.Tensor:
+        """The plain version, flax's BatchNorm op by op (and a ReLU), on
+        any device."""
         if self.training and not self.frozen:
             mean, var = batch_statistics(x)
             if not _recomputing:     # `remat`'s backward: updated once
@@ -131,7 +151,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean) * mul + self.bias).to(x.dtype)
+        y = ((x - mean) * mul + self.bias).to(x.dtype)
+        return torch.relu(y) if relu else y
 
 
 class ConvBN(nn.Module):
@@ -146,8 +167,7 @@ class ConvBN(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.dense(x))
-        return torch.relu(x) if self.relu else x
+        return self.bn(self.dense(x), self.relu)
 
 
 def dropout(x: torch.Tensor, p: float,

@@ -22,6 +22,10 @@ kernels' plain PyTorch versions:
       grouping, the JAX package's chunked path: on a cell grid over the
       cloud, a build and a query, or for a call of few pairs one direct
       launch; group.route picks)
+  K13 batch_norm.batch_norm              csrc/batch_norm.cu (BatchNorm +
+      ReLU, the XLA fusions of the JAX package's flax BatchNorm: K13a
+      statistics, K13b normalisation, K13c/K13d the backward; the module
+      `batch_norm`, which nn/layers.BatchNorm calls on the card)
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; ``_cuda.launches`` counts the kernel launches.
@@ -32,6 +36,7 @@ JAX package's export of that name shadows its module.
 """
 
 from regnet_for_3d_grasping_torch.ops import ball_query  # noqa: F401
+from regnet_for_3d_grasping_torch.ops import batch_norm  # noqa: F401
 from regnet_for_3d_grasping_torch.ops.distances import (  # noqa: F401
     bpdist,
     bpdist2,

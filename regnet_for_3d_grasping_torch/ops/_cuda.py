@@ -35,8 +35,8 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
-_P, _I, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_uint32)
+_P, _I, _F, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint32, ctypes.c_longlong)
 # kernel name -> (source, C entry point, argtypes); every entry point
 # returns the cudaGetLastError() after its launch, and takes the stream last
 SIGNATURES = {
@@ -91,6 +91,16 @@ SIGNATURES = {
     "gather_max_slab_argmax_bf16": (
         "gather_max_slab", "regnet_gather_max_slab_argmax_bf16",
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    # K13a-d, BatchNorm (+ ReLU): f32 or bf16 x by their `bf16` argument
+    "bn_stats": ("batch_norm", "regnet_bn_stats",
+                 (_P,) * 6 + (_L, _I, _I, _I, _I, _I, _F, _F, _I, _P)),
+    "bn_apply": ("batch_norm", "regnet_bn_apply",
+                 (_P,) * 6 + (_L, _I, _I, _I, _I, _I, _F, _I, _P)),
+    "bn_backward_reduce": ("batch_norm", "regnet_bn_backward_reduce",
+                           (_P,) * 9 + (_L, _I, _I, _I, _I, _I, _I, _F, _I,
+                                        _P)),
+    "bn_backward_apply": ("batch_norm", "regnet_bn_backward_apply",
+                          (_P,) * 8 + (_L, _I, _I, _I, _I, _I, _F, _I, _P)),
 }
 # C entry points that launch nothing (an occupancy query, the compile-time
 # constants of the bucket scan and of K3's grid), not counted; each returns
