@@ -7,7 +7,7 @@ result unless every phase passed):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off;
-2. build: the eleven CUDA sources (twenty-five kernel entry points) of
+2. build: the eleven CUDA sources (twenty-seven kernel entry points) of
    ``regnet_for_3d_grasping_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the inference paths (25,600 points, 4,000 centers; K6-K10 on a
@@ -76,7 +76,18 @@ result unless every phase passed):
    `BN_DX_TOL`; every kernel twice, bit-equal; the module against its
    written-out chain on the card (`bn_module_check`), one launch of each
    kernel; times beside the bound and ``torch.nn.functional.batch_norm``
-   (+ ``relu``), forward and backward.  (a) K8 flat (``three_nn_slab(flat=True)``) at
+   (+ ``relu``), forward and backward.  K13e-f, the set-abstraction
+   layers' max over neighbours fused into their last BatchNorm + ReLU
+   (`bn_max_kernels`), at SA1-3's serving (5,120, 1,024 and 256 groups of
+   64) and batch-12 shapes, f32 and bf16, train and eval, neighbourhoods
+   padded as ball query pads them: K13e's m and winners words bit-equal to
+   its plain version and m to K13b + ``amax``, K13f bit-equal to its plain
+   version and to ``amax``'s autograd, every kernel twice; the module
+   (`BatchNorm.relu_max`) against the parent's path, K13's BatchNorm with
+   its ReLU then ``amax``, on the card, train, eval and frozen, bit for
+   bit, one launch of each kernel; ties, -0.0, NaN, K = 1, 17, 64 and C =
+   7, 12, 40 (`bn_max_edges`); times beside the bound, the parent's pair
+   (K13b + ``amax``) and ``amax``'s backward.  (a) K8 flat (``three_nn_slab(flat=True)``) at
    serving and at 12 training clouds, where its spans sum past G (the
    bounded grid) and where the clamp cut spans (flat differs from
    bounded), against its plain version bit for bit, timed beside the
@@ -87,8 +98,10 @@ result unless every phase passed):
    tabletop clouds with the trained weights (``weights/r5_real_e100.npz``),
    the kernel launch counters reset just before and read just after (the
    full-scan paths, serving and training, launch K12 and no K11; every
-   serving forward K13b once a BatchNorm, `BN_LAYERS`, a training step
-   each of K13a-d once a BatchNorm);
+   serving forward K13b once a BatchNorm, `BN_LAYERS`, but for SA1-3's
+   last, which launch K13e (`BN_SA_MAX`), a training step K13a, K13c and
+   K13d once a BatchNorm, K13b and K13e as a forward, and K13f once an SA
+   layer);
    (d) every forward of every serving path draws the same seeds (C1), and
    the first cloud's pickled sets are the CPU's `eval_test` of its raw
    sets;
@@ -115,7 +128,11 @@ result unless every phase passed):
     selections equal, loss within 1e-4, the gradients' cosines at least
     0.99, and, without the summation orders, the gradients of the score
     and proposal heads within 2 % of their largest entry and that of SA1's
-    first layer within 15 % (`train_step_card_vs_cpu`);
+    first layer within 15 % (`train_step_card_vs_cpu`); and one step at
+    batch 2 on the card, f32 and bf16, through the fused SA max (K13e,
+    K13f) and through the parent's K13b + ``amax``: metrics, gradients,
+    updated parameters and running buffers bit-equal
+    (`fused_max_step_check`);
 15. bf16 training (``--bf16``), full scan, and 16. the run of record,
     ``--bf16 --slab-cell 0.04 --fps-groups 8``: as 8 and 9, with each step
     launching the bf16 argmax forms and the bf16 backward and no f32 pool,
@@ -172,8 +189,9 @@ result unless every phase passed):
    --profile-dir`` (4 native batches, 4 augmented, a trace naming the
    port's kernels) and ``--remat`` (after 4 steps bit-equal to phase 8's
    run, its peak memory and step times beside phase 8's), each with phase
-   8's launch counts (``--remat``: K13a and K13b once more for each of the
-   `BN_REMAT` BatchNorms it recomputes);
+   8's launch counts (``--remat``: K13a once more for each of the
+   `BN_REMAT` BatchNorms it recomputes, and K13b, or for SA1-3's last
+   K13e);
 5., 7., 13., 14. one forward of each serving path (full scan, slab, bf16
    full scan, ``--fast``; and phase (f)'s five) on the card and on the CPU
    (plain versions, the CPU twin of the bf16 GEMM) with the same seeds and
@@ -569,11 +587,15 @@ def kept_stats(index: torch.Tensor) -> dict:
 
 
 def bit_equal(got, ref) -> bool:
-    """Equal bit for bit (a max copies values: nothing may round)."""
+    """Equal bit for bit (a max copies values: nothing may round); floats
+    are compared as the integers of their width."""
     if got.dtype != ref.dtype or got.shape != ref.shape:
         return False
-    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-    return torch.equal(got.view(view[got.dtype]), ref.view(view[ref.dtype]))
+    if got.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        got = got.view(view[got.element_size()])
+        ref = ref.view(view[ref.element_size()])
+    return torch.equal(got, ref)
 
 
 def library_ms(fn, agrees, label, bf16: bool) -> dict:
@@ -2411,6 +2433,79 @@ def train_step_card_vs_cpu(tmp, dev) -> None:
                   f"training step: gradient of {name} differs ({recipe})")
 
 
+def fused_max_step_check(tmp) -> None:
+    """One refine-stage training step at batch 2 on the card, f32 and bf16,
+    deterministic as the train CLI runs it: through the fused SA max
+    (K13e, K13f) and again with `BatchNorm.relu_max` replaced by the
+    parent's path (K13's `_BatchNorm` with its ReLU, then ``amax``), the
+    same weights, batch and seeds.  The metrics, every gradient, the
+    updated parameters and the running buffers bit-equal; K13e and K13f
+    launched `BN_SA_MAX` times in the first run, never in the second."""
+    from regnet_for_3d_grasping_torch.cli.train import (build_model,
+                                                        deterministic)
+    from regnet_for_3d_grasping_torch.config import train_config
+    from regnet_for_3d_grasping_torch.data import GraspDataset
+    from regnet_for_3d_grasping_torch.nn import layers
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    from regnet_for_3d_grasping_torch.train import trainer
+
+    def parent_relu_max(self, x, dim):
+        return self(x, True).amax(dim)
+
+    names = ("bn_apply", "bn_apply_max", "bn_max_backward")
+    for dtype in ("float32", "bfloat16"):
+        cfg = train_config(**{"train.batch_size": 2,
+                              "model.compute_dtype": dtype})
+        R = cfg.region
+        ds = GraspDataset(str(Path(tmp) / "scenes"), "train", R.num_points,
+                          R.max_gt_grasps, 1)
+        batch = trainer.device_batch(next(ds.batches(2, seed=0)), "cuda")
+        runs = []
+        for fused in (True, False):
+            with deterministic(), contextlib.ExitStack() as stack:
+                if not fused:
+                    stack.enter_context(replaced(layers.BatchNorm,
+                                                 "relu_max", parent_relu_max))
+                model = build_model(cfg, 5, "cuda")
+                opt = trainer.make_optimizer(model, cfg, 1)
+                _cuda.reset_launches()
+                metrics = trainer.train_step(
+                    model, opt, batch, "refine",
+                    generator=torch.Generator().manual_seed(0),
+                    dropout_generator=torch.Generator(
+                        device="cuda").manual_seed(0))
+                torch.cuda.synchronize()
+                runs.append((metrics, model,
+                             {k: _cuda.launches[k] for k in names}))
+        (m_f, model_f, l_f), (m_p, model_p, l_p) = runs
+        want_f = {"bn_apply": BN_LAYERS - BN_SA_MAX,
+                  "bn_apply_max": BN_SA_MAX, "bn_max_backward": BN_SA_MAX}
+        want_p = {"bn_apply": BN_LAYERS, "bn_apply_max": 0,
+                  "bn_max_backward": 0}
+        check(l_f == want_f and l_p == want_p,
+              f"fused-max step ({dtype}): launches {l_f} and {l_p}, "
+              f"expected {want_f} and {want_p}")
+        check(m_f.keys() == m_p.keys() and all(
+            bit_equal(m_f[k], m_p[k]) for k in m_f),
+              f"fused-max step ({dtype}): the metrics differ")
+        params_p = dict(model_p.named_parameters())
+        for name, p in model_f.named_parameters():
+            q = params_p[name]
+            check(bit_equal(p.detach(), q.detach()) and (
+                (p.grad is None and q.grad is None)
+                or bit_equal(p.grad, q.grad)),
+                  f"fused-max step ({dtype}): {name} or its gradient "
+                  f"differs")
+        bufs_p = dict(model_p.named_buffers())
+        for name, b in model_f.named_buffers():
+            check(bit_equal(b, bufs_p[name]),
+                  f"fused-max step ({dtype}): buffer {name} differs")
+        print(f"fused-max step ({dtype}, batch 2): loss "
+              f"{float(m_f['loss_total']):.6f}, metrics, gradients, "
+              f"updated parameters and running buffers bit-equal to the "
+              f"parent's K13b + amax step; launches {l_f} / {l_p}")
+
+
 BF16_STEP_GRADS = ("score_net.backbone.score_dense.weight",
                    "grn_head.stem.dense.weight",
                    "score_net.backbone.sa0.mlp.layer0.dense.weight")
@@ -2768,8 +2863,10 @@ def training_phases(dev) -> dict:
                  "gather_max_slab_argmax": 2, "gather_max_backward": 2,
                  **BN_STEP}, val)
         probe.report()
-        # 10. one training step on the card and on the CPU
+        # 10. one training step on the card and on the CPU; and on the
+        # card through the fused SA max against the parent's K13b + amax
         train_step_card_vs_cpu(tmp, dev)
+        fused_max_step_check(tmp)
         # 15./16. bf16 training (`--bf16`): the bf16 argmax forms and the
         # bf16 backward in every step, no f32 pool; the validation forwards
         # f32 at exact geometry, with the f32 pools
@@ -2800,7 +2897,7 @@ def training_phases(dev) -> dict:
 def serving_wants() -> dict:
     """The launches of one forward on each serving path (full scan, slab,
     bf16 full scan, `--fast`), by kernel: K13b once a BatchNorm (the
-    served model has `BN_LAYERS`)."""
+    served model has `BN_LAYERS`) but for SA1-3's last, K13e."""
     from regnet_for_3d_grasping_torch.config import infer_config
     from regnet_for_3d_grasping_torch.models.regnet import REGNet
     from regnet_for_3d_grasping_torch.nn.layers import BatchNorm
@@ -3129,8 +3226,8 @@ def training_knob_phase(tmp, plain: dict, n_val: int, step_want: dict,
     `--remat` against phase 8's run without it (`plain`): parameters and
     statistics after the epoch's 4 steps bit-equal, losses equal, peak
     memory and step times of both.  Each run's launches as phase 8's, but
-    that remat's recompute launches K13a and K13b once more for each
-    BatchNorm of the SA and FP layers.  Returns the launches by run."""
+    that remat's recompute launches K13a once more for each BatchNorm of
+    the SA and FP layers, and K13b (SA1-3's last: K13e) with it.  Returns the launches by run."""
     import re
     from regnet_for_3d_grasping_torch.data import augment, native_loader
     from regnet_for_3d_grasping_torch.eval import evaluator
@@ -3205,8 +3302,8 @@ def training_knob_phase(tmp, plain: dict, n_val: int, step_want: dict,
     keep = {}
     paths["train_remat"] = train(
         ["--remat"], tmp, "remat", n_val,
-        step_want | {k: step_want[k] + BN_REMAT
-                     for k in ("bn_stats", "bn_apply")}, val_want, keep)
+        step_want | {k: step_want[k] + n for k, n in BN_REMAT_EXTRA.items()},
+        val_want, keep)
     a, b = plain["res"], keep["res"]
     check([s["loss"] for s in a["steps"]] == [s["loss"] for s in b["steps"]],
           "(g) --remat changed the losses")
@@ -3532,10 +3629,11 @@ def suite_phase(out_dir: Path) -> dict:
 
 # phase (j): each item's launches in one forward on the card
 LIBRARY_LAUNCHES = {
-    "msg_sa1": {"fps": 1, "ball_query": 2, "bn_apply": 6},
+    "msg_sa1": {"fps": 1, "ball_query": 2, "bn_apply": 4, "bn_apply_max": 2},
     "avg_sa1": {"fps": 1, "ball_query": 1, "bn_apply": 3},
-    "edge_sa1": {"fps": 1, "ball_query": 1, "bn_apply": 3},
-    "edge_sa1_exact": {"fps": 1, "ball_query": 0, "bn_apply": 3},
+    "edge_sa1": {"fps": 1, "ball_query": 1, "bn_apply": 2, "bn_apply_max": 1},
+    "edge_sa1_exact": {"fps": 1, "ball_query": 0, "bn_apply": 2,
+                       "bn_apply_max": 1},
     "edge_fp3": {"three_nn": 1, "bn_apply": 3},
     "two_scales_and_crop": {},
 }
@@ -4093,11 +4191,21 @@ def dp_phases(wants: dict, solo_s: dict | None) -> tuple:
 # head 7, the refine head 5; 16 of them inside the SA and FP layers, which
 # `--remat` recomputes in the backward
 BN_LAYERS, BN_REMAT = 33, 16
+# the last BatchNorm of SA1-3, whose ReLU's max over neighbours runs in
+# K13e (in place of K13b and amax) and whose backward starts with K13f
+BN_SA_MAX = 3
 # K13's launches in a forward in eval mode (serving, validation) and in a
 # training step: each BatchNorm once
-BN_EVAL = {"bn_stats": 0, "bn_apply": BN_LAYERS, "bn_backward_reduce": 0,
-           "bn_backward_apply": 0}
-BN_STEP = dict.fromkeys(BN_EVAL, BN_LAYERS)
+BN_EVAL = {"bn_stats": 0, "bn_apply": BN_LAYERS - BN_SA_MAX,
+           "bn_apply_max": BN_SA_MAX, "bn_backward_reduce": 0,
+           "bn_backward_apply": 0, "bn_max_backward": 0}
+BN_STEP = BN_EVAL | {"bn_stats": BN_LAYERS, "bn_backward_reduce": BN_LAYERS,
+                     "bn_backward_apply": BN_LAYERS,
+                     "bn_max_backward": BN_SA_MAX}
+# `--remat` recomputes the SA and FP layers' BatchNorms, SA1-3's last
+# through K13e
+BN_REMAT_EXTRA = {"bn_stats": BN_REMAT, "bn_apply": BN_REMAT - BN_SA_MAX,
+                  "bn_apply_max": BN_SA_MAX}
 JAX_BN = "regnet_for_3d_grasping_tpu/nn/layers.py"
 BN_REPLACES = {
     "bn_stats": JAX_BN + ":39-42 (flax nn.BatchNorm's batch statistics and "
@@ -4432,6 +4540,272 @@ def batch_norm_kernels(dev, record) -> None:
         record_rows(record, k, CSRC + "batch_norm.cu", BN_REPLACES[k], r)
 
 
+# --- K13e-f: the SA layers' max over neighbours (ops/batch_norm) ----------
+
+JAX_SA_MAX = "regnet_for_3d_grasping_tpu/models/backbone.py:89-91"
+BN_MAX_REPLACES = {
+    "bn_apply_max": JAX_SA_MAX + " (jnp.max over the neighbours of the last "
+                    "ConvBN's flax nn.BatchNorm + nn.relu, " + JAX_BN
+                    + ":39-45, fused by XLA)",
+    "bn_max_backward": JAX_SA_MAX + " (the VJP of jnp.max over the "
+                       "neighbours: the gradient split evenly over ties)",
+}
+# SA1-3 (K = 64 neighbours) at a serving forward and at a batch of 12:
+# (label, groups, channels of the last layer)
+BN_MAX_CASES = (
+    ("serving SA1: 5,120 x 64 x 256", 5120, 256),
+    ("serving SA2: 1,024 x 64 x 512", 1024, 512),
+    ("serving SA3: 256 x 64 x 1,024", 256, 1024),
+    ("training SA1: 61,440 x 64 x 256", 61440, 256),
+    ("training SA2: 12,288 x 64 x 512", 12288, 512),
+    ("training SA3: 3,072 x 64 x 1,024", 3072, 1024),
+)
+SA_K = 64
+
+
+def bn_max_inputs(groups: int, c: int, dtype, seed: int, dev) -> tuple:
+    """`bn_inputs` at [groups * K, c] as x [groups, K, c] with the ties of
+    ball query's padding (a group keeps n <= K distinct rows and repeats
+    its first after them), g_m [groups, c], the parameters and running
+    buffers."""
+    x, _, *params = bn_inputs(groups * SA_K, c, dtype, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = torch.randint(1, SA_K + 1, (groups, 1, 1), generator=gen, device=dev)
+    x3 = x.view(groups, SA_K, c)
+    rows = torch.arange(SA_K, device=dev)[None, :, None]
+    x3 = torch.where(rows >= n, x3[:, :1], x3).contiguous()
+    gm = torch.randn(groups, c, generator=gen, device=dev).to(dtype)
+    return (x3, gm, *params)
+
+
+def bn_max_case(label, groups, c, dtype, mode, dev, timed=False) -> dict:
+    """K13e and K13f at one shape, dtype and mode: m and the words bit-equal
+    to the plain version and m to K13b + amax, g to the plain version and
+    to amax's autograd on K13b's output, each kernel twice bit for bit;
+    `timed`: their times, the plain versions', the parent's pair (K13b +
+    amax; amax's backward, the library call of K13f) and the bounds."""
+    from regnet_for_3d_grasping_torch.ops import batch_norm as B
+    x3, gm, w, b, rm, rv = bn_max_inputs(groups, c, dtype, groups + c, dev)
+    eps, train = 1e-5, mode == "train"
+    x2 = x3.view(-1, c)
+    tag = f"[{groups} x {SA_K} x {c}] {str(dtype)[6:]} {mode}"
+    if train:
+        st = B.stats(x2)
+        mean, var = st[0], st[1]
+    else:
+        mean, var = rm, rv
+    args = (mean, var, w, b, eps, train)
+    m, win = B.apply_max(x3, *args)
+    m2, win2 = B.apply_max(x3, *args)
+    check(bit_equal(m2, m) and torch.equal(win2, win),
+          f"K13e not repeatable ({tag})")
+    pm, pwin = B.apply_max_plain(x3, *args)
+    check(bit_equal(m, pm) and torch.equal(win, pwin),
+          f"K13e is not its plain version bit for bit ({tag})")
+    check(bit_equal(B.apply_max(x3, *args, winners=False)[0], m),
+          f"K13e without its words differs ({tag})")
+    y = B.apply(x2, *args, True).view(groups, SA_K, c)
+    check(bit_equal(y.amax(1), m), f"K13e is not K13b + amax ({tag})")
+    ties = int(((win != 0) & (win & (win - 1) != 0)).sum())
+    del pm, pwin, m2, win2
+    g = B.max_backward(gm, win, SA_K)
+    check(bit_equal(B.max_backward(gm, win, SA_K), g),
+          f"K13f not repeatable ({tag})")
+    check(bit_equal(g, B.max_backward_plain(gm, win, SA_K)),
+          f"K13f is not its plain version bit for bit ({tag})")
+    yr = y.requires_grad_()
+    ref = torch.autograd.grad(yr.amax(1), yr, gm)[0]
+    check(bit_equal(g, ref), f"K13f is not amax's autograd ({tag})")
+    del ref, g
+    print(f"K13e/K13f {tag}: m, words and g bit-equal to the plain versions"
+          f", to K13b + amax and to amax's autograd; {ties} of "
+          f"{groups * c} channels tie")
+    out = {"bn_apply_max": {"max_abs_err": 0.0, "ties": ties},
+           "bn_max_backward": {"max_abs_err": 0.0}}
+    if not timed:
+        return out
+    vals, elt = groups * SA_K * c, x3.element_size()
+    small = groups * c
+    mr = yr.amax(1)
+
+    def parent_fwd():
+        return B.apply(x2, *args, True).view(groups, SA_K, c).amax(1)
+
+    def amax_bwd():
+        return torch.autograd.grad(mr, yr, gm, retain_graph=True)
+
+    for name, kernel, plain, bytes_, ops, lib, parent in (
+            ("bn_apply_max", lambda: B.apply_max(x3, *args),
+             lambda: B.apply_max_plain(x3, *args),
+             vals * elt + small * (elt + 8) + 4 * c * 4, 5 * vals, None,
+             parent_fwd),
+            ("bn_max_backward", lambda: B.max_backward(gm, win, SA_K),
+             lambda: B.max_backward_plain(gm, win, SA_K),
+             vals * elt + small * (elt + 8), 2 * vals, amax_bwd, None)):
+        row = {"ms": cuda_ms(kernel, 10), "device_ms": device_ms(kernel, 10),
+               "plain_ms": cuda_ms(plain, 3), "bytes": bytes_, "ops": ops,
+               "library_ms": None}
+        if lib is not None:
+            row |= {"library_ms": cuda_ms(lib, 10),
+                    "library_device_ms": device_ms(lib, 10),
+                    "library": "amax's backward (autograd)"}
+        if parent is not None:
+            row |= {"parent_ms": cuda_ms(parent, 10),
+                    "parent_device_ms": device_ms(parent, 10),
+                    "parent": "K13b + amax",
+                    # K13b reads x and writes y, amax reads y, writes m
+                    "parent_bytes": 3 * vals * elt + small * elt,
+                    "no_words_device_ms": device_ms(
+                        lambda: B.apply_max(x3, *args, winners=False), 10)}
+        out[name] |= row
+        b_ms = bound(bytes_, ops)[0]
+        print(f"  {name} {tag}: device {row['device_ms']:.4f} ms (bound "
+              f"{b_ms:.4f}, share {b_ms / row['device_ms']:.3f}), call "
+              f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}"
+              + (f", parent K13b + amax device {row['parent_device_ms']:.4f}"
+                 f", without the words {row['no_words_device_ms']:.4f}"
+                 if parent else "")
+              + (f", amax's backward device {row['library_device_ms']:.4f}"
+                 if lib else ""))
+    return out
+
+
+def bn_max_module_check(groups, c, dtype, mode, dev) -> None:
+    """The module's fused max on the card (`BatchNorm.relu_max`: K13a,
+    K13e, then K13f, K13c, K13d) against the parent's path on the card
+    (K13's `_BatchNorm` with its ReLU, then ``amax`` and its autograd) on
+    the same [B, S, K, C]: m, dx, dweight, dbias and the running buffers
+    bit for bit, and one launch of each kernel it runs.  `mode` "frozen"
+    (`nn/freezer.frozen_bn`): the running statistics, unchanged."""
+    from regnet_for_3d_grasping_torch.nn import layers
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    x3, gm, w, b, rm, rv = bn_max_inputs(groups, c, dtype, 3 * groups + c,
+                                         dev)
+    lead = (12, groups // 12) if groups % 12 == 0 else (1, groups)
+    x4, g3 = x3.view(*lead, SA_K, c), gm.view(*lead, c)
+    mods = []
+    for _ in range(2):
+        bn = layers.BatchNorm(c).to(dev).train(mode != "eval")
+        bn.frozen = mode == "frozen"
+        with torch.no_grad():
+            for t, v in zip((bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var), (w, b, rm, rv)):
+                t.copy_(v)
+        mods.append(bn)
+    xs = [x4.clone().requires_grad_() for _ in mods]
+    _cuda.reset_launches()
+    m = mods[0].relu_max(xs[0], 2)
+    m.backward(g3)
+    torch.cuda.synchronize()
+    got = {k: _cuda.launches[k] for k in BN_REPLACES | BN_MAX_REPLACES}
+    want = {"bn_stats": int(mode == "train"), "bn_apply": 0,
+            "bn_apply_max": 1, "bn_max_backward": 1,
+            "bn_backward_reduce": 1, "bn_backward_apply": 1}
+    tag = f"module [{lead} x {SA_K} x {c}] {str(dtype)[6:]} {mode}"
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+    m_ref = mods[1](xs[1], True).amax(2)
+    m_ref.backward(g3)
+    for what, a, r in (("m", m, m_ref), ("dx", xs[0].grad, xs[1].grad),
+                       ("dweight", mods[0].weight.grad, mods[1].weight.grad),
+                       ("dbias", mods[0].bias.grad, mods[1].bias.grad),
+                       ("running_mean", mods[0].running_mean,
+                        mods[1].running_mean),
+                       ("running_var", mods[0].running_var,
+                        mods[1].running_var)):
+        check(bit_equal(a.detach(), r.detach()),
+              f"{tag}: {what} differs from K13b + amax's")
+    if mode != "train":
+        check(torch.equal(mods[0].running_mean, rm)
+              and torch.equal(mods[0].running_var, rv),
+              f"{tag}: the running statistics moved")
+    print(f"K13e/K13f {tag}: m, dx, dweight, dbias and the running buffers "
+          f"bit-equal to the parent's K13b + amax")
+
+
+def bn_max_edges(dev) -> None:
+    """K13e and K13f at small shapes against the plain versions, K13b +
+    amax and amax's autograd (`same_bits`: NaN for NaN): K = 1, 17, 64;
+    C = 7 (single loads), 12 (bf16: 8-byte loads), 40; rows repeated as
+    ball query pads them, a channel negative everywhere (m = 0, a K-way
+    tie), -0.0 beside +0.0 before the ReLU (x = mean, weight < 0, bias
+    -0.0; the ReLU of a negative value), a NaN in x; K = 65 refused."""
+    from regnet_for_3d_grasping_torch.ops import batch_norm as B
+    neg = 0
+    for k, c in ((1, 7), (17, 12), (64, 40), (64, 7), (64, 12)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x3, gm, w, b, rm, rv = bn_max_inputs(6, c, dtype, k + c, dev)
+            x3 = x3[:, :k].contiguous()
+            with torch.no_grad():
+                rm[1] = 1e4
+                w[2], b[2], rm[2] = -1.0, -0.0, 0.5
+                x3[0, :, 2] = 0.5
+                x3[0, 1::3, 2] = 7.0
+                x3[1, k // 2, 3] = float("nan")
+            args = (rm, rv, w, b, 1e-5, False)
+            m, win = B.apply_max(x3, *args)
+            pm, pwin = B.apply_max_plain(x3, *args)
+            y = B.apply(x3.view(-1, c), *args, True).view(6, k, c)
+            neg += int(torch.signbit(y[0, :, 2]).sum())
+            tag = f"K = {k}, C = {c}, {str(dtype)[6:]}"
+            check(same_bits(m, pm) and torch.equal(win, pwin)
+                  and same_bits(m, y.amax(1)),
+                  f"K13e differs at its edges ({tag})")
+            check(bool(m[1, 3].isnan()) and int(win[1, 3]) == 0
+                  and bool((win[:, 1] == (1 << k) - 1 if k < 64
+                            else win[:, 1] == -1).all())
+                  and (k < 3 or int(win[0, 2]) == ((1 << k) - 1 if k < 64
+                                                   else -1)),
+                  f"K13e's ties or NaN ({tag}): {win[:2, :4].tolist()}")
+            g = B.max_backward(gm, win, k)
+            yr = y.requires_grad_()
+            ref = torch.autograd.grad(yr.amax(1), yr, gm)[0]
+            check(same_bits(g, B.max_backward_plain(gm, win, k))
+                  and same_bits(g, ref) and bool(g[1, :, 3].isnan().all()),
+                  f"K13f differs at its edges ({tag})")
+    print(f"K13e/K13f edges: ties, NaN, K = 1, 17, 64, C = 7, 12, 40 "
+          f"bit-equal; the card's ReLU gave -0.0 {neg} times")
+    x3 = torch.zeros(2, 65, 8, device=dev)
+    one = torch.ones(8, device=dev)
+    for call in (lambda: B.apply_max(x3, one, one, one, one, 1e-5, False),
+                 lambda: B.max_backward(torch.zeros(2, 8, device=dev),
+                                        torch.zeros(2, 8, dtype=torch.int64,
+                                                    device=dev), 65)):
+        try:
+            call()
+        except ValueError:
+            continue
+        check(False, "K = 65 neighbours were not refused")
+
+
+def bn_max_kernels(dev, record) -> None:
+    """Phase 3 for K13e-f: every case of `BN_MAX_CASES` in f32 and bf16,
+    train and eval (`bn_max_case`; frozen runs eval's arguments), timed in
+    the path's mode (serving eval, training train); the module against the
+    parent's K13b + amax in train, eval and frozen (`bn_max_module_check`);
+    the edges; one record a kernel, serving SA1 f32 first."""
+    rows = {k: [] for k in BN_MAX_REPLACES}
+    for label, groups, c in BN_MAX_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed_mode = "eval" if label.startswith("serving") else "train"
+            for mode in ("train", "eval"):
+                res = bn_max_case(label, groups, c, dtype, mode, dev,
+                                  timed=mode == timed_mode)
+                if mode == timed_mode:
+                    for k, r in res.items():
+                        rows[k].append({"shape": f"{label}, "
+                                        f"{str(dtype)[6:]} {mode}", **r})
+            for mode in ("train", "eval", "frozen"):
+                bn_max_module_check(groups, c, dtype, mode, dev)
+            torch.cuda.empty_cache()
+    bn_max_edges(dev)
+    # the main shapes first: K13e's serving SA1, K13f's training SA1, f32
+    main = {"bn_apply_max": BN_MAX_CASES[0][0] + ", float32 eval",
+            "bn_max_backward": BN_MAX_CASES[3][0] + ", float32 train"}
+    for k, r in rows.items():
+        r.sort(key=lambda row: row["shape"] != main[k])
+        record_rows(record, k, CSRC + "batch_norm.cu", BN_MAX_REPLACES[k], r)
+
+
 def main() -> None:
     # --- 1. environment ---------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4713,8 +5087,10 @@ def main() -> None:
                 JAX_OPS + "pooling.py:285 and slab.py:1090 on bf16 g (the "
                 "XLA scatter-add in g.dtype)",
                 bf16_backward_rows + slab_rows_bf16)
-    # K13a-d, BatchNorm + ReLU, at the paths' shapes
+    # K13a-d, BatchNorm + ReLU, at the paths' shapes; K13e-f, its ReLU's
+    # max over neighbours at SA1-3
     batch_norm_kernels(dev, record)
+    bn_max_kernels(dev, record)
     check(set(results) == set(_cuda.KERNELS),
           "not every kernel of the port was held against its plain version")
     if "--kernels-only" in sys.argv[1:]:
@@ -4816,7 +5192,8 @@ def main() -> None:
                  "group_regions": "k11_entry",
                  "bn_stats": "train_full_scan",
                  "bn_backward_reduce": "train_full_scan",
-                 "bn_backward_apply": "train_full_scan"}
+                 "bn_backward_apply": "train_full_scan",
+                 "bn_max_backward": "train_full_scan"}
     for k in results:
         results[k]["launches"] = paths[main_path[k]][k]
         results[k]["launches_by_path"] = {p: c[k] for p, c in paths.items()}

@@ -21,7 +21,11 @@ the device time per forward of the ten costliest kernels and of every
 kernel of ``csrc/``, the GEMMs' share (cuBLAS's matrix-product
 kernels), BatchNorm's kernels (K13, ``csrc/batch_norm.cu``) apart from the
 other elementwise and library kernels, and what every BatchNorm with its
-ReLU launched, by where the launch came from (`batch_norm_ranges`).
+ReLU launched, by where the launch came from (`batch_norm_ranges`), and
+what the set-abstraction layers' max over neighbours launched: ``amax``'s
+kernels where it follows the MLP, K13e where the max runs fused into the
+last BatchNorm (then inside BatchNorm too; "BN + SA max" counts each
+launch once, so two trees compare like with like).
 
 With ``--train``: the training preset (25,600 points, 64 centers, batch 12,
 all three losses, freshly initialised weights; with ``--bf16``, bf16
@@ -30,9 +34,10 @@ it, on synthetic scenes made from a seed; two warm-up steps, two untraced
 steps, then one step whose forward (with the losses) and whose backward
 (with the update) are traced apart.
 It prints the step times, the peak device memory, and for each half the
-device busy time, the launches, the GEMMs' time, BatchNorm's (as for a
-forward; in the backward, what the autograd nodes of BatchNorm's forward
-launched) and the five costliest kernels.
+device busy time, the launches, the GEMMs' time, BatchNorm's and the SA
+max's (as for a forward; in the backward, what the autograd nodes of
+their forward ops launched: ``amax``'s backward, or K13f) and the five
+costliest kernels.
 """
 
 from __future__ import annotations
@@ -147,10 +152,12 @@ def main(argv=None) -> None:
           f"{sum(e.count for e in gemm) // n} launches per forward, "
           f"{gemm_ms / (busy / n):.3f} of the busy time; elementwise and "
           f"other library kernels {busy / n - own_ms - gemm_ms:.3f} ms")
-    ms, count, how = batch_norm_time(prof, forward=True)
-    print(f"BatchNorm + ReLU (every launch inside them, {how}): {ms / n:.3f} "
-          f"ms in {count / n:.1f} launches per forward, "
-          f"{ms / n / (busy / n):.3f} of the busy time")
+    parts, how = batch_norm_time(prof, forward=True)
+    for key, title in PARTS:
+        ms, count = parts[key]
+        print(f"{title} ({how}): {ms / n:.3f} ms in {count / n:.1f} "
+              f"launches per forward, {ms / n / (busy / n):.3f} of the busy "
+              f"time")
 
 
 def is_gemm(name: str) -> bool:
@@ -166,6 +173,15 @@ def is_batch_norm(name: str) -> bool:
 
 
 BN_RANGE, DENSE_RANGE = "regnet::batch_norm", "regnet::dense"
+# the set-abstraction layers' grouping, MLP and max over neighbours
+SA_RANGE = "regnet::sa_features"
+# K13e and K13f: the SA max fused into the last BatchNorm, and its backward
+MAX_KERNELS = ("bn_apply_max_kernel", "bn_max_backward_kernel")
+# what `batch_norm_time` reports: BatchNorm + ReLU, the SA max, and both
+# (a launch counted once)
+PARTS = (("bn", "BatchNorm + ReLU (every launch inside them)"),
+         ("max", "SA max over neighbours (amax's kernels, or K13e/K13f)"),
+         ("both", "BN + SA max"))
 
 
 @contextlib.contextmanager
@@ -173,24 +189,29 @@ def batch_norm_ranges():
     """Within the block, every ``nn/layers`` BatchNorm and ConvBN forward
     runs inside a profiler range named `BN_RANGE` and every Dense inside
     `DENSE_RANGE`, so that `batch_norm_time` can tell what BatchNorm and
-    its ReLU launched (a ConvBN's range minus its Dense's).  Only the
-    traced window pays for the ranges."""
+    its ReLU launched (a ConvBN's range minus its Dense's), and every
+    ``SetAbstraction._features`` (grouping, MLP, max) inside `SA_RANGE`.
+    Only the traced window pays for the ranges."""
     from torch.profiler import record_function
 
+    from regnet_for_3d_grasping_torch.models.backbone import SetAbstraction
     from regnet_for_3d_grasping_torch.nn import layers
     saved = {}
-    for cls, name in ((layers.ConvBN, BN_RANGE), (layers.BatchNorm, BN_RANGE),
-                      (layers.Dense, DENSE_RANGE)):
-        def forward(self, *args, _f=cls.forward, _name=name, **kwargs):
+    for cls, attr, name in ((layers.ConvBN, "forward", BN_RANGE),
+                            (layers.BatchNorm, "forward", BN_RANGE),
+                            (layers.Dense, "forward", DENSE_RANGE),
+                            (SetAbstraction, "_features", SA_RANGE)):
+        def wrapped(self, *args, _f=getattr(cls, attr), _name=name,
+                    **kwargs):
             with record_function(_name):
                 return _f(self, *args, **kwargs)
-        saved[cls] = cls.forward
-        cls.forward = forward
+        saved[cls, attr] = getattr(cls, attr)
+        setattr(cls, attr, wrapped)
     try:
         yield
     finally:
-        for cls, f in saved.items():
-            cls.forward = f
+        for (cls, attr), f in saved.items():
+            setattr(cls, attr, f)
 
 
 def _ancestors(e):
@@ -209,20 +230,37 @@ def _in_batch_norm(e) -> bool:
     return False
 
 
-def batch_norm_time(prof, forward: bool, seqs: set | None = None) -> tuple:
-    """(device ms, kernel launches, how many kernels were tied to their
-    launch) of what BatchNorm and its ReLU
-    launched in the profile `prof`: in a forward (traced within
-    `batch_norm_ranges`), the kernels whose launch lies inside a BatchNorm
-    range; in a backward, those launched by autograd nodes whose sequence
-    number is in `seqs` (`batch_norm_seqs` of the forward's profile).  A
+def _in_sa_amax(e) -> bool:
+    """`e` lies inside an ``aten::amax`` of a set-abstraction layer's
+    features: the max over neighbours where it follows the MLP."""
+    names = {a.name for a in _ancestors(e)}
+    return "aten::amax" in names and SA_RANGE in names
+
+
+def batch_norm_time(prof, forward: bool, seqs: tuple = ((), ())) -> tuple:
+    """({"bn", "max", "both"}: (device ms, kernel launches)), and how many
+    kernels were tied to their launch) of what BatchNorm and its ReLU, and
+    the SA layers' max over neighbours, launched in the profile `prof`: in
+    a forward (traced within `batch_norm_ranges`), the kernels whose launch
+    lies inside a BatchNorm range, or inside an SA layer's ``amax`` (or
+    that are K13e); in a backward, those launched by autograd nodes whose
+    sequence number is in `seqs` (`batch_norm_seqs` of the forward's
+    profile: BatchNorm's, the SA max's), or that are K13f.  "both" counts
+    a kernel that is BatchNorm's and the max's (K13e, K13f) once.  A
     kernel is tied to its launch by the correlation id it shares with the
     runtime call."""
     events = list(prof.events())
     launch = {e.id: e for e in events
               if e.device_type == torch.autograd.DeviceType.CPU
               and "Launch" in e.name and e.id > 0}
-    ms, count, tied = 0.0, 0, 0
+    out = dict.fromkeys(("bn", "max", "both"), (0.0, 0))
+    tied = 0
+
+    def node_of(r, which):
+        return any(a.sequence_nr in which
+                   and a.name.startswith("autograd::engine")
+                   for a in _ancestors(r))
+
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA or \
                 e.id not in launch or "Memcpy" in e.name or \
@@ -230,20 +268,32 @@ def batch_norm_time(prof, forward: bool, seqs: set | None = None) -> tuple:
             continue
         tied += 1
         r = launch[e.id]
-        mine = (_in_batch_norm(r) if forward else any(
-            a.sequence_nr in seqs and a.name.startswith("autograd::engine")
-            for a in _ancestors(r)))
-        if mine:
-            ms += e.self_device_time_total / 1e3
-            count += 1
-    return ms, count, f"{tied} kernels tied to their launch"
+        fused = any(k in e.name for k in MAX_KERNELS)
+        if forward:
+            mine = {"bn": _in_batch_norm(r), "max": fused or _in_sa_amax(r)}
+        else:
+            mine = {"bn": node_of(r, seqs[0]),
+                    "max": fused or node_of(r, seqs[1])}
+        mine["both"] = mine["bn"] or mine["max"]
+        for key, hit in mine.items():
+            if hit:
+                ms, count = out[key]
+                out[key] = (ms + e.self_device_time_total / 1e3, count + 1)
+    return out, f"{tied} kernels tied to their launch"
 
 
-def batch_norm_seqs(prof) -> set:
-    """The autograd sequence numbers of the ops inside BatchNorm ranges
-    (not inside their Dense's) of a traced forward."""
-    return {e.sequence_nr for e in prof.events()
-            if e.sequence_nr >= 0 and _in_batch_norm(e)}
+def batch_norm_seqs(prof) -> tuple:
+    """The autograd sequence numbers of a traced forward's ops inside
+    BatchNorm ranges (not inside their Dense's), and of its SA layers'
+    ``amax``."""
+    bn, sa_max = set(), set()
+    for e in prof.events():
+        if e.sequence_nr >= 0:
+            if _in_batch_norm(e):
+                bn.add(e.sequence_nr)
+            if _in_sa_amax(e):
+                sa_max.add(e.sequence_nr)
+    return bn, sa_max
 
 
 def device_kernels(prof) -> list:
@@ -359,15 +409,16 @@ def _profile_train(args) -> None:
         busy_all += busy
         gemm = [e for e in rows if is_gemm(e.key)]
         k13 = [e for e in own_kernels(rows) if is_batch_norm(e.key)]
-        bn_ms, bn_count, how = batch_norm_time(prof, prof is fwd, seqs)
+        parts, how = batch_norm_time(prof, prof is fwd, seqs)
         print(f"{title}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
               f"traced wall, {sum(e.count for e in rows)} kernel launches; "
               f"GEMMs {sum(e.self_device_time_total for e in gemm) / 1e3:.3f}"
               f" ms in {sum(e.count for e in gemm)} launches; BatchNorm's "
               f"K13 {sum(e.self_device_time_total for e in k13) / 1e3:.3f} "
-              f"ms in {sum(e.count for e in k13)} launches; BatchNorm + ReLU "
-              f"(every launch of theirs, {how}) {bn_ms:.3f} ms in "
-              f"{bn_count} launches; the five costliest kernels, device ms:")
+              f"ms in {sum(e.count for e in k13)} launches; "
+              + "; ".join(f"{t} {parts[k][0]:.3f} ms in {parts[k][1]} "
+                          f"launches" for k, t in PARTS)
+              + f" ({how}); the five costliest kernels, device ms:")
         for e in rows[:5]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} x{e.count:<5d} "
                   f"{e.key[:90]}")

@@ -1,8 +1,11 @@
-// K13 — BatchNorm (+ ReLU + cast) over the trailing axis, four kernels:
+// K13 — BatchNorm (+ ReLU + cast) over the trailing axis, six kernels:
 //   K13a bn_stats_kernel            per-channel sum and sum of squares
 //   K13b bn_apply_kernel            y = act(cast((x - mean) * mul + bias))
 //   K13c bn_backward_reduce_kernel  per-channel sums of the gradient
 //   K13d bn_backward_apply_kernel   dx
+//   K13e bn_apply_max_kernel        K13b with ReLU and the max over the
+//                                   neighbours, and the max's winners
+//   K13f bn_max_backward_kernel     the max's gradient from its winners
 //
 // Replaces: no Pallas kernel.  The JAX package leaves `Dense -> BatchNorm
 //   -> relu` (regnet_for_3d_grasping_tpu/nn/layers.py:40-45, flax's
@@ -51,6 +54,22 @@
 //   autograd accumulates x's four uses; on bf16 x each term is rounded to
 //   bf16 first and their sum once more, as autograd casts the gradients
 //   of `x - mean` and of `x.float()` to bf16 and adds them.
+// - K13e and K13f serve the set-abstraction layers' max over neighbours
+//   (JAX models/backbone.py:89-91, `jnp.max(h, axis=2)` of the last
+//   ConvBN's ReLU, which XLA fuses into the normalisation).  x is then
+//   [G, K, C], G groups of K <= 64 neighbours.  K13e reads each group's
+//   K x C values once (a thread VEC channels of one group, 16-byte loads
+//   along a row, the K rows in order), keeps each channel's running max
+//   and a 64-bit word of the rows that reach it (a new max resets it, an
+//   equal value sets its bit, -0.0 == +0.0; a NaN gives NaN and an empty
+//   word, as torch's `amax` and its `y == max` mask do), and writes only
+//   m [G, C] and the words: the [G, K, C] activation is never stored.
+//   Bound: read x once, write m and the words (at SA1 of a batch of 12,
+//   f32: 4.03 GB + 0.13 GB, 1.24 ms at 3.35 TB/s).  K13f expands the
+//   gradient of m: g = bit_k ? q : q * 0 with q = g_m / popcount(word)
+//   rounded to x's dtype, torch's `(grad / mask.sum()) * mask` (amax's
+//   backward) value for value; it reads no activation and is bound by
+//   the write of g.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -447,6 +466,106 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K13e: per group g and channel, m = max over k of
+// relu(cast((x[g, k] - mean) * mul + bias)) (K13b's value bit for bit) and
+// the word of the k that reach it.  A thread takes VEC channels of one
+// group; a warp reads 32 x 16 bytes of a row at a time.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    bn_apply_max_kernel(const T* __restrict__ x, T* __restrict__ m,
+                        unsigned long long* __restrict__ win,
+                        const float* mean, const float* var,
+                        const float* weight, const float* bias,
+                        int64_t groups, int k, int c, float eps,
+                        bool train) {
+  const int nvec = c / VEC;
+  const int64_t t =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= groups * nvec) return;
+  const int64_t g = t / nvec;
+  const int c0 = static_cast<int>(t - g * nvec) * VEC;
+  float mu[VEC], mul[VEC], b[VEC], best[VEC], nan_value[VEC];
+  unsigned long long word[VEC];
+  bool nan[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    mu[j] = mean[c0 + j];
+    mul[j] = multiplier(var[c0 + j], weight[c0 + j], eps, train);
+    b[j] = bias[c0 + j];
+    best[j] = 0.0f;
+    nan_value[j] = 0.0f;
+    word[j] = 0ull;
+    nan[j] = false;
+  }
+  const T* row = x + g * k * c + c0;
+#pragma unroll 4
+  for (int i = 0; i < k; ++i) {
+    const Pack<T, VEC> xv = load<T, VEC>(row, static_cast<int64_t>(i) * c);
+    const unsigned long long bit = 1ull << i;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float v =
+          relu(normalised<T>(to_f32<T>(xv.v[j]), mu[j], mul[j], b[j]));
+      if (i == 0 || v > best[j]) {
+        best[j] = v;
+        word[j] = bit;
+      } else if (v == best[j]) {
+        word[j] |= bit;
+      }
+      if (isnan(v) && !nan[j]) {
+        nan[j] = true;
+        nan_value[j] = v;
+      }
+    }
+  }
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    out.v[j] = from_f32<T>(nan[j] ? nan_value[j] : best[j]);
+    if (nan[j]) word[j] = 0ull;
+  }
+  store<T, VEC>(m, g * c + c0, out);
+  if (win != nullptr) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) win[g * c + c0 + j] = word[j];
+  }
+}
+
+// K13f: g[g, k] = bit_k(word) ? q : q * 0, q = cast(g_m / popcount(word))
+// (torch's f32 division; a word of 0 gives q = g_m / 0 and NaN at every
+// k, as amax's backward does).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    bn_max_backward_kernel(const T* __restrict__ gm,
+                           const unsigned long long* __restrict__ win,
+                           T* __restrict__ gx, int64_t groups, int k,
+                           int c) {
+  const int nvec = c / VEC;
+  const int64_t t =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= groups * nvec) return;
+  const int64_t g = t / nvec;
+  const int c0 = static_cast<int>(t - g * nvec) * VEC;
+  const Pack<T, VEC> gv = load<T, VEC>(gm, g * c + c0);
+  float q[VEC];
+  unsigned long long word[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    word[j] = win[g * c + c0 + j];
+    q[j] = to_f32<T>(from_f32<T>(
+        to_f32<T>(gv.v[j]) / static_cast<float>(__popcll(word[j]))));
+  }
+  T* row = gx + g * k * c + c0;
+#pragma unroll 4
+  for (int i = 0; i < k; ++i) {
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      out.v[j] = from_f32<T>(q[j] * ((word[j] >> i) & 1ull ? 1.0f : 0.0f));
+    store<T, VEC>(row, static_cast<int64_t>(i) * c, out);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch helpers: `vec` is 8 (bf16) or 4 (f32) where C allows 16-byte
 // loads, 4 (bf16, 8-byte loads) or 1 else; the wrapper picks it and the
@@ -515,6 +634,36 @@ struct BackK {
         act);
   }
 };
+
+template <typename T, int VEC>
+struct MaxK {
+  static void run(dim3 g, size_t s, cudaStream_t st, const void* x, void* m,
+                  unsigned long long* win, const float* mean,
+                  const float* var, const float* w, const float* b,
+                  int64_t groups, int k, int c, float eps, bool train) {
+    bn_apply_max_kernel<T, VEC><<<g, kThreads, s, st>>>(
+        static_cast<const T*>(x), static_cast<T*>(m), win, mean, var, w, b,
+        groups, k, c, eps, train);
+  }
+};
+
+template <typename T, int VEC>
+struct MaxBackK {
+  static void run(dim3 g, size_t s, cudaStream_t st, const void* gm,
+                  const unsigned long long* win, void* gx, int64_t groups,
+                  int k, int c) {
+    bn_max_backward_kernel<T, VEC><<<g, kThreads, s, st>>>(
+        static_cast<const T*>(gm), win, static_cast<T*>(gx), groups, k, c);
+  }
+};
+
+// One thread per group and VEC channels.
+dim3 group_grid(int64_t groups, int c, int vec) {
+  return dim3(static_cast<unsigned int>(
+      (groups * (c / vec) + kThreads - 1) / kThreads));
+}
+
+constexpr int kMaxNeighbours = 64;   // the bits of a winners word
 
 }  // namespace
 
@@ -605,4 +754,45 @@ extern "C" int regnet_bn_backward_apply(
   return run_vec<float, BackK>(vec, dim3(blocks), 0, stream, g, x, dx, mean,
                                var, weight, bias, coef, total, c, eps,
                                train != 0, act != 0);
+}
+
+// K13e.  x [groups, k, c] (f32, or bf16 raw bits where bf16 != 0) -> m
+// [groups, c] in x's dtype and, where win is not null, the winners words
+// [groups, c] (bit i: row i reaches the max); mean, var, weight, bias as
+// K13b's; always with the ReLU.  0 < k <= 64.
+extern "C" int regnet_bn_apply_max(const void* x, void* m,
+                                   unsigned long long* win,
+                                   const float* mean, const float* var,
+                                   const float* weight, const float* bias,
+                                   long long groups, int k, int c, int vec,
+                                   int train, float eps, int bf16,
+                                   cudaStream_t stream) {
+  if (k <= 0 || k > kMaxNeighbours || c % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = group_grid(groups, c, vec);
+  if (bf16)
+    return run_vec<uint16_t, MaxK>(vec, grid, 0, stream, x, m, win, mean,
+                                   var, weight, bias,
+                                   static_cast<int64_t>(groups), k, c, eps,
+                                   train != 0);
+  return run_vec<float, MaxK>(vec, grid, 0, stream, x, m, win, mean, var,
+                              weight, bias, static_cast<int64_t>(groups), k,
+                              c, eps, train != 0);
+}
+
+// K13f.  g_m [groups, c] and the winners words [groups, c] from K13e ->
+// g [groups, k, c], g_m's dtype.
+extern "C" int regnet_bn_max_backward(const void* gm,
+                                      const unsigned long long* win,
+                                      void* gx, long long groups, int k,
+                                      int c, int vec, int bf16,
+                                      cudaStream_t stream) {
+  if (k <= 0 || k > kMaxNeighbours || c % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = group_grid(groups, c, vec);
+  if (bf16)
+    return run_vec<uint16_t, MaxBackK>(vec, grid, 0, stream, gm, win, gx,
+                                       static_cast<int64_t>(groups), k, c);
+  return run_vec<float, MaxBackK>(vec, grid, 0, stream, gm, win, gx,
+                                  static_cast<int64_t>(groups), k, c);
 }

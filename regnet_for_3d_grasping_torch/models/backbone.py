@@ -1,7 +1,9 @@
 """PointNet++ segmentation backbone (JAX ``models/backbone.py``).  The
 sampling and grouping indices carry no gradient; the features do, through
-the gathers, the shared MLPs and the max over neighbours (`amax`, which
-splits a tie's gradient evenly as the JAX package's ``jnp.max`` does).
+the gathers, the shared MLPs and the max over neighbours (`amax` on the
+CPU; on the card fused into the last BatchNorm + ReLU, kernels K13e and
+K13f through `SharedMLP(..., max_over=2)`; either splits a tie's gradient
+evenly as the JAX package's ``jnp.max`` does).
 In training mode the seg head drops out with ``cfg.dropout_prob``.  Given a `SortedCloud` over its input rows and a slab
 cell, SA1's ball query (kernel K6) and the last FP's 3-NN (kernel K8, with
 its exactness certificate and full-scan fallback) run the sorted-slab
@@ -85,7 +87,7 @@ class SetAbstraction(nn.Module):
                          else self._features(*args))
 
     def _features(self, xyz, feature, new_xyz, nidx):
-        return self.mlp(_grouped(xyz, feature, new_xyz, nidx)).amax(dim=2)
+        return self.mlp(_grouped(xyz, feature, new_xyz, nidx), max_over=2)
 
     def _slab_ball_query(self, sc, new_xyz, slab_cell, seed):
         """x-sort the centroids for tile locality (stably: FPS repeats
@@ -135,7 +137,7 @@ class SetAbstractionMSG(nn.Module):
         for i, (r, k) in enumerate(zip(self.radii, self.num_neighbours)):
             nidx, _ = ball_query(xyz, new_xyz, r, k)
             outs.append(getattr(self, f"mlp{i}")(
-                _grouped(xyz, feature, new_xyz, nidx)).amax(dim=2))
+                _grouped(xyz, feature, new_xyz, nidx), max_over=2))
         return new_xyz, torch.cat(outs, -1)
 
 

@@ -53,7 +53,7 @@ class EdgeSetAbstraction(nn.Module):
             neighbour = group_points(feature, nidx)
             edge = neighbour - gather_points(feature, idx)[:, :, None, :]
             group = torch.cat([group, neighbour, edge], -1)
-        return new_xyz, self.mlp(group).amax(dim=2)
+        return new_xyz, self.mlp(group, max_over=2)
 
 
 class EdgeFeaturePropagation(nn.Module):

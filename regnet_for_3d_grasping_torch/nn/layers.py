@@ -14,7 +14,10 @@ the JAX package's ``train`` flag.
 On the card a BatchNorm, with its ConvBN's ReLU, runs through kernels K13
 (`ops/batch_norm.batch_norm`: statistics, normalisation + cast + ReLU, and
 their backward); the written-out chain here is their plain version, which
-the CPU runs.
+the CPU runs.  Where a `SharedMLP`'s output is reduced by a max over the
+neighbours (``forward(..., max_over=2)``, the set-abstraction layers), its
+last BatchNorm + ReLU and the max run as one (`BatchNorm.relu_max`: K13e
+and K13f on the card, the chain and ``amax`` on the CPU).
 """
 
 from __future__ import annotations
@@ -135,6 +138,22 @@ class BatchNorm(nn.Module):
                 not _recomputing, self.momentum, self.eps, relu)
         return self.written_out(x, relu)
 
+    def relu_max(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``forward(x, relu=True).amax(dim)``, `dim` the neighbours' axis
+        (the one before the channels): on a CUDA tensor K13a (train mode)
+        and K13e, differentiable through K13f, K13c and K13d
+        (`ops/batch_norm.batch_norm_max`, K <= 64); on a CPU tensor the
+        written-out chain and ``amax``."""
+        if x.dim() < 2 or dim % x.dim() != x.dim() - 2:
+            raise ValueError(f"relu_max: the max runs over the axis before "
+                             f"the channels, not {dim} of {x.dim()}")
+        if x.device.type == "cuda":
+            return bn_kernels.batch_norm_max(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.training and not self.frozen,
+                not _recomputing, self.momentum, self.eps)
+        return self.written_out(x, True).amax(dim)
+
     def written_out(self, x: torch.Tensor, relu: bool = False
                     ) -> torch.Tensor:
         """The plain version, flax's BatchNorm op by op (and a ReLU), on
@@ -166,8 +185,15 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(out_channels)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.dense(x), self.relu)
+    def forward(self, x: torch.Tensor,
+                max_over: int | None = None) -> torch.Tensor:
+        """`max_over`: the output's max over that axis (the one before the
+        channels), BatchNorm, ReLU and max in one (`BatchNorm.relu_max`)."""
+        if max_over is None:
+            return self.bn(self.dense(x), self.relu)
+        if not self.relu:
+            raise ValueError("ConvBN: the fused max follows a ReLU")
+        return self.bn.relu_max(self.dense(x), max_over)
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -200,15 +226,22 @@ class SharedMLP(nn.Module):
             in_channels = ch
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                max_over: int | None = None) -> torch.Tensor:
         """`generator` (on `x`'s device) draws the dropout masks; it is
-        required in training mode when ``dropout_prob > 0``."""
+        required in training mode when ``dropout_prob > 0``.  `max_over`:
+        the output's max over that axis (the neighbours', before the
+        channels), taken inside the last layer where no dropout follows
+        it."""
         drop = self.training and self.dropout_prob > 0.0
         if drop and generator is None:
             raise ValueError("SharedMLP: dropout in training mode needs a "
                              "torch.Generator")
-        for layer in self.children():
+        layers = list(self.children())
+        for i, layer in enumerate(layers):
+            if max_over is not None and not drop and i == len(layers) - 1:
+                return layer(x, max_over=max_over)
             x = layer(x)
             if drop:
                 x = dropout(x, self.dropout_prob, generator)
-        return x
+        return x if max_over is None else x.amax(max_over)

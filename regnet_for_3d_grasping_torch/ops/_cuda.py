@@ -101,6 +101,11 @@ SIGNATURES = {
                                         _P)),
     "bn_backward_apply": ("batch_norm", "regnet_bn_backward_apply",
                           (_P,) * 8 + (_L, _I, _I, _I, _I, _I, _F, _I, _P)),
+    # K13e-f, the set-abstraction layers' max over neighbours
+    "bn_apply_max": ("batch_norm", "regnet_bn_apply_max",
+                     (_P,) * 7 + (_L, _I, _I, _I, _I, _F, _I, _P)),
+    "bn_max_backward": ("batch_norm", "regnet_bn_max_backward",
+                        (_P,) * 3 + (_L, _I, _I, _I, _I, _P)),
 }
 # C entry points that launch nothing (an occupancy query, the compile-time
 # constants of the bucket scan and of K3's grid), not counted; each returns

@@ -21,6 +21,19 @@ alone, a backward K13c and K13d.  x is the Dense output, [..., C]
 channels-last, f32 or bf16; statistics, parameters and running buffers
 are f32.
 
+Where the set-abstraction layers take the max over neighbours of the
+last ConvBN (JAX ``models/backbone.py:89-91``, ``jnp.max(h, axis=2)``),
+`batch_norm_max` runs two kernels more in place of K13b and ``amax``:
+
+  K13e bn_apply_max     x [G, K, C] -> m [G, C] = max over k of K13b's
+                        value, and the winners word [G, C] (int64 bits:
+                        bit k where row k equals the max)
+  K13f bn_max_backward  g [G, K, C] from the gradient of m and the words,
+                        amax's backward ``(g_m / count) * mask``
+
+so the [G, K, C] activation is neither written nor kept for the
+backward, whose g then feeds K13c and K13d.  K <= 64.
+
 The backward is autograd's of the written-out chain in closed form
 (`backward_reduce_plain`, `backward_apply_plain`: the same f32 operations
 in autograd's order, so on the CPU they equal autograd of the chain, bf16
@@ -49,6 +62,7 @@ from regnet_for_3d_grasping_torch.ops import _cuda
 DTYPES = (torch.float32, torch.bfloat16)
 THREADS = 256            # `kThreads`
 MAX_CHANNELS = 2048      # the widest x; the reductions' tickets, one a tile
+MAX_NEIGHBOURS = 64      # `kMaxNeighbours`: the bits of a winners word
 # a row reduction's blocks (its grid follows from M and C alone, so its
 # sums are the same bits on every card)
 MAX_BLOCKS = 1024
@@ -291,17 +305,127 @@ def backward_apply(g, x, mean, var, weight, bias, coef, eps: float,
     return dx
 
 
+# --- K13e ------------------------------------------------------------------
+
+def _check_neighbours(k: int) -> None:
+    if not 0 < k <= MAX_NEIGHBOURS:
+        raise ValueError(f"batch_norm max: K = {k} neighbours, needs 0 < K "
+                         f"<= {MAX_NEIGHBOURS} (a winners word holds "
+                         f"{MAX_NEIGHBOURS} rows)")
+
+
+def _check_groups(x: torch.Tensor) -> tuple:
+    if x.dim() != 3:
+        raise ValueError(f"batch_norm max: x must be [G, K, C], got "
+                         f"{tuple(x.shape)}")
+    _check_neighbours(x.shape[1])
+    return tuple(x.shape)
+
+
+def winners_plain(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The winners words of y [G, K, C] and its max m [G, C]: int64 [G, C],
+    bit k set where ``y[:, k] == m`` (torch's equality: -0.0 equals +0.0,
+    a NaN nothing).  The bits are distinct powers of two, so their int64
+    sum (bit 63 the sign) is their OR."""
+    k = y.shape[1]
+    bit = torch.ones((), dtype=torch.int64, device=y.device) << torch.arange(
+        k, device=y.device)
+    return ((y == m[:, None]).long() * bit[:, None]).sum(1)
+
+
+def apply_max_plain(x, mean, var, weight, bias, eps: float, train: bool,
+                    winners: bool = True) -> tuple:
+    """K13e's plain version: x [G, K, C] -> (m [G, C], the winners words or
+    None): K13b's plain version with the ReLU, ``amax`` over K, and
+    `winners_plain`."""
+    g, k, c = _check_groups(x)
+    y = apply_plain(x.reshape(g * k, c), mean, var, weight, bias, eps, train,
+                    True).view(g, k, c)
+    m = y.amax(1)
+    return m, winners_plain(y, m) if winners else None
+
+
+def apply_max(x, mean, var, weight, bias, eps: float, train: bool,
+              winners: bool = True) -> tuple:
+    """Kernel K13e: x [G, K, C] -> (m [G, C] in x's dtype, int64 winners
+    words [G, C], or None where not `winners`: the kernel then writes m
+    alone).  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return apply_max_plain(x, mean, var, weight, bias, eps, train,
+                               winners)
+    groups, k, c = _check_groups(x)
+    _check(x.view(groups * k, c), mean, var, weight, bias)
+    m = torch.empty(groups, c, dtype=x.dtype, device=x.device)
+    w = (torch.empty(groups, c, dtype=torch.int64, device=x.device)
+         if winners else None)
+    vec = vec_width(c, x.dtype, x, m)
+    _cuda.launch("bn_apply_max", x.device, x, m, w, mean, var, weight, bias,
+                 groups, k, c, vec, int(train), eps,
+                 int(x.dtype == torch.bfloat16))
+    return m, w
+
+
+# --- K13f ------------------------------------------------------------------
+
+def max_backward_plain(gm: torch.Tensor, w: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """K13f's plain version: gm [G, C], the words w [G, C] -> g [G, K, C]
+    in gm's dtype, amax's backward (``(grad / mask.sum()) * mask``) on the
+    mask the words hold."""
+    _check_neighbours(k)
+    mask = ((w[:, None] >> torch.arange(k, device=w.device)[:, None]) & 1
+            ).bool()
+    return (gm[:, None] / mask.sum(1, keepdim=True)) * mask
+
+
+def max_backward(gm: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel K13f: gm [G, C] f32 or bf16, w [G, C] int64 -> g [G, K, C] in
+    gm's dtype.  CPU tensors take the plain version."""
+    if gm.device.type == "cpu":
+        return max_backward_plain(gm, w, k)
+    if gm.dtype not in DTYPES or gm.dim() != 2 or not gm.is_contiguous():
+        raise ValueError("batch_norm max backward: g must be a contiguous "
+                         "f32 or bf16 [G, C]")
+    groups, c = gm.shape
+    _check_neighbours(k)
+    _cuda.check(w, "batch_norm max winners", torch.int64, (groups, c))
+    g = torch.empty(groups, k, c, dtype=gm.dtype, device=gm.device)
+    vec = vec_width(c, gm.dtype, gm, g)
+    _cuda.launch("bn_max_backward", gm.device, gm, w, g, groups, k, c, vec,
+                 int(gm.dtype == torch.bfloat16))
+    return g
+
+
 # --- the module's entry ----------------------------------------------------
+
+def _statistics(x2, running_mean, running_var, train: bool, update: bool,
+                momentum: float) -> tuple:
+    """(mean, var): K13a's in train mode (and the running update where
+    `update`), else the running buffers."""
+    if not train:
+        return running_mean, running_var
+    st = stats(x2, running_mean if update else None,
+               running_var if update else None, momentum)
+    return st[0], st[1]
+
 
 def _forward(x2, weight, bias, running_mean, running_var, train: bool,
              update: bool, momentum: float, eps: float, relu: bool):
-    if train:
-        st = stats(x2, running_mean if update else None,
-                   running_var if update else None, momentum)
-        mean, var = st[0], st[1]
-    else:
-        mean, var = running_mean, running_var
+    mean, var = _statistics(x2, running_mean, running_var, train, update,
+                            momentum)
     return apply(x2, mean, var, weight, bias, eps, train, relu), mean, var
+
+
+def _max_forward(x, weight, bias, running_mean, running_var, train: bool,
+                 update: bool, momentum: float, eps: float, winners: bool):
+    """x [..., K, C] -> (m [..., C], the words [G, C] or None, x as [M, C],
+    mean, var)."""
+    *lead, k, c = x.shape
+    x3 = x.view(-1, k, c)
+    mean, var = _statistics(x3.view(-1, c), running_mean, running_var, train,
+                            update, momentum)
+    m, w = apply_max(x3, mean, var, weight, bias, eps, train, winners)
+    return m.view(*lead, c), w, x3.view(-1, c), mean, var
 
 
 class _BatchNorm(torch.autograd.Function):
@@ -329,6 +453,59 @@ class _BatchNorm(torch.autograd.Function):
         return (dx, coef[0] if ctx.needs_input_grad[1] else None,
                 coef[1] if ctx.needs_input_grad[2] else None,
                 None, None, None, None, None, None, None)
+
+
+class _BatchNormMax(torch.autograd.Function):
+    """BatchNorm + ReLU and the max over the neighbours' axis: K13a (train
+    mode) and K13e forward, saving x, the statistics, the parameters and
+    the winners words (not the activation); K13f, K13c and K13d
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, train,
+                update, momentum, eps):
+        m, w, x2, mean, var = _max_forward(x, weight, bias, running_mean,
+                                           running_var, train, update,
+                                           momentum, eps, True)
+        ctx.save_for_backward(x2, mean, var, weight, bias, w)
+        ctx.flags = (train, eps, x.shape)
+        return m
+
+    @staticmethod
+    def backward(ctx, gm):
+        x2, mean, var, weight, bias, w = ctx.saved_tensors
+        train, eps, shape = ctx.flags
+        g2 = max_backward(gm.contiguous().view(w.shape), w,
+                          shape[-2]).view(x2.shape)
+        coef = backward_reduce(g2, x2, mean, var, weight, bias, eps, train,
+                               True)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = backward_apply(g2, x2, mean, var, weight, bias, coef, eps,
+                                train, True).view(shape)
+        return (dx, coef[0] if ctx.needs_input_grad[1] else None,
+                coef[1] if ctx.needs_input_grad[2] else None,
+                None, None, None, None, None, None)
+
+
+def batch_norm_max(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   running_mean: torch.Tensor, running_var: torch.Tensor,
+                   train: bool, update: bool, momentum: float,
+                   eps: float) -> torch.Tensor:
+    """``batch_norm(x, ..., relu=True).amax(-2)`` of x [..., K, C] (K <= 64)
+    -> [..., C] in x's dtype, through K13a and K13e on the card: the same
+    bits, without the [..., K, C] activation.  Differentiable in x, weight
+    and bias (K13f, then K13c and K13d; a tie's gradient split evenly, as
+    ``amax``'s).  Without gradients K13e writes no winners words."""
+    if x.dim() < 2:
+        raise ValueError("batch_norm max: x must be [..., K, C]")
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _BatchNormMax.apply(x, weight, bias, running_mean,
+                                   running_var, train, update, momentum, eps)
+    return _max_forward(x, weight, bias, running_mean, running_var, train,
+                        update, momentum, eps, False)[0]
 
 
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
