@@ -161,6 +161,17 @@ result unless every phase passed):
    `group_regions_two_scales` at ``infer_config()`` (4,000 centers, 256
    at `group_radius`, 2,048 at `group_radius_more`) with
    `closing_region_crop` from its wide regions (plain PyTorch);
+(k) the JAX package's Orbax checkpoint ``tests/data/orbax_tiny`` (a
+   ``tiny_config()`` TrainState after one score step, written by
+   ``tools/make_orbax_fixture.py``) read by the port's own OCDBT, zarr and
+   zstd readers, every leaf (path, dtype, shape, SHA-256) held to the
+   fixture's ``expected.json``; one forward on the card from the Orbax
+   directory bit-equal to the forward from the same values given as
+   arrays; the train CLI resumed from the fixture's tag directory for one
+   step on the card (Adam's counts carried: step 2 in ``ckpt_1.pt``); the
+   reader's ms and the decoder's MB/s (host CPU) beside the card's name
+   and power limit, and the launches of the forward and of the step,
+   counters reset before and read after each;
 (c) the evaluator on the card against the CPU (in a helper process beside
    the training phases), on suite scene clutter_00 and the 4,000 stage-2
    grasps of a forward on it: view masks, funnel and scene check equal
@@ -3481,6 +3492,139 @@ def determinism_phase(tmp) -> dict:
     return out
 
 
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_tiny"
+
+
+def flat_leaves(tree, path=()):
+    """(path, leaf) of a restored tree in JAX's flattening order: dict keys
+    sorted, list items in order, None a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from flat_leaves(v, path + (str(i),))
+    else:
+        yield list(path), tree
+
+
+def orbax_phase(dev, smi: str) -> tuple:
+    """Phase (k): the JAX package's Orbax checkpoint fixture through the
+    port's reader, a forward and the train CLI's ``--resume`` on the card.
+    Returns (the launch counts of the forward and of the resumed step, the
+    phase's numbers)."""
+    import hashlib
+    import shutil
+    from regnet_for_3d_grasping_torch.cli import train as train_cli
+    from regnet_for_3d_grasping_torch.config import tiny_config
+    from regnet_for_3d_grasping_torch.models.regnet import build_regnet
+    from regnet_for_3d_grasping_torch.ops import _cuda
+    from regnet_for_3d_grasping_torch.utils import checkpoint, ocdbt, zstd
+    from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
+
+    zstd.build_library()          # built before the reader is timed
+    t0 = time.perf_counter()
+    tree, resume = checkpoint.restore_orbax(str(ORBAX_FIXTURE))
+    read_ms = (time.perf_counter() - t0) * 1e3
+    expected = json.loads((ORBAX_FIXTURE / "expected.json").read_text())
+    got = list(flat_leaves(tree))
+    check(resume == expected["epoch"] + 1
+          and len(got) == len(expected["leaves"]),
+          f"phase (k): {len(got)} leaves at epoch {resume - 1}, the fixture "
+          f"has {len(expected['leaves'])} at {expected['epoch']}")
+    n_bytes = 0
+    for (path, leaf), want in zip(got, expected["leaves"]):
+        check(path == want["path"], f"phase (k): leaf {path} where the "
+              f"fixture has {want['path']}")
+        if want.get("none"):
+            check(leaf is None, f"phase (k): {path} is not None")
+            continue
+        if isinstance(leaf, torch.Tensor):
+            dtype, raw = "bfloat16", leaf.view(torch.int16).numpy().tobytes()
+        else:
+            dtype, raw = str(leaf.dtype), leaf.tobytes()
+        n_bytes += len(raw)
+        check((dtype, list(leaf.shape), hashlib.sha256(raw).hexdigest())
+              == (want["dtype"], want["shape"], want["sha256"]),
+              f"phase (k): {path} differs from the fixture's expected.json")
+    # the decoder alone, over the fixture's zarr chunks
+    store = ocdbt.KvStore(ORBAX_FIXTURE / "ckpt_0")
+    frames = [store.read(k) for k in store.keys()
+              if not k.endswith(b"/.zarray")]
+    t0 = time.perf_counter()
+    decoded = sum(len(zstd.decompress(f)) for f in frames)
+    decode_s = time.perf_counter() - t0
+
+    # one forward from the Orbax directory and from the same values given
+    # as arrays (the npz layout): bit-equal
+    cfg = tiny_config()
+    n = cfg.region.num_points
+    cxyz, crgb = tabletop_cloud(np.random.RandomState(7), n + 64)
+    pc = torch.tensor(np.c_[cxyz, crgb][:n], dtype=torch.float32,
+                      device=dev)[None]
+    arrays = {}
+    for coll, sub in checkpoint.variables(tree).items():
+        for path, leaf in flat_leaves(sub, (coll,)):
+            arrays["/".join(path)] = leaf
+    outs, launches = [], {}
+    for label, w in (("orbax_forward", str(ORBAX_FIXTURE)),
+                     ("arrays", arrays)):
+        model = build_regnet(cfg, w, dev)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with torch.inference_mode():
+            outs.append(model(pc, generator=torch.Generator()
+                              .manual_seed(3)))
+        torch.cuda.synchronize()
+        launches[label] = dict(_cuda.launches)
+    check(all(a is None and b is None or torch.equal(a, b)
+              for a, b in zip(*outs)),
+          "phase (k): the forward from the Orbax directory differs from the "
+          "forward from the same arrays")
+    check(bool(torch.isfinite(outs[0].final_grasps).all()),
+          "phase (k): non-finite grasps")
+    check(sum(launches["orbax_forward"].values()) > 0,
+          "phase (k): the forward launched none of the port's kernels")
+
+    # the train CLI resumed from the fixture's tag directory, one step
+    with tempfile.TemporaryDirectory() as tmp:
+        tag = Path(tmp) / "models" / "orbax"
+        shutil.copytree(ORBAX_FIXTURE / "ckpt_0", tag / "ckpt_0")
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = train_cli.main([
+            "--mode", "pretrain_score", "--tiny", "--synthetic-scenes", "6",
+            "--data-path", str(Path(tmp) / "scenes"), "--model-path",
+            str(Path(tmp) / "models"), "--log-path", str(Path(tmp) / "log"),
+            "--tag", "orbax", "--batch-size", "4", "--epoch", "2",
+            "--resume", "--seed", "1"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches["orbax_resume"] = dict(_cuda.launches)
+        check([s["epoch"] for s in res["steps"]] == [1]
+              and all(np.isfinite(s["loss"]) for s in res["steps"]),
+              f"phase (k): the resumed run's steps {res['steps']}")
+        saved = checkpoint.load_checkpoint(str(tag))
+        check(saved["epoch"] == 1 and all(
+            float(st["step"]) == 2 for st in saved["adam"]["state"].values()),
+            "phase (k): ckpt_1.pt does not carry Adam's counts on")
+    check(launches["orbax_resume"]["bn_stats"] > 0,
+          "phase (k): the resumed step launched no BatchNorm kernel")
+    numbers = {"read_ms": read_ms, "leaves": len(got), "array_bytes": n_bytes,
+               "decode_mb_s": decoded / decode_s / 1e6,
+               "decoded_bytes": decoded,
+               "frame_bytes": sum(len(f) for f in frames),
+               "resume_step_s": resume_s, "card": smi}
+    print(f"phase (k): the Orbax fixture ({len(got)} leaves, {n_bytes} "
+          f"bytes of arrays) read in {read_ms:.1f} ms; zstd decoder "
+          f"{numbers['decode_mb_s']:.1f} MB/s over {len(frames)} frames "
+          f"({decoded} bytes out), on the host CPU; forward bit-equal to the "
+          f"arrays' ({sum(launches['orbax_forward'].values())} launches); "
+          f"resumed train CLI {resume_s:.1f} s "
+          f"({sum(launches['orbax_resume'].values())} launches); card {smi}")
+    return launches, numbers
+
+
 def eval_scene_grasps(dev) -> tuple:
     """Suite v2's clutter_00 and the 4,000 stage-2 grasps of one full-scan
     forward on it (f32, `weights/r4_coherent_e100.npz`, seed 7012)."""
@@ -5133,6 +5277,11 @@ def main() -> None:
         compared[key] = (over, {"full": full_rand, "slab": slab_rand}[rand])
         if "model.compute_dtype" in over:
             compared[key + F64] = (over, compared[key][1], "f64")
+    # (k) the JAX package's Orbax checkpoint, read by the port
+    t0 = time.perf_counter()
+    orbax_paths, orbax = orbax_phase(dev, smi)
+    paths |= orbax_paths
+    print(f"phase (k): {time.perf_counter() - t0:.1f} s")
     # (e) suite v2 through the metrics CLI, both configurations
     suite = suite_phase(ROOT / "chiprun_out" / "suite")
     # (c) the evaluator on the card; the CPU's side in a helper beside the
@@ -5176,7 +5325,8 @@ def main() -> None:
     print(json.dumps({"bf16_train_step_card_vs_cpu": step}))
     print(json.dumps({"determinism": det, "evaluator": evaluator,
                       "suite_v2": suite, "knob_serving": knob_serving,
-                      "data_parallel": data_parallel, "library": library}))
+                      "data_parallel": data_parallel, "library": library,
+                      "orbax": orbax}))
 
     main_path = {**dict.fromkeys(results, "full_scan"),
                  **dict.fromkeys(SLAB_KERNELS, "slab"),

@@ -38,6 +38,7 @@ Usage:
   python -m regnet_for_3d_grasping_torch.cli.infer [--no-eval] \\
       --folder-name /path/to/virtual_data \\
       --checkpoint weights/r5_real_e100.npz [--fast | --bf16]
+      (or --checkpoint <JAX Orbax tag directory or its ckpt_N>)
       [--slab-cell 0.04 --fps-groups 8] [--center-min-z 0.75] \\
       [--pose-search 8] [--refine-guard] [--center-select bucket] [--dp]
 """
@@ -59,7 +60,9 @@ def build_parser():
     p.add_argument("--folder-name", type=str, default="")
     p.add_argument("--file-name", type=str, default="")
     p.add_argument("--checkpoint", type=str, default="",
-                   help="weights npz (weights/*.npz); random init if empty")
+                   help="weights npz (weights/*.npz) or the JAX package's "
+                        "Orbax checkpoint (a tag directory, latest epoch, "
+                        "or one ckpt_N directory); random init if empty")
     p.add_argument("--center-num", type=int, default=4000)
     p.add_argument("--group-num-more", type=int, default=2048,
                    help="wide-region points (the JAX CLI's flag; no model "

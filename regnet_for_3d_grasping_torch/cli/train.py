@@ -27,6 +27,13 @@ works as on one card.  Otherwise, or with ``--device cpu``, the CLI runs
 on one device.  A rank that fails ends the run with an error; it never goes on
 with fewer cards or on the CPU.
 
+``--resume`` continues at epoch N + 1 from the latest checkpoint under
+model-path/tag: the port's ``ckpt_N.pt`` or the JAX package's Orbax
+directory ``ckpt_N`` (`utils/checkpoint.restore_orbax`: its params, batch
+statistics and Adam's moments and counts, `train.trainer.
+load_jax_opt_state`).  ``--load-score-path`` and ``--load-region-path``
+take either form too.
+
 Usage:
   python -m regnet_for_3d_grasping_torch.cli.train --mode train \\
       --synthetic-scenes 24 --data-path /tmp/scenes --batch-size 12 \\
@@ -103,15 +110,19 @@ def build_parser():
                    help="run validation forwards at this center_num instead "
                         "of the training value")
     p.add_argument("--load-score-path", type=str, default="",
-                   help="checkpoint tag dir (or a ckpt_N.pt) whose ScoreNet "
-                        "weights initialize this run")
+                   help="checkpoint tag dir (or a ckpt_N.pt, or a JAX "
+                        "Orbax ckpt_N dir) whose ScoreNet weights "
+                        "initialize this run")
     p.add_argument("--load-region-path", type=str, default="",
-                   help="checkpoint tag dir (or a ckpt_N.pt) whose GRN and "
-                        "RefineNet weights initialize this run; the "
-                        "optimizer state starts fresh")
+                   help="checkpoint tag dir (or a ckpt_N.pt, or a JAX "
+                        "Orbax ckpt_N dir) whose GRN and RefineNet weights "
+                        "initialize this run; the optimizer state starts "
+                        "fresh")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint under "
-                        "model-path/tag")
+                        "model-path/tag: the port's ckpt_N.pt or the JAX "
+                        "package's Orbax ckpt_N directory (model, batch "
+                        "statistics and Adam's state)")
     p.add_argument("--synthetic-scenes", type=int, default=0,
                    help="generate N synthetic scenes under data-path first")
     p.add_argument("--gt-robust", type=int, default=0,
@@ -172,8 +183,9 @@ def build_model(cfg, seed: int, device):
 
 def merge_checkpoint_modules(model, path: str, prefixes) -> None:
     """Initialise the named top-level modules of `model` from another
-    run's checkpoint (a tag directory, latest epoch, or one ``ckpt_N.pt``).
-    Entries the checkpoint lacks keep their fresh init."""
+    run's checkpoint (a tag directory, latest epoch, one ``ckpt_N.pt`` or
+    one JAX Orbax ``ckpt_N`` directory).  Entries the checkpoint lacks keep
+    their fresh init."""
     from regnet_for_3d_grasping_torch.utils import checkpoint as ckpt
     saved = ckpt.load_checkpoint(path.rstrip("/"))
     own = model.state_dict()
@@ -391,6 +403,11 @@ def _run(args, devices, mesh=None, device=None) -> dict:
                                        resume_epoch)
     if saved is not None and "adam" in saved:
         optimizer.adam.load_state_dict(saved["adam"])
+    elif saved is not None and "jax" in saved:
+        if "opt_state" not in saved["jax"]:
+            raise ValueError(f"the Orbax checkpoint under {ckpt_dir} holds "
+                             f"no optimizer state to resume")
+        trainer.load_jax_opt_state(optimizer, saved["jax"]["opt_state"])
     if args.load_score_path:
         merge_checkpoint_modules(model, args.load_score_path, ["score_net"])
     if args.load_region_path:

@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import tempfile
 from typing import List
 
 import numpy as np
@@ -23,11 +21,11 @@ import numpy as np
 from regnet_for_3d_grasping_torch.data.dataset import (SceneBatch,
                                                        load_scene,
                                                        pad_gt_grasps)
+from regnet_for_3d_grasping_torch.utils.native import (NATIVE_DIR,
+                                                       build_shared)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                           "native")
-SOURCE = os.path.join(_NATIVE_DIR, "loader.cc")
-BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+SOURCE = os.path.join(NATIVE_DIR, "loader.cc")
+BUILD_DIR = os.path.join(NATIVE_DIR, "build")
 COMPILER = "g++"
 
 
@@ -35,26 +33,8 @@ def build_library(force: bool = False) -> str:
     """Compile ``native/loader.cc`` with `COMPILER` where the library is
     missing or older than the source; returns the library's path, or
     raises RuntimeError with the compiler's output."""
-    so = os.path.join(BUILD_DIR, "librsc_loader.so")
-    if (os.path.exists(so) and not force
-            and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # build beside the target and rename, so that concurrent builders
-    # never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [COMPILER, "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-           SOURCE, "-o", tmp]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    except (subprocess.CalledProcessError, OSError) as e:
-        os.unlink(tmp)
-        detail = getattr(e, "stderr", None) or str(e)
-        raise RuntimeError(f"the native loader did not build ({' '.join(cmd)}"
-                           f"): {detail}") from e
-    os.replace(tmp, so)
-    return so
+    return build_shared(SOURCE, os.path.join(BUILD_DIR, "librsc_loader.so"),
+                        COMPILER, ["-pthread"], "the native loader", force)
 
 
 def scene_to_rsc(scene: dict, out_path: str) -> None:

@@ -373,8 +373,9 @@ class REGNet(nn.Module):
 def build_regnet(cfg: PipelineConfig, weights=None,
                  device: str | torch.device | None = None) -> REGNet:
     """Entry point: an eval-mode REGNet on `device` (``cuda`` unless the
-    caller asks for another), with `weights` (an npz path or the JAX
-    variable arrays, see `weights.jax_to_state_dict`) when given.  Serving
+    caller asks for another), with `weights` (an npz path, a JAX Orbax
+    checkpoint directory or the JAX variable arrays, see
+    `weights.load_into`) when given.  Serving
     callers run it under ``torch.inference_mode()``; the trainer switches
     it to ``.train()``."""
     dev = resolve_device(device)

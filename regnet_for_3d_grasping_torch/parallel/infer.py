@@ -102,8 +102,9 @@ def _sync(dev: torch.device) -> None:
 
 class DataParallelInference:
     """W worker processes, one per device of `devices`, each holding the
-    eval-mode model of `cfg` with `weights` (an npz path, JAX variable
-    arrays, or None for the random init of ``torch.manual_seed(init_seed)``,
+    eval-mode model of `cfg` with `weights` (an npz path, a JAX Orbax
+    checkpoint directory, which each worker reads, JAX variable arrays, or
+    None for the random init of ``torch.manual_seed(init_seed)``,
     as the infer CLI draws it); a worker on the CPU runs one torch thread.
     Call it with a batch; `close` it (or use it as a context manager) to
     stop the workers."""

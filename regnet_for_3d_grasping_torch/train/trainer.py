@@ -74,8 +74,14 @@ class Optimizer:
         self.resume_epoch = resume_epoch
         self.updates = 0
         score, region = [], []
-        for name, p in model.named_parameters():
-            (score if name.startswith("score_net.") else region).append(p)
+        # the parameters' names in the order of Adam's state_dict
+        self.names: List[str] = []
+        named = list(model.named_parameters())
+        for group in (True, False):
+            for name, p in named:
+                if name.startswith("score_net.") == group:
+                    (score if group else region).append(p)
+                    self.names.append(name)
         lr_s, lr_r = learning_rates(cfg, resume_epoch)
         self.adam = torch.optim.Adam(
             [{"params": score, "lr": lr_s}, {"params": region, "lr": lr_r}],
@@ -105,6 +111,53 @@ class Optimizer:
 def make_optimizer(model: REGNet, cfg: PipelineConfig, steps_per_epoch: int,
                    resume_epoch: int = 0) -> Optimizer:
     return Optimizer(model, cfg, steps_per_epoch, resume_epoch)
+
+
+def load_jax_opt_state(optimizer: Optimizer, opt_state: dict) -> None:
+    """Take the JAX package's optax state, as an Orbax checkpoint restores
+    it (``utils/checkpoint.restore_orbax``), into `optimizer`'s Adam.
+
+    JAX's state is ``inner_states.{score,region}.inner_state[0]``, an
+    ``optax.ScaleByAdamState(count, mu, nu)`` whose mu and nu mirror the
+    params with None outside the group, and ``inner_state[1].count``, the
+    schedule's count.  Each parameter takes its group's mu and nu at the
+    variable `weights.variable_path` names it by (kernels transposed) as
+    ``exp_avg`` and ``exp_avg_sq``, and its group's Adam count as ``step``.
+    The schedule's count is not taken: the port sets the rate from the
+    epoch resumed at and the updates made since (`Optimizer`), the
+    schedule the JAX docstring and the reference's StepLR describe."""
+    from regnet_for_3d_grasping_torch.weights import variable_path
+
+    sd = optimizer.adam.state_dict()
+    index = [i for g in sd["param_groups"] for i in g["params"]]
+    params = [p for g in optimizer.adam.param_groups for p in g["params"]]
+    state = {}
+    for i, name, p in zip(index, optimizer.names, params):
+        group = "score" if name.startswith("score_net.") else "region"
+        try:
+            adam = opt_state["inner_states"][group]["inner_state"][0]
+        except (KeyError, IndexError, TypeError) as e:
+            raise KeyError(f"no Adam state of the {group!r} group in the "
+                           f"JAX optimizer state") from e
+        coll, path = variable_path(name, p.ndim)
+        moments = []
+        for field in ("mu", "nu"):
+            node = adam[field]
+            for part in path.split("/"):
+                node = node.get(part) if isinstance(node, dict) else None
+            if node is None:
+                raise KeyError(f"JAX {group} Adam {field} has no {path!r} "
+                               f"(for {name})")
+            t = torch.as_tensor(node).float()
+            moments.append(t.T.contiguous() if p.ndim == 2 else t)
+        if moments[0].shape != p.shape:
+            raise ValueError(f"JAX Adam state of {path!r} has shape "
+                             f"{tuple(moments[0].shape)}, {name} "
+                             f"{tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(float(adam["count"])),
+                    "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+    sd["state"] = state
+    optimizer.adam.load_state_dict(sd)
 
 
 def _check_stage(cfg: PipelineConfig, stage: str) -> None:

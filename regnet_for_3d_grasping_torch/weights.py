@@ -2,8 +2,10 @@
 ``utils/checkpoint.py:84-109``).
 
 The npz files under ``weights/`` hold flax variables under '/'-joined
-paths (``params/...`` and ``batch_stats/...``) plus ``__epoch__``.  The
-port's modules carry the same names, so the mapping is per leaf:
+paths (``params/...`` and ``batch_stats/...``) plus ``__epoch__``; the JAX
+package's Orbax checkpoint directories hold them as nested dicts
+(``utils/checkpoint.restore_orbax``).  The port's modules carry the same
+names, so the mapping is per leaf:
 
   params/<path>/kernel        [in, out] -> <path>.weight [out, in]
   params/<path>/scale, bias             -> <path>.weight, <path>.bias
@@ -36,7 +38,8 @@ def read_npz(path: str | os.PathLike) -> tuple[dict, int]:
 
 def jax_to_state_dict(arrays: dict) -> dict:
     """{'params/a/b/kernel': array, ...} (flat, or nested dicts as the JAX
-    ``load_weights_npz`` returns them) -> {'a.b.weight': tensor, ...}."""
+    ``load_weights_npz`` and an Orbax restore return them; a leaf may be a
+    bfloat16 tensor) -> {'a.b.weight': f32 tensor, ...}."""
     flat = {}
 
     def walk(node, prefix):
@@ -53,7 +56,8 @@ def jax_to_state_dict(arrays: dict) -> dict:
         name = _LEAF.get((coll, leaf))
         if name is None or not path:
             raise KeyError(f"unexpected weight array {key!r}")
-        t = torch.from_numpy(np.array(val, np.float32))
+        t = val.float().clone() if isinstance(val, torch.Tensor) else \
+            torch.from_numpy(np.array(val, np.float32))
         if leaf == "kernel":
             t = t.T.contiguous()
         tkey = ".".join(path + [name])
@@ -99,11 +103,16 @@ def write_npz(path: str | os.PathLike, model: nn.Module, epoch: int) -> None:
 
 
 def load_into(model: nn.Module, weights) -> int | None:
-    """Load an npz path or JAX variable arrays into `model`; fail on any
-    array left over or any parameter missing.  Returns the epoch when the
-    npz records one."""
+    """Load an npz path, a JAX Orbax checkpoint (a tag directory, latest
+    epoch, or one ``ckpt_N`` directory; its params and batch_stats) or JAX
+    variable arrays into `model`; fail on any array left over or any
+    parameter missing.  Returns the epoch when the file records one."""
     epoch = None
-    if isinstance(weights, (str, os.PathLike)):
+    if isinstance(weights, (str, os.PathLike)) and os.path.isdir(weights):
+        from regnet_for_3d_grasping_torch.utils import checkpoint
+        tree, resume = checkpoint.restore_orbax(os.fspath(weights))
+        weights, epoch = checkpoint.variables(tree), resume - 1
+    elif isinstance(weights, (str, os.PathLike)):
         weights, epoch = read_npz(weights)
     sd = jax_to_state_dict(weights)
     missing, unexpected = model.load_state_dict(sd, strict=False)
