@@ -168,10 +168,15 @@ result unless every phase passed):
    fixture's ``expected.json``; one forward on the card from the Orbax
    directory bit-equal to the forward from the same values given as
    arrays; the train CLI resumed from the fixture's tag directory for one
-   step on the card (Adam's counts carried: step 2 in ``ckpt_1.pt``); the
-   reader's ms and the decoder's MB/s (host CPU) beside the card's name
-   and power limit, and the launches of the forward and of the step,
-   counters reset before and read after each;
+   step on the card, writing ``ckpt_1/``, the JAX package's checkpoint,
+   through the port's own writer: read back equal to the model's and
+   Adam's state (counts and step 2), ``--resume`` from it bit-equal to
+   ``--resume`` from a ``ckpt_1.pt`` of the same state, a forward from it
+   bit-equal to the forward from its arrays; the reader's ms, the
+   decoder's MB/s and the writer's ms and MB/s (host CPU: the tiny state,
+   the r5 weights at full width, and those with a fresh Adam) beside the
+   card's name and power limit, and the launches of the forwards and of
+   the steps, counters reset before and read after each;
 (c) the evaluator on the card against the CPU (in a helper process beside
    the training phases), on suite scene clutter_00 and the 4,000 stage-2
    grasps of a forward on it: view masks, funnel and scene check equal
@@ -2233,7 +2238,7 @@ def train(argv_extra, tmp, label, n_val, want_step, want_val, keep=None):
              if not torch.equal(fresh[k], now[k].cpu())}
     check(moved == {"score_net", "grn_head", "refine_head"},
           f"{label}: only {sorted(moved)} moved in training")
-    check((Path(tmp) / "models" / label / "ckpt_0.pt").exists(),
+    check((Path(tmp) / "models" / label / "ckpt_0" / "_METADATA").exists(),
           f"{label}: no checkpoint written")
     ms = [s["seconds"] * 1e3 for s in steps]
     print(f"{label} training, batch {TRAIN_B}: losses "
@@ -3508,17 +3513,52 @@ def flat_leaves(tree, path=()):
         yield list(path), tree
 
 
+def same_leaves(a, b) -> bool:
+    """Two checkpoint trees with the same paths, None leaves, dtypes,
+    shapes and bytes."""
+    fa, fb = list(flat_leaves(a)), list(flat_leaves(b))
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        (x is None and y is None) or (
+            x is not None and y is not None
+            and (np.asarray(x).dtype, np.asarray(x).shape)
+            == (np.asarray(y).dtype, np.asarray(y).shape)
+            and np.asarray(x).tobytes() == np.asarray(y).tobytes())
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def orbax_write_ms(model, optimizer, epoch: int) -> tuple:
+    """(median ms of 3 `save_checkpoint` calls of `model` and `optimizer`
+    from the card into a temporary directory, host clock; the arrays'
+    bytes)."""
+    from regnet_for_3d_grasping_torch.utils import checkpoint
+
+    n_bytes = sum(np.asarray(x).nbytes for _, x in flat_leaves(
+        checkpoint.train_state(model, optimizer)) if x is not None)
+    times = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(tmp, epoch, model, optimizer)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), n_bytes
+
+
 def orbax_phase(dev, smi: str) -> tuple:
     """Phase (k): the JAX package's Orbax checkpoint fixture through the
-    port's reader, a forward and the train CLI's ``--resume`` on the card.
-    Returns (the launch counts of the forward and of the resumed step, the
-    phase's numbers)."""
+    port's reader, a forward and the train CLI's ``--resume`` on the card;
+    then what the resumed step wrote, ``ckpt_1/``, the JAX package's
+    checkpoint written by the port: read back, resumed again beside a
+    ``ckpt_1.pt`` of the same state, and served.  Returns (the launch
+    counts of the forwards and of the resumed steps, the phase's
+    numbers)."""
     import hashlib
     import shutil
     from regnet_for_3d_grasping_torch.cli import train as train_cli
-    from regnet_for_3d_grasping_torch.config import tiny_config
+    from regnet_for_3d_grasping_torch.config import infer_config, tiny_config
     from regnet_for_3d_grasping_torch.models.regnet import build_regnet
     from regnet_for_3d_grasping_torch.ops import _cuda
+    from regnet_for_3d_grasping_torch.train import trainer
     from regnet_for_3d_grasping_torch.utils import checkpoint, ocdbt, zstd
     from regnet_for_3d_grasping_torch.utils.scene import tabletop_cloud
 
@@ -3555,66 +3595,114 @@ def orbax_phase(dev, smi: str) -> tuple:
     decoded = sum(len(zstd.decompress(f)) for f in frames)
     decode_s = time.perf_counter() - t0
 
-    # one forward from the Orbax directory and from the same values given
+    # one forward from an Orbax directory and from the same values given
     # as arrays (the npz layout): bit-equal
     cfg = tiny_config()
     n = cfg.region.num_points
     cxyz, crgb = tabletop_cloud(np.random.RandomState(7), n + 64)
     pc = torch.tensor(np.c_[cxyz, crgb][:n], dtype=torch.float32,
                       device=dev)[None]
-    arrays = {}
-    for coll, sub in checkpoint.variables(tree).items():
-        for path, leaf in flat_leaves(sub, (coll,)):
-            arrays["/".join(path)] = leaf
-    outs, launches = [], {}
-    for label, w in (("orbax_forward", str(ORBAX_FIXTURE)),
-                     ("arrays", arrays)):
-        model = build_regnet(cfg, w, dev)
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        with torch.inference_mode():
-            outs.append(model(pc, generator=torch.Generator()
-                              .manual_seed(3)))
-        torch.cuda.synchronize()
-        launches[label] = dict(_cuda.launches)
-    check(all(a is None and b is None or torch.equal(a, b)
-              for a, b in zip(*outs)),
-          "phase (k): the forward from the Orbax directory differs from the "
-          "forward from the same arrays")
-    check(bool(torch.isfinite(outs[0].final_grasps).all()),
-          "phase (k): non-finite grasps")
-    check(sum(launches["orbax_forward"].values()) > 0,
-          "phase (k): the forward launched none of the port's kernels")
+    launches = {}
 
-    # the train CLI resumed from the fixture's tag directory, one step
+    def forwards(label, directory, tree):
+        arrays = {}
+        for coll, sub in checkpoint.variables(tree).items():
+            for path, leaf in flat_leaves(sub, (coll,)):
+                arrays["/".join(path)] = leaf
+        outs = []
+        for key, w in ((label, directory), (label + "_arrays", arrays)):
+            model = build_regnet(cfg, w, dev)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            with torch.inference_mode():
+                outs.append(model(pc, generator=torch.Generator()
+                                  .manual_seed(3)))
+            torch.cuda.synchronize()
+            launches[key] = dict(_cuda.launches)
+        check(all(a is None and b is None or torch.equal(a, b)
+                  for a, b in zip(*outs)),
+              f"phase (k): the forward from {directory} differs from the "
+              f"forward from the same arrays")
+        check(bool(torch.isfinite(outs[0].final_grasps).all()),
+              f"phase (k): non-finite grasps from {directory}")
+        check(sum(launches[label].values()) > 0,
+              f"phase (k): the forward from {directory} launched none of "
+              f"the port's kernels")
+
+    forwards("orbax_forward", str(ORBAX_FIXTURE), tree)
+
     with tempfile.TemporaryDirectory() as tmp:
-        tag = Path(tmp) / "models" / "orbax"
-        shutil.copytree(ORBAX_FIXTURE / "ckpt_0", tag / "ckpt_0")
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        res = train_cli.main([
-            "--mode", "pretrain_score", "--tiny", "--synthetic-scenes", "6",
-            "--data-path", str(Path(tmp) / "scenes"), "--model-path",
-            str(Path(tmp) / "models"), "--log-path", str(Path(tmp) / "log"),
-            "--tag", "orbax", "--batch-size", "4", "--epoch", "2",
-            "--resume", "--seed", "1"])
-        torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
-        launches["orbax_resume"] = dict(_cuda.launches)
-        check([s["epoch"] for s in res["steps"]] == [1]
-              and all(np.isfinite(s["loss"]) for s in res["steps"]),
-              f"phase (k): the resumed run's steps {res['steps']}")
-        saved = checkpoint.load_checkpoint(str(tag))
-        check(saved["epoch"] == 1 and all(
-            float(st["step"]) == 2 for st in saved["adam"]["state"].values()),
-            "phase (k): ckpt_1.pt does not carry Adam's counts on")
+        models = Path(tmp) / "models"
+
+        def train(tag, epochs):
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            res = train_cli.main([
+                "--mode", "pretrain_score", "--tiny", "--synthetic-scenes",
+                "6", "--data-path", str(Path(tmp) / "scenes"),
+                "--model-path", str(models), "--log-path",
+                str(Path(tmp) / "log"), "--tag", tag, "--batch-size", "4",
+                "--epoch", str(epochs), "--resume", "--seed", "1"])
+            torch.cuda.synchronize()
+            check([s["epoch"] for s in res["steps"]] == [epochs - 1]
+                  and all(np.isfinite(s["loss"]) for s in res["steps"]),
+                  f"phase (k): the run resumed from {tag}'s steps "
+                  f"{res['steps']}")
+            check(sorted(os.listdir(models / tag))[-1] == f"ckpt_{epochs - 1}"
+                  and (models / tag / f"ckpt_{epochs - 1}" / "_METADATA")
+                  .exists(), f"phase (k): the train CLI wrote no "
+                  f"ckpt_{epochs - 1}/ under {tag}")
+            return res, time.perf_counter() - t0, dict(_cuda.launches)
+
+        # the train CLI resumed from the fixture's tag directory, one step;
+        # it writes ckpt_1/, which the port reads back as the state it
+        # ended with
+        shutil.copytree(ORBAX_FIXTURE / "ckpt_0", models / "orbax" / "ckpt_0")
+        res, resume_s, launches["orbax_resume"] = train("orbax", 2)
+        written, resume = checkpoint.restore_orbax(str(models / "orbax"))
+        adam = written["opt_state"]["inner_states"]
+        check(resume == 2 and same_leaves(written, checkpoint.train_state(
+            res["model"], res["optimizer"])),
+              "phase (k): ckpt_1/ differs from the model's and Adam's state")
+        check(int(written["step"]) == 2 and all(
+            int(adam[g]["inner_state"][i]["count"]) == 2
+            for g in ("score", "region") for i in (0, 1)),
+            "phase (k): ckpt_1/ does not carry Adam's counts on")
+        # --resume from it and from a ckpt_1.pt of the same state: the same
+        # next step, bit for bit
+        checkpoint.save_pt_checkpoint(str(models / "pt"), 1, res["model"],
+                                      res["optimizer"])
+        again = {}
+        for tag in ("orbax", "pt"):
+            step, _, launches[f"{tag}_resume_again"] = train(tag, 3)
+            again[tag] = (step["steps"][0]["loss"],
+                          checkpoint.restore_orbax(str(models / tag))[0])
+        check(again["orbax"][0] == again["pt"][0]
+              and same_leaves(again["orbax"][1], again["pt"][1]),
+              "phase (k): --resume from ckpt_1/ differs from --resume from "
+              "ckpt_1.pt of the same state")
+        forwards("written_forward", str(models / "orbax" / "ckpt_1"),
+                 written)
+        tiny_ms, tiny_bytes = orbax_write_ms(res["model"], res["optimizer"],
+                                             1)
     check(launches["orbax_resume"]["bn_stats"] > 0,
           "phase (k): the resumed step launched no BatchNorm kernel")
+    # the write at full width: the served weights alone, and with a fresh
+    # Adam (zero moments) as a training run's first epoch writes them
+    full = build_regnet(infer_config(), str(WEIGHTS), dev)
+    r5_ms, r5_bytes = orbax_write_ms(full, None, 100)
+    adam_ms, adam_bytes = orbax_write_ms(
+        full, trainer.make_optimizer(full, infer_config(), 1), 100)
+    del full
+    writes = {"tiny": (tiny_ms, tiny_bytes), "r5": (r5_ms, r5_bytes),
+              "r5_adam": (adam_ms, adam_bytes)}
     numbers = {"read_ms": read_ms, "leaves": len(got), "array_bytes": n_bytes,
                "decode_mb_s": decoded / decode_s / 1e6,
                "decoded_bytes": decoded,
                "frame_bytes": sum(len(f) for f in frames),
-               "resume_step_s": resume_s, "card": smi}
+               "resume_step_s": resume_s, "card": smi,
+               "write": {k: {"ms": ms, "bytes": b, "mb_s": b / ms / 1e3}
+                         for k, (ms, b) in writes.items()}}
     print(f"phase (k): the Orbax fixture ({len(got)} leaves, {n_bytes} "
           f"bytes of arrays) read in {read_ms:.1f} ms; zstd decoder "
           f"{numbers['decode_mb_s']:.1f} MB/s over {len(frames)} frames "
@@ -3622,6 +3710,16 @@ def orbax_phase(dev, smi: str) -> tuple:
           f"arrays' ({sum(launches['orbax_forward'].values())} launches); "
           f"resumed train CLI {resume_s:.1f} s "
           f"({sum(launches['orbax_resume'].values())} launches); card {smi}")
+    print("phase (k): the port's Orbax writer (host CPU of the card's "
+          "machine, the state copied from the card; median of 3 writes "
+          "into the page cache, not synced): " + "; ".join(
+              f"{k} {w['bytes']} bytes of arrays in {w['ms']:.1f} ms, "
+              f"{w['mb_s']:.1f} MB/s" for k, w in numbers["write"].items())
+          + f"; ckpt_1/ read back equal to the model's and Adam's state, "
+          f"--resume from it bit-equal to --resume from ckpt_1.pt, its "
+          f"forward bit-equal to the arrays' "
+          f"({sum(launches['written_forward'].values())} launches); "
+          f"card {smi}")
     return launches, numbers
 
 

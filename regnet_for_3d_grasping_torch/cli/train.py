@@ -27,12 +27,16 @@ works as on one card.  Otherwise, or with ``--device cpu``, the CLI runs
 on one device.  A rank that fails ends the run with an error; it never goes on
 with fewer cards or on the CPU.
 
-``--resume`` continues at epoch N + 1 from the latest checkpoint under
-model-path/tag: the port's ``ckpt_N.pt`` or the JAX package's Orbax
-directory ``ckpt_N`` (`utils/checkpoint.restore_orbax`: its params, batch
-statistics and Adam's moments and counts, `train.trainer.
-load_jax_opt_state`).  ``--load-score-path`` and ``--load-region-path``
-take either form too.
+Each epoch rank 0 writes ``ckpt_N/`` under model-path/tag, the JAX
+package's Orbax checkpoint of the model and Adam (`utils/checkpoint.
+save_checkpoint`), as the JAX CLI does: the JAX package resumes it, trains
+from it in stages and evaluates it, as the port does with the JAX
+package's.  ``--resume`` continues at epoch N + 1 from the latest
+checkpoint under model-path/tag: an Orbax directory ``ckpt_N`` of either
+side (`utils/checkpoint.restore_orbax`: its params, batch statistics and
+Adam's moments and counts, `train.trainer.load_jax_opt_state`) or a
+``ckpt_N.pt`` the port wrote before it wrote Orbax directories.
+``--load-score-path`` and ``--load-region-path`` take either form too.
 
 Usage:
   python -m regnet_for_3d_grasping_torch.cli.train --mode train \\
@@ -110,19 +114,20 @@ def build_parser():
                    help="run validation forwards at this center_num instead "
                         "of the training value")
     p.add_argument("--load-score-path", type=str, default="",
-                   help="checkpoint tag dir (or a ckpt_N.pt, or a JAX "
-                        "Orbax ckpt_N dir) whose ScoreNet weights "
+                   help="checkpoint tag dir (or an Orbax ckpt_N dir, "
+                        "or a ckpt_N.pt) whose ScoreNet weights "
                         "initialize this run")
     p.add_argument("--load-region-path", type=str, default="",
-                   help="checkpoint tag dir (or a ckpt_N.pt, or a JAX "
-                        "Orbax ckpt_N dir) whose GRN and RefineNet weights "
+                   help="checkpoint tag dir (or an Orbax ckpt_N dir, "
+                        "or a ckpt_N.pt) whose GRN and RefineNet weights "
                         "initialize this run; the optimizer state starts "
                         "fresh")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint under "
-                        "model-path/tag: the port's ckpt_N.pt or the JAX "
-                        "package's Orbax ckpt_N directory (model, batch "
-                        "statistics and Adam's state)")
+                        "model-path/tag: an Orbax ckpt_N directory, "
+                        "written by this CLI or the JAX package's, or a "
+                        "ckpt_N.pt (model, batch statistics and Adam's "
+                        "state)")
     p.add_argument("--synthetic-scenes", type=int, default=0,
                    help="generate N synthetic scenes under data-path first")
     p.add_argument("--gt-robust", type=int, default=0,
@@ -339,6 +344,7 @@ def _rank(rank: int, device: torch.device, args, devices) -> dict:
             "collective_ms": mesh.collective_ms() if cuda else None}
     if rank != 0:
         return {"rank": info}
+    del result["optimizer"]
     model = result.pop("model")
     result["state_dict"] = {k: v.cpu() for k, v in
                             model.state_dict().items()}
@@ -433,9 +439,9 @@ def _run(args, devices, mesh=None, device=None) -> dict:
     # for), with the training model's weights copied in before each epoch
     eval_model = (model if eval_cfg == cfg and not args.center_jitter
                   else build_model(eval_cfg, args.seed, device))
-    result = {"model": model, "cfg": cfg, "eval_cfg": eval_cfg, "steps": [],
-              "epochs": [], "validation": [], "grasp_records": [],
-              "trace": None}
+    result = {"model": model, "optimizer": optimizer, "cfg": cfg,
+              "eval_cfg": eval_cfg, "steps": [], "epochs": [],
+              "validation": [], "grasp_records": [], "trace": None}
 
     # the grasp evaluation spreads one scene per device where there are
     # several (JAX `cli/train.py:311`); rank 0 runs it over every card

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from regnet_for_3d_grasping_torch.config import PipelineConfig
@@ -158,6 +159,39 @@ def load_jax_opt_state(optimizer: Optimizer, opt_state: dict) -> None:
                     "exp_avg": moments[0], "exp_avg_sq": moments[1]}
     sd["state"] = state
     optimizer.adam.load_state_dict(sd)
+
+
+def jax_opt_state(optimizer: Optimizer) -> Tuple[dict, int]:
+    """`optimizer`'s Adam as the JAX package's optax state, the inverse of
+    `load_jax_opt_state`, in the dicts and lists `utils/checkpoint.
+    restore_orbax` gives back: ``inner_states.{score,region}.inner_state``
+    is ``[{count, mu, nu}, {count}]``, mu and nu mirroring the params
+    (kernels [in, out]) with None outside the group, zeros before the first
+    update.  Both counts are the group's updates made, as a JAX run that
+    made them would have written them.  Returns (the state, the updates
+    made: TrainState's step)."""
+    from regnet_for_3d_grasping_torch.weights import nest, variable_path
+
+    counts = {"score": 0, "region": 0}
+    moments = {g: {"mu": {}, "nu": {}} for g in counts}
+    params = [p for g in optimizer.adam.param_groups for p in g["params"]]
+    for name, p in zip(optimizer.names, params):
+        group = "score" if name.startswith("score_net.") else "region"
+        _, path = variable_path(name, p.ndim)
+        adam = optimizer.adam.state.get(p, {})
+        if "step" in adam:
+            counts[group] = max(counts[group], int(adam["step"]))
+        for field, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            a = (adam[key].detach().cpu().numpy() if key in adam
+                 else np.zeros(tuple(p.shape), np.float32))
+            a = np.ascontiguousarray(a.T if a.ndim == 2 else a)
+            for g in moments:
+                moments[g][field][path] = a if g == group else None
+    state = {g: {"inner_state": [
+        {"count": np.asarray(counts[g], np.int32),
+         "mu": nest(moments[g]["mu"]), "nu": nest(moments[g]["nu"])},
+        {"count": np.asarray(counts[g], np.int32)}]} for g in counts}
+    return {"inner_states": state}, max(counts.values())
 
 
 def _check_stage(cfg: PipelineConfig, stage: str) -> None:

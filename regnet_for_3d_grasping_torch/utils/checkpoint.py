@@ -1,24 +1,31 @@
 """Checkpoints with the JAX package's resume semantics (its
 ``utils/checkpoint.py``).
 
-The port writes one file ``ckpt_{epoch}.pt`` per epoch under a tag
-directory, holding the model's state_dict, the optimizer's state and the
-epoch (``torch.save``).  It also reads the JAX package's Orbax checkpoint
-directories ``ckpt_{epoch}/`` (`restore_orbax`, the counterpart of JAX's
-``restore_checkpoint(base_dir, epoch, target=None)``) through its own
-OCDBT, zarr and zstd readers (``utils/ocdbt.py``), so a TPU run's
-checkpoint resumes or serves on the card without orbax.  The port writes
-no Orbax directory: its weights cross back to the JAX package as npz
-(``weights.write_npz``).
+The port writes the JAX package's own checkpoint: one Orbax directory
+``ckpt_{epoch}/`` per epoch under a tag directory (`save_checkpoint`), the
+tree of JAX's ``TrainState._asdict()`` (params, batch_stats, optax's
+opt_state, step), which JAX's ``restore_checkpoint`` reads with and without
+``target`` as if JAX had written it.  It reads such directories back
+(`restore_orbax`, the counterpart of JAX's ``restore_checkpoint(base_dir,
+epoch, target=None)``), whichever side wrote them, through its own OCDBT,
+zarr and zstd code (``utils/ocdbt.py``), so a run resumes, serves or
+continues in stages on either side without orbax.  ``ckpt_{epoch}.pt``
+files (the model's state_dict, the optimizer's state and the epoch,
+``torch.save``), which the port wrote before it wrote Orbax directories,
+still load (`load_checkpoint`); `save_pt_checkpoint` writes one.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import re
+import shutil
+import time
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 _PT = re.compile(r"ckpt_(\d+)\.pt")
@@ -29,9 +36,10 @@ def _path(base_dir: str, epoch: int) -> str:
     return os.path.join(os.path.abspath(base_dir), f"ckpt_{epoch}.pt")
 
 
-def save_checkpoint(base_dir: str, epoch: int, model, optimizer=None) -> str:
-    """`optimizer` is a `train.trainer.Optimizer` (or None to leave its
-    state out)."""
+def save_pt_checkpoint(base_dir: str, epoch: int, model,
+                       optimizer=None) -> str:
+    """Write ``ckpt_{epoch}.pt``; `optimizer` is a `train.trainer.Optimizer`
+    (or None to leave its state out)."""
     os.makedirs(base_dir, exist_ok=True)
     path = _path(base_dir, epoch)
     state = {"epoch": epoch, "model": model.state_dict()}
@@ -40,6 +48,124 @@ def save_checkpoint(base_dir: str, epoch: int, model, optimizer=None) -> str:
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+    return path
+
+
+def train_state(model, optimizer=None) -> dict:
+    """The tree of the JAX package's ``TrainState._asdict()`` for `model`
+    and `optimizer` (a `train.trainer.Optimizer`): ``params`` and
+    ``batch_stats`` as nested dicts of numpy arrays, ``opt_state`` as
+    optax's state in dicts and lists (`train.trainer.jax_opt_state`), and
+    ``step``, the updates made, an int32 scalar.  Without an optimizer the
+    tree holds no opt_state and step is 0."""
+    from regnet_for_3d_grasping_torch.weights import nest, state_dict_to_jax
+
+    tree = nest(state_dict_to_jax(model.state_dict()))
+    step = 0
+    if optimizer is not None:
+        from regnet_for_3d_grasping_torch.train.trainer import jax_opt_state
+        tree["opt_state"], step = jax_opt_state(optimizer)
+    tree["step"] = np.asarray(step, np.int32)
+    return tree
+
+
+# what JAX's CPU device 0 is called: the device `_sharding` names
+JAX_CPU_DEVICE = "TFRT_CPU_0"
+_HANDLER = ("orbax.checkpoint._src.handlers.pytree_checkpoint_handler."
+            "PyTreeCheckpointHandler")
+
+
+def _leaves(node, keys, out) -> None:
+    """(key_metadata, leaf) of every leaf under `node`, in JAX's flattening
+    order: a dict's keys sorted (key_type 2), a list's or tuple's indices
+    (key_type 1)."""
+    if isinstance(node, dict):
+        items = [(k, 2, node[k]) for k in sorted(node)]
+    elif isinstance(node, (list, tuple)):
+        items = [(str(i), 1, v) for i, v in enumerate(node)]
+    else:
+        out.append((keys, node))
+        return
+    for k, kind, v in items:
+        _leaves(v, keys + [{"key": k, "key_type": kind}], out)
+
+
+def write_orbax(ckpt_dir: str, tree: Any) -> None:
+    """Write `tree` (nested dicts, lists and tuples; float32 and int32
+    arrays, and None, at the leaves) as the Orbax PyTree checkpoint
+    directory `ckpt_dir`, which must not exist: the inverse of
+    `restore_orbax`.  Beside the OCDBT database (``utils/ocdbt.py``) of the
+    leaves' zarr arrays it writes what orbax reads with it: ``_METADATA``
+    (the tree: each leaf's keys and value type, ``"None"`` for a None),
+    ``_CHECKPOINT_METADATA``, ``array_metadatas/process_0`` and
+    ``_sharding``.  JAX's restore without ``target`` reads no
+    ``_sharding``; with one (its resume, its staged training) it takes
+    each array's sharding from that file and fails without it, so every
+    array is written on JAX's CPU device 0, `JAX_CPU_DEVICE`, where the
+    JAX package's CPU processes find it (a process whose devices are all
+    TPUs restores it without ``target``)."""
+    from regnet_for_3d_grasping_torch.utils import ocdbt
+
+    t0 = time.time_ns()
+    leaves: list = []
+    _leaves(tree, [], leaves)
+    items, meta, arrays, sharding = {}, {}, [], {}
+    placement = json.dumps({"sharding_type": "SingleDeviceSharding",
+                            "device_str": JAX_CPU_DEVICE})
+    for keys, leaf in leaves:
+        path = [k["key"] for k in keys]
+        name = ".".join(path)
+        if leaf is None:
+            value = {"value_type": "None", "skip_deserialize": True}
+        else:
+            leaf = np.asarray(leaf)
+            ocdbt.write_array(items, name, leaf)
+            value = {"value_type": "jax.Array", "skip_deserialize": False,
+                     "write_shape": list(leaf.shape)}
+            arrays.append({"array_metadata": {
+                "param_name": name, "write_shape": list(leaf.shape),
+                "chunk_shape": list(leaf.shape), "ext_metadata": None}})
+            sharding[base64.b64encode(name.encode()).decode()] = placement
+        meta[str(tuple(path))] = {"key_metadata": keys,
+                                  "value_metadata": value}
+    os.makedirs(ckpt_dir)
+    ocdbt.write_kvstore(ckpt_dir, items)
+    os.makedirs(os.path.join(ckpt_dir, "array_metadatas"))
+    files = {
+        "_METADATA": {"tree_metadata": meta, "use_ocdbt": True,
+                      "use_zarr3": False,
+                      "store_array_data_equal_to_fill_value": True,
+                      "custom_metadata": None},
+        "_sharding": sharding,
+        os.path.join("array_metadatas", "process_0"): {
+            "array_metadatas": arrays},
+        "_CHECKPOINT_METADATA": {
+            "item_handlers": _HANDLER, "metrics": {},
+            "performance_metrics": {}, "init_timestamp_nsecs": t0,
+            "commit_timestamp_nsecs": time.time_ns(),
+            "custom_metadata": {}}}
+    for name, content in files.items():
+        with open(os.path.join(ckpt_dir, name), "w") as f:
+            f.write(json.dumps(content))
+
+
+def save_checkpoint(base_dir: str, epoch: int, model,
+                    optimizer=None) -> str:
+    """Write ``ckpt_{epoch}/``, the JAX package's checkpoint of `model` and
+    `optimizer` (`train_state`, `write_orbax`), as JAX's ``save_checkpoint``
+    does with ``force=True``: into a temporary directory renamed into
+    place over any earlier one.  A ``ckpt_{epoch}.pt`` of the same epoch
+    is removed, so that a tag directory never holds an epoch twice."""
+    base = os.path.abspath(base_dir)
+    os.makedirs(base, exist_ok=True)
+    path = os.path.join(base, f"ckpt_{epoch}")
+    tmp = f"{path}.orbax-checkpoint-tmp-{time.time_ns()}"
+    write_orbax(tmp, train_state(model, optimizer))
+    if os.path.lexists(path):
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+    if os.path.exists(_path(base, epoch)):
+        os.remove(_path(base, epoch))
     return path
 
 
@@ -62,8 +188,8 @@ def _epochs(base_dir: str) -> Tuple[set, set]:
 
 
 def latest_epoch(base_dir: str) -> Optional[int]:
-    """The latest epoch under a tag directory, of the port's ``ckpt_N.pt``
-    files and the JAX package's ``ckpt_N`` Orbax directories alike."""
+    """The latest epoch under a tag directory, of ``ckpt_N`` Orbax
+    directories and ``ckpt_N.pt`` files alike."""
     if not os.path.isdir(base_dir):
         return None
     pt, orbax = _epochs(base_dir)

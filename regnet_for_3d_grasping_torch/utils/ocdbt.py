@@ -1,5 +1,5 @@
-"""Read the key-value store and the arrays of an Orbax checkpoint directory
-without orbax or tensorstore (the card's machine has neither).
+"""Read and write the key-value store and the arrays of an Orbax checkpoint
+directory without orbax or tensorstore (the card's machine has neither).
 
 Orbax (through tensorstore) keeps a PyTree checkpoint's arrays as zarr v2
 arrays inside one OCDBT database: a B+tree of keys such as
@@ -17,6 +17,22 @@ array's metadata) and ``.../0.0`` (its chunks), under the directory's
 Every container's CRC-32C is checked.  What the reader does not know raises
 `OcdbtError` naming what it found (a numbered manifest, a codec, a dtype,
 zarr v3); it never guesses.
+
+The writers are the other direction, in the simplest layout tensorstore's
+``ocdbt`` kvstore reads (and so orbax, which opens the checkpoint directory
+itself as the database):
+
+  * `write_kvstore`: a sorted key -> value map as one database, a
+    single-version manifest (kind 0, nothing compressed, a fresh uuid) at
+    the top of the directory and one data file ``d/<32 hex digits>`` with
+    the values longer than the inline limit, then the B+tree's nodes, leaves
+    first, each node within the decoded node limit (interior nodes once one
+    leaf is not enough).  Orbax writes ``ocdbt.process_0/`` beside the top
+    manifest because each of its processes writes a database of its own
+    that it then merges; one writer needs none, and orbax reads the top
+    manifest alone;
+  * `write_array`: a zarr v2 array of float32 or int32 as one chunk (chunks
+    = shape, a scalar's key ``name/0``), with no compressor.
 
 The encoding, every integer a LEB128 varint unless said otherwise:
 
@@ -55,6 +71,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import time
+import uuid
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -294,6 +312,170 @@ class KvStore:
         return value
 
 
+# ---------------------------------------------------------------- writing
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append(n & 0x7F | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _varints(ns) -> bytes:
+    return b"".join(_varint(n) for n in ns)
+
+
+def _wrap(magic: int, body: bytes) -> bytes:
+    """A container of `body`: format version 0, compression 0."""
+    head = magic.to_bytes(4, "big") + (len(body) + 18).to_bytes(8, "little")
+    data = head + b"\0\0" + body
+    return data + zstd.crc32c(data).to_bytes(4, "little")
+
+
+def _one_file(path: bytes) -> bytes:
+    """A data file table of the one file `path` (its base path empty)."""
+    return _varint(1) + _varint(len(path)) + _varint(0) + path
+
+
+def _common_prefix(a: bytes, b: bytes) -> bytes:
+    return os.path.commonprefix([a, b])
+
+
+def _key_columns(keys: List[bytes]) -> Tuple[bytes, bytes, bytes]:
+    """(prefix lengths shared with the key before, suffix lengths,
+    suffixes) of a node's keys."""
+    prefix, suffix = [], []
+    for prev, key in zip([b""] + keys, keys):
+        n = len(_common_prefix(prev, key))
+        prefix.append(n)
+        suffix.append(key[n:])
+    return (_varints(prefix[1:]), _varints(len(x) for x in suffix),
+            b"".join(suffix))
+
+
+class _Node(NamedTuple):
+    first: bytes     # the subtree's first and last full keys
+    last: bytes
+    prefix: bytes    # what every key under it shares, which it leaves out
+    offset: int
+    length: int
+    keys: int        # the statistics: keys, node bytes, indirect value
+    tree_bytes: int  # bytes under it
+    indirect: int
+
+
+def _groups(sizes: List[int], limit: int, least: int) -> List[range]:
+    """Runs of consecutive entries whose sizes (upper bounds of their
+    encoding) sum within `limit`, each of at least `least` entries."""
+    out, start, total = [], 0, 0
+    for i, size in enumerate(sizes):
+        if i - start >= least and total + size > limit:
+            out.append(range(start, i))
+            start, total = i, 0
+        total += size
+    out.append(range(start, len(sizes)))
+    return out
+
+
+def write_kvstore(root: str | os.PathLike, items: Dict[bytes, bytes], *,
+                  max_inline_value_bytes: int = 1024,
+                  max_decoded_node_bytes: int = 100_000_000) -> None:
+    """Write `items` as a new OCDBT database under `root`: its
+    ``manifest.ocdbt`` and one data file under ``d/`` (the limits are
+    orbax's).  `root` must hold no database yet."""
+    if not items:
+        raise OcdbtError("an empty database is not written")
+    root = os.fspath(root)
+    if os.path.exists(os.path.join(root, "manifest.ocdbt")):
+        raise OcdbtError(f"{root} already holds a database")
+    name = f"d/{uuid.uuid4().hex}".encode()
+    data = bytearray()
+    keys = sorted(items)
+    values = []          # bytes inline, or (offset, length) in the file
+    for key in keys:
+        v = bytes(items[key])
+        if len(v) > max_inline_value_bytes:
+            values.append((len(data), len(v)))
+            data += v
+        else:
+            values.append(v)
+    # upper bounds of a node's encoding less its entries (height, file
+    # table, count) and of each entry's share (a key's prefix stripped
+    # shortens it and its varints)
+    limit = max_decoded_node_bytes - 11 - len(_one_file(name))
+    size = lambda *ns: sum(len(_varint(n)) for n in ns)  # noqa: E731
+    sizes = [len(k) + size(len(k), len(k)) + 1 + (
+        size(0, v[0], v[1]) if isinstance(v, tuple) else size(len(v))
+        + len(v)) for k, v in zip(keys, values)]
+    groups = _groups(sizes, limit, 1)
+    level: List[_Node] = []
+    for g in groups:
+        first, last = keys[g.start], keys[g.stop - 1]
+        prefix = b"" if len(groups) == 1 else _common_prefix(first, last)
+        vals = [values[i] for i in g]
+        refs = [v for v in vals if isinstance(v, tuple)]
+        p, s, suffixes = _key_columns([keys[i][len(prefix):] for i in g])
+        body = (b"\0" + (_one_file(name) if refs else _varint(0))
+                + _varint(len(g)) + p + s + suffixes
+                + _varints(v[1] if isinstance(v, tuple) else len(v)
+                           for v in vals)
+                + _varints(int(isinstance(v, tuple)) for v in vals)
+                + _varints(0 for _ in refs) + _varints(o for o, _ in refs)
+                + b"".join(v for v in vals if not isinstance(v, tuple)))
+        node = _wrap(NODE_MAGIC, body)
+        level.append(_Node(first, last, prefix, len(data), len(node),
+                           len(g), len(node), sum(n for _, n in refs)))
+        data += node
+    height = 0
+    while len(level) > 1:
+        height += 1
+        sizes = [len(c.first) + size(*[len(c.first)] * 3, 0, c.offset,
+                                     c.length, c.keys, c.tree_bytes,
+                                     c.indirect) for c in level]
+        groups = _groups(sizes, limit, 2)
+        parents = []
+        for g in groups:
+            kids = [level[i] for i in g]
+            first, last = kids[0].first, kids[-1].last
+            prefix = b"" if len(groups) == 1 else _common_prefix(first, last)
+            p, s, suffixes = _key_columns([c.first[len(prefix):]
+                                           for c in kids])
+            body = (bytes([height]) + _one_file(name) + _varint(len(kids))
+                    + p + s + _varints(len(c.prefix) - len(prefix)
+                                       for c in kids)
+                    + suffixes + _varints(0 for _ in kids)
+                    + _varints(c.offset for c in kids)
+                    + _varints(c.length for c in kids)
+                    + _varints(c.keys for c in kids)
+                    + _varints(c.tree_bytes for c in kids)
+                    + _varints(c.indirect for c in kids))
+            node = _wrap(NODE_MAGIC, body)
+            parents.append(_Node(
+                first, last, prefix, len(data), len(node),
+                sum(c.keys for c in kids),
+                len(node) + sum(c.tree_bytes for c in kids),
+                sum(c.indirect for c in kids)))
+            data += node
+        level = parents
+    top = level[0]
+    manifest = (uuid.uuid4().bytes + _varint(0)
+                + _varints([max_inline_value_bytes, max_decoded_node_bytes])
+                + bytes([4]) + _varint(0) + _one_file(name)
+                # one version: generation 1, its root, statistics and commit
+                # time, and no version tree node
+                + _varint(1) + _varint(1) + bytes([height])
+                + _varints([0, top.offset, top.length, top.keys,
+                            top.tree_bytes, top.indirect])
+                + time.time_ns().to_bytes(8, "little") + _varint(0))
+    os.makedirs(os.path.join(root, "d"), exist_ok=True)
+    with open(os.path.join(root, name.decode()), "wb") as f:
+        f.write(data)
+    with open(os.path.join(root, "manifest.ocdbt"), "wb") as f:
+        f.write(_wrap(MANIFEST_MAGIC, manifest))
+
+
 # ---------------------------------------------------------------- zarr v2
 
 _DTYPES = {"<f4": np.float32, "<f8": np.float64, "<i4": np.int32,
@@ -372,3 +554,24 @@ def read_array(store: KvStore, name: str):
     if dtype == "bfloat16":
         return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
     return out
+
+
+_WRITE_DTYPES = {np.dtype(np.float32): "<f4", np.dtype(np.int32): "<i4"}
+
+
+def write_array(items: Dict[bytes, bytes], name: str, array) -> None:
+    """Add the zarr v2 array `name` to `items` (for `write_kvstore`): its
+    ``.zarray`` and its one chunk, uncompressed."""
+    a = np.asarray(array)
+    dtype = _WRITE_DTYPES.get(a.dtype)
+    if dtype is None:
+        raise OcdbtError(f"{name}: dtype {a.dtype} (this writer writes "
+                         f"float32 and int32)")
+    shape = list(a.shape)
+    meta = {"chunks": shape, "compressor": None, "dimension_separator": ".",
+            "dtype": dtype, "fill_value": None, "filters": None,
+            "order": "C", "shape": shape, "zarr_format": 2}
+    items[f"{name}/.zarray".encode()] = json.dumps(
+        meta, separators=(",", ":")).encode()
+    chunk = ".".join("0" * a.ndim) or "0"
+    items[f"{name}/{chunk}".encode()] = np.ascontiguousarray(a).tobytes()

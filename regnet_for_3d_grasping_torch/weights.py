@@ -83,6 +83,18 @@ def variable_path(key: str, ndim: int) -> tuple[str, str]:
     return coll, "/".join([*path, leaf])
 
 
+def nest(flat: dict) -> dict:
+    """{'a/b/c': leaf, ...} -> {'a': {'b': {'c': leaf}}, ...}."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *path, last = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
 def state_dict_to_jax(state_dict: dict) -> dict:
     """{'a.b.weight': tensor, ...} -> {'params/a/b/kernel': array, ...}:
     the inverse of `jax_to_state_dict` (names by `variable_path`; kernels

@@ -399,7 +399,7 @@ def test_train_cli_trains_data_parallel_over_the_visible_devices(
     assert "data-parallel over 2 devices" in capsys.readouterr().out
     assert len(res["steps"]) == 2 and len(res["ranks"]) == 2
     assert [r["device"] for r in res["ranks"]] == CPU2
-    assert (tmp_path / "m" / "default" / "ckpt_0.pt").exists()
+    assert (tmp_path / "m" / "default" / "ckpt_0" / "_METADATA").exists()
     assert len(res["validation"]) == 2 and res["grasp_records"]
     assert [e["epoch"] for e in res["epochs"]] == [0]
     assert 0 < res["epochs"][0]["validate_seconds"] < res["epochs"][0][

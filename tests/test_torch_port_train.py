@@ -1095,7 +1095,8 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, data_dir, capsys):
     assert all(np.isfinite(s["loss"]) for s in res["steps"])
     assert ckpt.latest_epoch(str(tmp_path / "models" / "default")) == 0
     saved = ckpt.load_checkpoint(str(tmp_path / "models" / "default"))
-    assert saved["epoch"] == 0 and "adam" in saved
+    assert saved["epoch"] == 0 and "opt_state" in saved["jax"]
+    assert (tmp_path / "models" / "default" / "ckpt_0" / "_METADATA").exists()
     first = {k: v.clone() for k, v in res["model"].state_dict().items()}
     assert all(torch.equal(saved["model"][k], v) for k, v in first.items())
 
@@ -1116,9 +1117,13 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, data_dir, capsys):
     assert steps == [0, 1, 2, 3]
     # resumed at epoch 1 with lr_step_epochs 1: the rate has halved, and
     # the Adam moments came back with the checkpoint
+    assert [g["lr"] for g in res2["optimizer"].adam.param_groups] == [
+        5e-4, 5e-4]
     saved2 = ckpt.load_checkpoint(str(tmp_path / "models" / "default"))
-    assert [g["lr"] for g in saved2["adam"]["param_groups"]] == [5e-4, 5e-4]
-    assert int(next(iter(saved2["adam"]["state"].values()))["step"]) == 4
+    adam = saved2["jax"]["opt_state"]["inner_states"]["score"][
+        "inner_state"]
+    assert int(adam[0]["count"]) == int(adam[1]["count"]) == 4
+    assert int(saved2["jax"]["step"]) == 4
 
 
 @pytest.mark.parametrize("mode,extra", [
@@ -1151,7 +1156,7 @@ def test_validate_mode_and_partial_loads(tmp_path, data_dir, capsys):
     res = train_cli.main(cli_args(
         tmp_path, data_dir, "--mode", "test_region", "--tag", "other",
         "--load-score-path", str(tmp_path / "models" / "s"),
-        "--load-region-path", str(tmp_path / "models" / "s" / "ckpt_0.pt")))
+        "--load-region-path", str(tmp_path / "models" / "s" / "ckpt_0")))
     assert "loaded" in capsys.readouterr().out
     saved = ckpt.load_checkpoint(str(tmp_path / "models" / "s"))["model"]
     got = res["model"].state_dict()
