@@ -13,8 +13,10 @@ weights; with the two flags, the sorted-slab serving configuration; with
 synthetic tabletop clouds, two warm-up forwards first, then runs the
 next `--clouds` forwards untraced and once more under ``torch.profiler``,
 and prints: the host-clock latency of each forward both ways, the device
-busy share (summed kernel time over wall time, against the traced and the
-untraced forwards; overlapping kernels would count twice), the
+busy share (the union of the device's activity intervals over wall time,
+against the traced and the untraced forwards), the program's spans a
+forward and the longest idle gaps of the card, each with the innermost
+span open on the host in it (`print_spans`), the
 device-to-host copies per forward (in slab mode one of them is the read of
 the 3-NN certificate), the forwards that fell back to the full-scan 3-NN,
 the device time per forward of the ten costliest kernels and of every
@@ -32,12 +34,28 @@ all three losses, freshly initialised weights; with ``--bf16``, bf16
 training, the train CLI's ``--bf16``), deterministic as the train CLI runs
 it, on synthetic scenes made from a seed; two warm-up steps, two untraced
 steps, then one step whose forward (with the losses) and whose backward
-(with the update) are traced apart.
+(with the update) are traced apart, and one more step traced whole with
+its input (a batch read from the scenes, prepared and uploaded) for the
+program's spans, its counters and the idle gaps.
 It prints the step times, the peak device memory, and for each half the
 device busy time, the launches, the GEMMs' time, BatchNorm's and the SA
 max's (as for a forward; in the backward, what the autograd nodes of
 their forward ops launched: ``amax``'s backward, or K13f) and the five
 costliest kernels.
+
+The program's spans (``utils/trace.py``, on while the profiler records;
+profiler ranges ``regnet::<span>``): ``regnet`` (``REGNet.forward``) >
+``sn`` (ScoreNet), ``grn`` (centers, grouping, pool, TwoStageHead, decode,
+pose search), ``rn`` (refine, guard, acceptance); ``extract``; ``step``
+(``train_step``) > ``forward`` (``regnet`` and the losses), ``backward``,
+``update``; ``data.prep`` > ``data.read``, ``data.upload``.  ``sn``,
+``grn``, ``rn``, ``forward``, ``backward`` and ``update`` are timed on the
+card's stream by CUDA events at their ends (wall time on the stream, its
+idle gaps included, not the card's work); each counted wait of the host
+for the card (``to_host``, ``to_device``, ``waiting``) adds to its
+innermost span's syncs and wait.  The counters ``read_bytes`` (the scene
+files read in ``data.read``) and ``upload_bytes`` (``data.upload``) print
+as MB a step and MB/s of their span's host time.
 """
 
 from __future__ import annotations
@@ -49,6 +67,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from regnet_for_3d_grasping_torch.utils import trace
 
 WEIGHTS = Path(__file__).resolve().parents[2] / "weights" / "r5_real_e100.npz"
 
@@ -109,6 +129,7 @@ def main(argv=None) -> None:
 
     untraced = serve()
     _cuda.reset_launches()
+    trace.reset()
     with batch_norm_ranges(), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_all = time.perf_counter()
@@ -116,7 +137,7 @@ def main(argv=None) -> None:
         wall = (time.perf_counter() - t_all) * 1e3
     n = args.clouds
     kernels = device_kernels(prof)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = trace.device_timeline(prof)["busy_us"] / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"forward latency (host clock) ms: profiler off "
           f"{[round(x, 3) for x in untraced]}, profiler on "
@@ -124,6 +145,7 @@ def main(argv=None) -> None:
     print(f"device busy {busy / n:.3f} ms per forward of {wall / n:.3f} ms "
           f"wall: busy share {busy / wall:.3f} with the profiler on, "
           f"{busy / sum(untraced):.3f} of the untraced forwards")
+    print_spans(prof, n, "forward")
     d2h = [e for e in prof.key_averages() if "Memcpy DtoH" in e.key]
     print(f"device-to-host copies per forward: "
           f"{sum(e.count for e in d2h) / n:.1f}, "
@@ -158,6 +180,36 @@ def main(argv=None) -> None:
         print(f"{title} ({how}): {ms / n:.3f} ms in {count / n:.1f} "
               f"launches per forward, {ms / n / (busy / n):.3f} of the busy "
               f"time")
+
+
+def print_spans(prof, n: int, unit: str) -> None:
+    """The program's spans a `unit` (a forward or a step) of the `n` in the
+    profile `prof`: calls, host self ms, stream ms (the stream-timed
+    spans), the span's own syncs and their wait ms; the waits by where
+    they sit; the byte counters as MB a `unit` and MB/s of their span's
+    host time; the card's longest idle gaps, each with the innermost
+    program span open on the host in it."""
+    tot = trace.totals()
+    print(f"the program's spans, a {unit}: calls, host self ms, stream ms, "
+          f"syncs, wait ms")
+    for name, s in tot["spans"].items():
+        dev = "" if s["stream_ms"] is None else f"{s['stream_ms'] / n:.3f}"
+        print(f"  {name:<12} {s['calls'] / n:5g} {s['self_ms'] / n:9.3f} "
+              f"{dev:>9} {s['self_syncs'] / n:6g} "
+              f"{s['self_wait_ms'] / n:8.3f}")
+    print(f"syncs a {unit}: {tot['syncs'] / n:g} ("
+          + ", ".join(f"{w} {s['syncs'] / n:g}"
+                      for w, s in tot["sites"].items()) + ")")
+    for name, where in (("read_bytes", "data.read"),
+                        ("upload_bytes", "data.upload")):
+        if name in tot["counters"] and where in tot["spans"]:
+            mb = tot["counters"][name] / 1e6
+            ms = tot["spans"][where]["host_ms"]
+            print(f"{name}: {mb / n:.3f} MB a {unit}, {mb / ms * 1e3:.1f} "
+                  f"MB/s of {where}'s {ms / n:.3f} ms")
+    gaps = trace.device_timeline(prof)["gaps"]
+    print("longest idle gaps of the card, us (innermost span): "
+          + ", ".join(f"{us:.1f} ({span})" for span, us in gaps))
 
 
 def is_gemm(name: str) -> bool:
@@ -350,11 +402,11 @@ def _profile_train(args) -> None:
                           "model.fps_groups": args.fps_groups,
                           "model.compute_dtype": ("bfloat16" if args.bf16
                                                   else "float32")})
-    with tempfile.TemporaryDirectory() as tmp:
-        # the split keeps 80 % for training: make enough for one batch
-        write_synthetic_dataset(tmp, -(-B * 5 // 4), num_view=25600)
-        ds = GraspDataset(tmp, "train", 25600, cfg.region.max_gt_grasps, 1)
-        batch = trainer.device_batch(next(ds.batches(B, seed=0)), dev)
+    tmp = tempfile.TemporaryDirectory()
+    # the split keeps 80 % for training: make enough for one batch
+    write_synthetic_dataset(tmp.name, -(-B * 5 // 4), num_view=25600)
+    ds = GraspDataset(tmp.name, "train", 25600, cfg.region.max_gt_grasps, 1)
+    batch = trainer.device_batch(next(ds.batches(B, seed=0)), dev)
     model = build_model(cfg, 1, dev)
     opt = trainer.make_optimizer(model, cfg, 1)
     gen = torch.Generator().manual_seed(0)
@@ -405,7 +457,7 @@ def _profile_train(args) -> None:
     for title, prof, wall in (("forward and losses", fwd, t1 - t0),
                               ("backward and update", bwd, t2 - t1)):
         rows = device_kernels(prof)
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        busy = trace.device_timeline(prof)["busy_us"] / 1e3
         busy_all += busy
         gemm = [e for e in rows if is_gemm(e.key)]
         k13 = [e for e in own_kernels(rows) if is_batch_norm(e.key)]
@@ -428,6 +480,13 @@ def _profile_train(args) -> None:
     print(f"device busy {busy_all:.3f} ms per step: busy share "
           f"{busy_all / mean_untraced:.3f} of the untraced steps' mean "
           f"{mean_untraced:.3f} ms")
+    trace.reset()
+    with profile(activities=acts) as whole:
+        feed = trainer.device_batch(next(ds.batches(B, seed=1)), dev)
+        trainer.train_step(model, opt, feed, "refine", **kw)
+        torch.cuda.synchronize()
+    tmp.cleanup()
+    print_spans(whole, 1, "step")
 
 
 if __name__ == "__main__":

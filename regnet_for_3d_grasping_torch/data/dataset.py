@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from regnet_for_3d_grasping_torch.utils import trace
+
 
 class SceneBatch(NamedTuple):
     """One host-side batch, everything fixed-shape."""
@@ -40,8 +42,12 @@ class SceneBatch(NamedTuple):
 
 
 def load_scene(path: str) -> dict:
+    """The scene pickle at `path`; its bytes add to the counter
+    ``read_bytes``."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        data = pickle.load(f)
+        trace.count("read_bytes", f.tell())
+    return data
 
 
 def width_from_path(path: str, default: float = 0.08) -> float:
@@ -156,7 +162,10 @@ class GraspDataset:
 
     def get(self, index: int, rng: np.random.RandomState,
             augment: bool = True):
-        data = load_scene(self.paths[index])
+        """One scene: read (the span ``data.read``), resampled and
+        augmented."""
+        with trace.span("data.read"):
+            data = load_scene(self.paths[index])
         view = data["view_cloud"].astype(np.float32)
         color = data["view_cloud_color"].astype(np.float32)
         score = data["view_cloud_score"].astype(np.float32)
@@ -176,7 +185,9 @@ class GraspDataset:
 
     def batches(self, batch_size: int, seed: int = 0, shuffle: bool = True,
                 augment: bool = True, drop_last: bool = True):
-        """Yield SceneBatch objects for one epoch."""
+        """Yield SceneBatch objects for one epoch.  Each batch is made in
+        the span ``data.prep`` (its scenes' reads the child spans
+        ``data.read``), closed before it is yielded."""
         rng = np.random.RandomState(seed)
         order = np.arange(len(self))
         if shuffle:
@@ -184,14 +195,16 @@ class GraspDataset:
         stop = len(order) - batch_size + 1 if drop_last else len(order)
         for start in range(0, max(stop, 0), batch_size):
             chunk = order[start:start + batch_size]
-            items = [self.get(i, rng, augment) for i in chunk]
-            yield SceneBatch(
-                pc=np.stack([it[0] for it in items]),
-                score=np.stack([it[1] for it in items]),
-                label=np.stack([it[2] for it in items]),
-                gt_frames=np.stack([it[3] for it in items]),
-                gt_scores=np.stack([it[4] for it in items]),
-                gt_valid=np.stack([it[5] for it in items]),
-                paths=[it[6] for it in items],
-                width=np.full(len(items), self.width, np.float32),
-            )
+            with trace.span("data.prep"):
+                items = [self.get(i, rng, augment) for i in chunk]
+                batch = SceneBatch(
+                    pc=np.stack([it[0] for it in items]),
+                    score=np.stack([it[1] for it in items]),
+                    label=np.stack([it[2] for it in items]),
+                    gt_frames=np.stack([it[3] for it in items]),
+                    gt_scores=np.stack([it[4] for it in items]),
+                    gt_valid=np.stack([it[5] for it in items]),
+                    paths=[it[6] for it in items],
+                    width=np.full(len(items), self.width, np.float32),
+                )
+            yield batch

@@ -10,16 +10,21 @@ import math
 
 import torch
 
+from regnet_for_3d_grasping_torch.utils import trace
+
 _EPS = 1e-12
 
 
 def anchor_templates(device=None) -> torch.Tensor:
     """The 4 orientation anchors with theta 0 -> [4, 4] (rx, ry, rz,
-    theta)."""
+    theta); made on the host and, given a `device`, uploaded (a counted
+    wait)."""
     s3 = math.sqrt(3.0) / 3.0
-    return torch.tensor([[s3, s3, s3, 0.0], [s3, s3, -s3, 0.0],
-                         [s3, -s3, -s3, 0.0], [s3, -s3, s3, 0.0]],
-                        dtype=torch.float32, device=device)
+    t = torch.tensor([[s3, s3, s3, 0.0], [s3, s3, -s3, 0.0],
+                      [s3, -s3, -s3, 0.0], [s3, -s3, s3, 0.0]],
+                     dtype=torch.float32)
+    return t if device is None else trace.to_device(
+        t, device, "codec.anchor_templates")
 
 
 def _safe_normalize(v: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
@@ -44,7 +49,9 @@ def grasps_to_frames(grasp: torch.Tensor):
 
     def unit(i):
         e = torch.zeros(3, dtype=grasp.dtype, device=grasp.device)
-        e[i] = 1.0
+        # a Python value stored into a card's tensor: an upload that waits
+        with trace.waiting("codec.unit"):
+            e[i] = 1.0
         return e.expand(axis_y.shape)
 
     axis_y = _safe_normalize(axis_y, unit(1))

@@ -59,6 +59,7 @@ from regnet_for_3d_grasping_torch.ops import slab
 from regnet_for_3d_grasping_torch.ops.grouping import gather_points
 from regnet_for_3d_grasping_torch.ops.pooling import gather_max
 from regnet_for_3d_grasping_torch.runtime import resolve_device
+from regnet_for_3d_grasping_torch.utils import trace
 from regnet_for_3d_grasping_torch.weights import load_into
 
 
@@ -248,12 +249,24 @@ class REGNet(nn.Module):
         only: `sort_u` [B, N] f32 in [0, 1), the within-cell sort noise,
         and `sa1_seed`, the u32 seed of SA1's slab ball query.  What is not
         passed is drawn from `generator`."""
+        with trace.span("regnet"):
+            return self._stages(pc, generator, group_seeds, crop_seeds,
+                                sort_u, sa1_seed, with_refine,
+                                dropout_generator)
+
+    def _stages(self, pc, generator, group_seeds, crop_seeds, sort_u,
+                sa1_seed, with_refine, dropout_generator) -> REGNetOutput:
+        """`forward`'s three stages, each a span timed on the card's stream:
+        ``sn`` (ScoreNet, with the slab sort), ``grn`` (centers, grouping,
+        pool, TwoStageHead, decode, pose search) and ``rn`` (the refine
+        rounds, the guard, the acceptance)."""
         cfg, region = self.cfg, self.cfg.region
         B, N, _ = pc.shape
         NC = region.center_num
         iters = max(region.refine_iters, 1)
         cell = region.slab_cell
         slab_mode = cell > 0.0
+        dev = pc.device
         if group_seeds is None:
             group_seeds = _draw(generator, group_seed_count(
                 NC, N, region.group_num, slab_mode))
@@ -267,67 +280,73 @@ class REGNet(nn.Module):
         # ranges of the sorted cloud); otherwise the backbone sees the cloud
         # as given and its outputs are brought into slab order
         sc = None
-        if not slab_mode:
-            feature, score = self.score_net(
-                pc, dropout_generator=dropout_generator)
-        elif use_slab_backbone(N, cfg.model.num_neighbours[0]):
-            if sa1_seed is None:
-                sa1_seed = _draw(generator, 1)[0]
-            pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
-            feature, score = self.score_net(pc, sc, cell, sa1_seed,
-                                            dropout_generator)
-        else:
-            feature, score = self.score_net(
-                pc, dropout_generator=dropout_generator)
-            pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
-            feature = gather_points(feature, sc.order)
-            score = torch.gather(score, 1, sc.order.long())
+        with trace.span("sn", dev):
+            if not slab_mode:
+                feature, score = self.score_net(
+                    pc, dropout_generator=dropout_generator)
+            elif use_slab_backbone(N, cfg.model.num_neighbours[0]):
+                if sa1_seed is None:
+                    sa1_seed = _draw(generator, 1)[0]
+                pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
+                feature, score = self.score_net(pc, sc, cell, sa1_seed,
+                                                dropout_generator)
+            else:
+                feature, score = self.score_net(
+                    pc, dropout_generator=dropout_generator)
+                pc, sc = slab.sort_cloud(pc, cell, sort_u, generator)
+                feature = gather_points(feature, sc.order)
+                score = torch.gather(score, 1, sc.order.long())
 
-        centers, center_idx = select_score_centers(
-            pc, score, NC, region.score_thre, region.center_fps_groups,
-            region.center_select, region.center_min_z)
-        if sc is not None:
-            # x-sort the centers (stably: masked FPS repeats picks) so that
-            # each tile of 128 spans a narrow slab
-            c_ord = torch.sort(centers[..., 0], dim=-1, stable=True).indices
-            centers = gather_points(centers, c_ord)
-            center_idx = torch.gather(center_idx, 1, c_ord)
-        groups = group_regions(group_seeds, pc, centers, region.group_num,
-                               cfg.group_radius, sc, cell)
-        pooled = _pool(feature, groups.index, groups.valid, groups.slab_off,
-                       slab.GROUP_WIN, slab.GROUP_SPW)
-        cls_logits, reg = self.grn_head(pooled)
-        anchor_idx = torch.argmax(cls_logits, dim=-1)
-        proposals = decode_proposals(reg, anchor_idx, centers[..., :3],
-                                     cfg.gripper.depth)
-        # the serving knobs run wherever they are set, in training mode
-        # too, as in JAX (its `:289` reads no train flag), and stride over
-        # the cloud in the model's row order (slab order in slab mode)
-        if region.pose_search_k > 0:
-            proposals = pose_search_thetas(
-                pc[..., :3], proposals, region.pose_search_k,
-                region.pose_search_subsample, region.pose_search_table,
-                cfg.gripper)
+        with trace.span("grn", dev):
+            centers, center_idx = select_score_centers(
+                pc, score, NC, region.score_thre, region.center_fps_groups,
+                region.center_select, region.center_min_z)
+            if sc is not None:
+                # x-sort the centers (stably: masked FPS repeats picks) so
+                # that each tile of 128 spans a narrow slab
+                c_ord = torch.sort(centers[..., 0], dim=-1,
+                                   stable=True).indices
+                centers = gather_points(centers, c_ord)
+                center_idx = torch.gather(center_idx, 1, c_ord)
+            groups = group_regions(group_seeds, pc, centers,
+                                   region.group_num, cfg.group_radius, sc,
+                                   cell)
+            pooled = _pool(feature, groups.index, groups.valid,
+                           groups.slab_off, slab.GROUP_WIN, slab.GROUP_SPW)
+            cls_logits, reg = self.grn_head(pooled)
+            anchor_idx = torch.argmax(cls_logits, dim=-1)
+            proposals = decode_proposals(reg, anchor_idx, centers[..., :3],
+                                         cfg.gripper.depth)
+            # the serving knobs run wherever they are set, in training mode
+            # too, as in JAX (its `:289` reads no train flag), and stride
+            # over the cloud in the model's row order (slab order in slab
+            # mode)
+            if region.pose_search_k > 0:
+                proposals = pose_search_thetas(
+                    pc[..., :3], proposals, region.pose_search_k,
+                    region.pose_search_subsample, region.pose_search_table,
+                    cfg.gripper)
 
         proposals_sg = proposals.detach()
         if with_refine:
-            cur, crop_valid, refine_logits, refine_reg = self._refine(
-                pc, feature, pooled, proposals_sg, crop_seeds, sc)
-            if region.refine_guard:
-                cur = funnel_guard_refine(
-                    pc[..., :3], cur, proposals_sg,
-                    region.refine_guard_subsample, region.pose_search_table,
-                    cfg.gripper)
-            refine_accept = ((refine_logits[..., 1] - refine_logits[..., 0]
-                              > weak(region.accept_margin,
-                                     refine_logits.dtype)) & crop_valid)
-            score_accept = refine_accept & (cur[..., 7]
-                                            > region.grasp_score_thre)
+            with trace.span("rn", dev):
+                cur, crop_valid, refine_logits, refine_reg = self._refine(
+                    pc, feature, pooled, proposals_sg, crop_seeds, sc)
+                if region.refine_guard:
+                    cur = funnel_guard_refine(
+                        pc[..., :3], cur, proposals_sg,
+                        region.refine_guard_subsample,
+                        region.pose_search_table, cfg.gripper)
+                refine_accept = ((refine_logits[..., 1]
+                                  - refine_logits[..., 0]
+                                  > weak(region.accept_margin,
+                                         refine_logits.dtype)) & crop_valid)
+                score_accept = refine_accept & (cur[..., 7]
+                                                > region.grasp_score_thre)
         else:
             R = cfg.model.reg_channels
             cur = proposals_sg
-            crop_valid = torch.zeros(B, NC, dtype=torch.bool,
-                                     device=pc.device)
+            crop_valid = torch.zeros(B, NC, dtype=torch.bool, device=dev)
             refine_logits = proposals.new_zeros(B, NC, 2)
             refine_reg = proposals.new_zeros(B, NC, R)
             refine_accept = score_accept = crop_valid

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from regnet_for_3d_grasping_torch.ops import _cuda
+from regnet_for_3d_grasping_torch.utils import trace
 
 _INF = 1e10
 # shared memory a block can use on the H100, less the kernel's static part
@@ -39,8 +40,10 @@ def dist_init(xyz: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     if mask is not None:
         valid = torch.where(mask.any(dim=1, keepdim=True), mask, valid)
     valid = valid & ~torch.isnan(xyz[..., 0])
-    return torch.where(valid, torch.tensor(_INF, device=xyz.device),
-                       torch.tensor(-1.0, device=xyz.device))
+    return torch.where(
+        valid,
+        trace.to_device(torch.tensor(_INF), xyz.device, "fps.dist_init"),
+        trace.to_device(torch.tensor(-1.0), xyz.device, "fps.dist_init"))
 
 
 def farthest_point_sample(xyz: torch.Tensor, num_samples: int,

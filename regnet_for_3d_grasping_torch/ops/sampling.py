@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from regnet_for_3d_grasping_torch.utils import trace
+
 _U32 = 0xFFFFFFFF
 
 
@@ -107,7 +109,8 @@ def bucket_choice(mask: torch.Tensor, k: int,
     shape = mask_p.shape[:-1] + (k, L)
     m = mask_p.reshape(shape)
     s = torch.where(m, score_p.reshape(shape),
-                    torch.tensor(-math.inf, device=mask.device))
+                    trace.to_device(torch.tensor(-math.inf), mask.device,
+                                    "sampling.bucket_choice"))
     best = torch.argmax(s, dim=-1)
     idx = torch.arange(k, device=mask.device) * L + best
     bucket_valid = m.any(dim=-1)

@@ -46,6 +46,7 @@ from regnet_for_3d_grasping_torch.ops.grouping import group_points
 from regnet_for_3d_grasping_torch.ops.knn import _smallest_k
 from regnet_for_3d_grasping_torch.ops.pooling import (DTYPES, kernel_name,
                                                     scatter_winner)
+from regnet_for_3d_grasping_torch.utils import trace
 
 _TM = 128      # queries per tile (selection and pooling)
 _SCAN = 2048   # rows per scan block
@@ -78,7 +79,8 @@ class SortedCloud(NamedTuple):
 
 
 def _cell_id(x: torch.Tensor, cell: float) -> torch.Tensor:
-    c = torch.tensor(cell, dtype=torch.float32, device=x.device)
+    c = trace.to_device(torch.tensor(cell, dtype=torch.float32), x.device,
+                        "slab.cell_id")
     return torch.clamp(torch.floor(x / c), -1e6, 1e6)
 
 
@@ -93,7 +95,7 @@ def sort_cloud(pc: torch.Tensor, cell: float, u: torch.Tensor | None = None,
         if generator is None:
             raise ValueError("sort_cloud: pass the noise u or a generator")
         u = torch.rand(B, N, generator=generator, dtype=torch.float32)
-    u = u.to(device=pc.device, dtype=torch.float32)
+    u = trace.to_device(u, pc.device, "slab.sort_noise").float()
     sortkey = _cell_id(pc[..., 0].float(), cell) + u * 0.999
     order = torch.sort(sortkey, dim=-1, stable=True).indices
     pc_sorted = torch.gather(pc, 1, order[..., None].expand_as(pc))

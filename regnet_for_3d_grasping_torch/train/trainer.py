@@ -34,6 +34,7 @@ from regnet_for_3d_grasping_torch.config import PipelineConfig
 from regnet_for_3d_grasping_torch.geometry.gt import match_centers_to_gt
 from regnet_for_3d_grasping_torch.models.regnet import REGNet, REGNetOutput
 from regnet_for_3d_grasping_torch.train.losses import regnet_losses
+from regnet_for_3d_grasping_torch.utils import trace
 
 STAGES = ("score", "region", "refine")
 
@@ -50,9 +51,16 @@ class DeviceBatch(NamedTuple):
 
 def device_batch(scene_batch, device) -> DeviceBatch:
     """Host SceneBatch -> DeviceBatch on `device` (drops host-only
-    fields)."""
-    return DeviceBatch(*(torch.from_numpy(getattr(scene_batch, f)).to(device)
-                         for f in DeviceBatch._fields))
+    fields): the span ``data.upload``, each copy from pageable memory a
+    counted wait, their bytes the counter ``upload_bytes``."""
+    with trace.span("data.upload"):
+        out = []
+        for f in DeviceBatch._fields:
+            a = getattr(scene_batch, f)
+            trace.count("upload_bytes", a.nbytes)
+            out.append(trace.to_device(torch.from_numpy(a), device,
+                                       "data.upload"))
+        return DeviceBatch(*out)
 
 
 def learning_rates(cfg: PipelineConfig, epoch: int) -> Tuple[float, float]:
@@ -227,16 +235,24 @@ def train_step(model: REGNet, optimizer: Optimizer, batch: DeviceBatch,
     """One update in training mode; returns the (detached) metrics.
     `forward_kw` goes to `REGNet.forward`: the generators, or explicit
     seeds.  With a `mesh`, `batch` is this rank's shard and the update
-    averages over the mesh (`average_over_mesh`)."""
+    averages over the mesh (`average_over_mesh`).  The span ``step`` >
+    ``forward``, ``backward`` and ``update``, each timed on the card's
+    stream."""
     _check_stage(model.cfg, stage)
-    model.train()
-    optimizer.zero_grad()
-    _, total, metrics = forward_losses(model, batch, stage, **forward_kw)
-    total.backward()
-    if mesh is not None:
-        metrics = average_over_mesh(model, metrics, mesh)
-    optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    dev = batch.pc.device
+    with trace.span("step"):
+        model.train()
+        optimizer.zero_grad()
+        with trace.span("forward", dev):
+            _, total, metrics = forward_losses(model, batch, stage,
+                                               **forward_kw)
+        with trace.span("backward", dev):
+            total.backward()
+        if mesh is not None:
+            metrics = average_over_mesh(model, metrics, mesh)
+        with trace.span("update", dev):
+            optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
 
 
 def _flat_grads(model: REGNet) -> Tuple[List[torch.nn.Parameter],

@@ -9,10 +9,11 @@ import numpy as np
 import torch
 
 from regnet_for_3d_grasping_torch.models.regnet import REGNetOutput
+from regnet_for_3d_grasping_torch.utils import trace
 
 
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _np(t, where: str) -> np.ndarray:
+    return trace.to_host(t.detach(), where).numpy()
 
 
 def extract_grasp_sets(out: REGNetOutput,
@@ -28,15 +29,22 @@ def extract_grasp_sets(out: REGNetOutput,
       grasp_stage3_score    accepted grasps above the score threshold
 
     `stage2_mask` [B, NC] (e.g. the GT-matched mask during validation) is
-    taken within the valid regions."""
-    proposals = _np(out.proposals)[..., :8]
-    final = _np(out.final_grasps)[..., :8]
-    m2 = _np(out.region_valid)
+    taken within the valid regions.  The span ``extract``; each read of
+    the card a counted wait."""
+    with trace.span("extract"):
+        return _grasp_sets(out, stage2_mask)
+
+
+def _grasp_sets(out, stage2_mask):
+    proposals = _np(out.proposals, "extract.proposals")[..., :8]
+    final = _np(out.final_grasps, "extract.final_grasps")[..., :8]
+    m2 = _np(out.region_valid, "extract.region_valid")
     if stage2_mask is not None:
-        m2 = m2 & (_np(stage2_mask) if isinstance(stage2_mask, torch.Tensor)
+        m2 = m2 & (_np(stage2_mask, "extract.stage2_mask")
+                   if isinstance(stage2_mask, torch.Tensor)
                    else np.asarray(stage2_mask, bool))
-    m3 = m2 & _np(out.refine_accept)
-    m3s = m2 & _np(out.score_accept)
+    m3 = m2 & _np(out.refine_accept, "extract.refine_accept")
+    m3s = m2 & _np(out.score_accept, "extract.score_accept")
     return [{"grasp_stage2": proposals[b][m2[b]],
              "grasp_stage3": final[b][m3[b]],
              "grasp_stage3_stage2": proposals[b][m3[b]],
